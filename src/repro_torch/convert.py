@@ -1,0 +1,68 @@
+"""Cross parameters and optimizer state between the two packages by value.
+
+The JAX side hands over ``jax.tree.map(np.asarray, params)``: a nested
+dict of numpy arrays in the JAX layout, which the port shares.  bf16
+leaves arrive as ml_dtypes ``bfloat16`` arrays; they are moved bit for
+bit through a ``uint16`` view (keyed on ``arr.dtype.name``, so neither
+jax nor ml_dtypes is imported here).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_map
+
+
+def tensor_from_numpy(arr, device="cpu"):
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(arr, copy=True).view(np.uint16))
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    return t.to(device)
+
+
+def tensor_to_numpy(t, like=None):
+    """A numpy copy of ``t``.  bf16 tensors come back as ``like.dtype``
+    (an ml_dtypes bfloat16 array from the JAX side) when ``like`` is
+    given, else as exact fp32."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        if like is not None and np.asarray(like).dtype.name == "bfloat16":
+            return t.view(torch.int16).numpy().view(np.asarray(like).dtype)
+        return t.float().numpy()
+    return t.numpy().copy()
+
+
+def params_from_numpy(tree, device="cpu"):
+    """Nested dict of numpy arrays -> nested dict of tensors on
+    ``device``."""
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree)
+
+
+def params_to_numpy(tree, like=None):
+    """Nested dict of tensors -> nested dict of numpy arrays (see
+    :func:`tensor_to_numpy` for bf16 leaves)."""
+    if like is None:
+        return tree_map(tensor_to_numpy, tree)
+    return tree_map(tensor_to_numpy, tree, like)
+
+
+def opt_state_from_numpy(state, device="cpu"):
+    """The JAX optimizer state (``{"step", "m", "v"}`` or ``{"step",
+    "mu"}``) -> the port's (``step`` becomes a Python int)."""
+    out = {"step": int(np.asarray(state["step"]))}
+    for k in ("m", "v", "mu"):
+        if k in state:
+            out[k] = params_from_numpy(state[k], device)
+    return out
+
+
+def opt_state_to_numpy(state):
+    out = {"step": np.asarray(state["step"], np.int32)}
+    for k in ("m", "v", "mu"):
+        if k in state:
+            out[k] = params_to_numpy(state[k])
+    return out

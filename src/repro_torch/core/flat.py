@@ -1,0 +1,115 @@
+"""FlatPlan: the ravel/unravel plan of the flat (n, P) gradient arena.
+
+Counterpart of ``repro.core.flat.FlatPlan``.  Leaves are ordered as
+``jax.tree.flatten`` orders them (dict keys sorted at every level), so
+the offsets are the JAX plan's and the torch arena lines up with the JAX
+arena coordinate for coordinate.
+
+The training step does not build the arena with a concatenate: it
+preallocates the (n, P) arena and copies each agent's gradient straight
+into its row (:meth:`FlatPlan.write_row`) — that copy is the one ravel.
+The aggregate is unraveled once, at optimizer-apply.  Quantization of the
+arena (``quantize_rows`` and friends) comes with ROADMAP.md slice 4.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.tree import tree_items, tree_unflatten
+
+
+def dtype_name(dt: torch.dtype) -> str:
+    return str(dt).replace("torch.", "")
+
+
+@dataclass(frozen=True)
+class FlatPlan:
+    """Ravel/unravel plan.  ``shapes``/``dtypes`` are the per-leaf
+    TRAILING shapes (agent axis stripped); ``offsets[i]:offsets[i] +
+    sizes[i]`` is leaf i's slice of the (n, P) arena; ``total`` is P."""
+    paths: tuple
+    shapes: tuple
+    dtypes: tuple
+    offsets: tuple
+    sizes: tuple
+    total: int
+    uniform_dtype: Optional[str]
+
+    @staticmethod
+    def for_tree(tree) -> "FlatPlan":
+        """The plan of ``tree``, whose leaves carry a leading agent axis."""
+        items = tree_items(tree)
+        return _plan(tuple(p for p, _ in items),
+                     tuple(tuple(l.shape[1:]) for _, l in items),
+                     tuple(dtype_name(l.dtype) for _, l in items))
+
+    @staticmethod
+    def for_proto(proto) -> "FlatPlan":
+        """The plan of a SINGLE-AGENT prototype (no leading agent axis)."""
+        items = tree_items(proto)
+        return _plan(tuple(p for p, _ in items),
+                     tuple(tuple(l.shape) for _, l in items),
+                     tuple(dtype_name(l.dtype) for _, l in items))
+
+    @property
+    def arena_dtype(self) -> torch.dtype:
+        """The uniform leaf dtype when there is one, fp32 otherwise."""
+        return (getattr(torch, self.uniform_dtype) if self.uniform_dtype
+                else torch.float32)
+
+    def empty_arena(self, n: int, device, dtype=None):
+        return torch.empty((n, self.total), device=device,
+                           dtype=dtype if dtype is not None
+                           else self.arena_dtype)
+
+    def write_row(self, arena, i: int, leaves):
+        """Copy one agent's leaves (in plan order) into arena row ``i``."""
+        row = arena[i]
+        for o, s, leaf in zip(self.offsets, self.sizes, leaves):
+            row[o:o + s].copy_(leaf.reshape(-1))
+
+    def leaf_columns(self, arena):
+        """Per-leaf (n, size) column views of the arena, in plan order."""
+        return [arena[:, o:o + s] for o, s in zip(self.offsets, self.sizes)]
+
+    def ravel(self, tree, dtype=None):
+        """(tree with leading n) -> one (n, P) arena."""
+        leaves = [l for _, l in tree_items(tree)]
+        n = leaves[0].shape[0]
+        dt = dtype if dtype is not None else self.arena_dtype
+        return torch.cat([l.reshape(n, -1).to(dt) for l in leaves], dim=1)
+
+    def unravel(self, vec):
+        """(P,) -> single-agent tree (leaf dtypes restored)."""
+        out = [vec[o:o + s].reshape(shp).to(getattr(torch, dt))
+               for o, s, shp, dt in zip(self.offsets, self.sizes,
+                                        self.shapes, self.dtypes)]
+        return tree_unflatten(self.paths, out)
+
+    def unravel_stack(self, arena):
+        """(n, P) -> tree with leading n (leaf dtypes restored)."""
+        n = arena.shape[0]
+        out = [arena[:, o:o + s].reshape((n,) + shp).to(getattr(torch, dt))
+               for o, s, shp, dt in zip(self.offsets, self.sizes,
+                                        self.shapes, self.dtypes)]
+        return tree_unflatten(self.paths, out)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(paths, shapes, dtypes) -> FlatPlan:
+    sizes = tuple(int(torch.Size(s).numel()) for s in shapes)
+    offsets, o = [], 0
+    for s in sizes:
+        offsets.append(o)
+        o += s
+    uniform = dtypes[0] if len(set(dtypes)) == 1 else None
+    return FlatPlan(paths=paths, shapes=shapes, dtypes=dtypes,
+                    offsets=tuple(offsets), sizes=sizes, total=o,
+                    uniform_dtype=uniform)
+
+
+__all__ = ["FlatPlan", "dtype_name"]

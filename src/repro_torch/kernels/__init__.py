@@ -1,0 +1,32 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel of
+the JAX package on the port's path, each beside its plain PyTorch version.
+
+Every wrapper runs its plain version for a CPU tensor and launches its
+kernel (or raises) for a CUDA tensor, and counts its launches in
+``<wrapper>.launches``; :func:`launch_counts` reads them all and
+:func:`reset_launch_counts` sets them to 0."""
+from repro_torch.kernels.coord_stats import coord_stat
+from repro_torch.kernels.dispatch import (KERNEL_RULES, kernel_aggregate,
+                                          kernel_supported)
+from repro_torch.kernels.ops import kernel_krum
+from repro_torch.kernels.pairwise import gram
+from repro_torch.kernels.select import krum_select
+from repro_torch.kernels.wsum import weighted_sum
+
+WRAPPERS = {"coord_stat": coord_stat, "gram": gram,
+            "krum_select": krum_select, "weighted_sum": weighted_sum}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts():
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+__all__ = ["coord_stat", "gram", "krum_select", "weighted_sum",
+           "kernel_krum", "KERNEL_RULES", "kernel_aggregate",
+           "kernel_supported", "WRAPPERS", "launch_counts",
+           "reset_launch_counts"]

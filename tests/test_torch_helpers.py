@@ -1,0 +1,152 @@
+"""Shared harness of the port's parity tests (no tests of its own).
+
+Inputs are made with numpy from a seed and handed to both packages; the
+JAX package runs on the CPU as its own tests run it (Pallas kernels in
+interpret mode).  Weights come from ``repro.models.init_params`` and cross
+through ``repro_torch.convert``.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import repro.optim as jopt
+import repro_torch.optim as topt
+from repro.configs import get_config as jax_get_config
+from repro.core.aggregators import make_spec as jax_make_spec
+from repro.models import init_params as jax_init_params
+from repro.training.step import ByzantineConfig as JaxBz
+from repro.training.step import make_train_step as jax_make_train_step
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.core.aggregators import make_spec
+from repro_torch.core.momentum import init_momentum
+from repro_torch.data import SyntheticLM
+from repro_torch.training import ByzantineConfig, make_train_step
+
+# xdist runs several test processes at once: keep each one's torch small
+torch.set_num_threads(2)
+
+ARCH = "paper-100m-smoke"
+N, F = 8, 2
+SEQ, BATCH = 32, 2
+# the model-level bars (fp32 smoke config; matmul reassociation between
+# XLA and PyTorch)
+LOGIT_TOL = 1e-5
+GRAD_TOL = 1e-4
+
+
+def configs():
+    """(torch cfg, jax cfg): the fp32 smoke config on both sides."""
+    return (get_config(ARCH).replace(dtype="float32"),
+            jax_get_config(ARCH).replace(dtype="float32"))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_params_numpy(seed=0):
+    _, jcfg = configs()
+    return jax.tree.map(np.asarray,
+                        jax_init_params(jcfg, jax.random.PRNGKey(seed)))
+
+
+def leaves_np(tree):
+    """Leaves of a numpy/jax tree in jax.tree.flatten order."""
+    return [np.asarray(x) for x in jax.tree.leaves(tree)]
+
+
+def flat_np(tree):
+    return np.concatenate([x.ravel() for x in leaves_np(tree)])
+
+
+def batch_np(seed, n=N):
+    """(n, b) starts drawn on the JAX side -> the torch batch and the
+    matching JAX batch."""
+    cfg, _ = configs()
+    starts = np.asarray(jax.random.randint(jax.random.PRNGKey(seed),
+                                           (n, BATCH), 0, cfg.vocab_size))
+    tb = SyntheticLM(cfg.vocab_size, SEQ, n, BATCH).batch(starts)
+    jb = {k: jnp.asarray(v.numpy().astype(np.int32)) for k, v in tb.items()}
+    return tb, jb
+
+
+# AdamW's eps sets how far it amplifies an ulp-level difference of a
+# near-zero aggregate coordinate (the update moves by up to lr/eps times
+# that difference); eps = 1e-5 keeps that below the bar, the law is
+# AdamW's own (test_torch_model holds one update at the default eps).
+LR, EPS = 1e-3, 1e-5
+
+
+def _jax_recording(opt):
+    """The JAX optimizer, with the last aggregate kept in its state (the
+    jitted step returns the state, so the aggregate comes out too)."""
+    def init(p):
+        st = opt.init(p)
+        st["agg"] = jax.tree.map(jnp.zeros_like, p)
+        return st
+
+    def update(g, st, p, _step=None):
+        u, st2 = opt.update(g, {k: v for k, v in st.items() if k != "agg"},
+                            p)
+        st2["agg"] = g
+        return u, st2
+    return jopt.Optimizer(init, update)
+
+
+def _torch_recording(opt):
+    def update(g, st, p):
+        u, st2 = opt.update(g, st, p)
+        st2["agg"] = g
+        return u, st2
+    return topt.Optimizer(opt.init, update)
+
+
+def run_slice(rule, alpha, steps=3, attack="sign_flip"):
+    """Run the JAX step (impl="pallas") and the torch step (impl="auto")
+    side by side from the same weights and batches; returns per step
+    (jax loss, torch loss, jax agg, torch agg, jax params, torch params)
+    as numpy."""
+    cfg, jcfg = configs()
+    jp = jax.tree.map(jnp.asarray, jax_params_numpy())
+    tp = params_from_numpy(jax_params_numpy())
+    jo = _jax_recording(jopt.adamw(jopt.constant(LR), eps=EPS))
+    to = _torch_recording(topt.adamw(topt.constant(LR), eps=EPS))
+    jstep = jax.jit(jax_make_train_step(jcfg, JaxBz(
+        n_agents=N, f=F, aggregator=jax_make_spec(rule, f=F, impl="pallas",
+                                                  n=N),
+        attack=attack, momentum_alpha=alpha), jo))
+    spec = make_spec(rule, f=F, n=N)
+    assert spec.impl == "kernel"
+    tstep = make_train_step(cfg, ByzantineConfig(
+        n_agents=N, f=F, aggregator=spec, attack=attack,
+        momentum_alpha=alpha), to, device="cpu")
+    js, ts = jo.init(jp), to.init(tp)
+    jm = tm = None
+    if alpha:
+        jm = jax.tree.map(lambda p: jnp.zeros((N,) + p.shape, jnp.float32),
+                          jp)
+        tm = init_momentum(N, int(flat_np(jax_params_numpy()).size), "cpu")
+    out = []
+    for step in range(steps):
+        tb, jb = batch_np(100 + step)
+        jp, js, jm, jmet = jstep(jp, js, jm, jb, jax.random.PRNGKey(7))
+        tp, ts, tm, tmet = tstep(tp, ts, tm, tb)
+        out.append((float(jmet["loss"]), float(tmet["loss"]),
+                    flat_np(js["agg"]), flat_np(params_to_numpy(ts["agg"])),
+                    flat_np(jp), flat_np(params_to_numpy(tp))))
+    return out
+
+
+def check_slice(rule, alpha):
+    for step, (jl, tl, ja, ta, jpar, tpar) in enumerate(run_slice(rule,
+                                                                  alpha)):
+        msg = f"{rule} alpha={alpha} step {step}"
+        np.testing.assert_allclose(tl, jl, rtol=LOGIT_TOL, atol=LOGIT_TOL,
+                                   err_msg=msg)
+        # the aggregate is an order statistic / selection of gradients:
+        # it is held to the gradient bar
+        np.testing.assert_allclose(ta, ja, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=msg)
+        np.testing.assert_allclose(tpar, jpar, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=msg)

@@ -1,0 +1,118 @@
+"""The port stands alone and runs on the card by default.
+
+* ``repro_torch`` (every module) and ``chip_smoke.py`` import with ``jax``
+  and ``repro`` blocked, and no import statement names either;
+* the entry points (``train_loop``, ``make_train_step``, ``python -m
+  repro_torch.launch.train``) raise on a host without CUDA unless the
+  caller asks for the CPU — and with ``device="cpu"`` they run.
+"""
+import ast
+import math
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.aggregators import make_spec
+from repro_torch.data import SyntheticLM
+from repro_torch.launch import train as launch_train
+from repro_torch.optim import adamw, constant
+from repro_torch.training import ByzantineConfig, make_train_step, train_loop
+
+torch.set_num_threads(2)
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def test_no_import_names_jax_or_repro():
+    for path in PORT_FILES:
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_port_imports_with_jax_and_repro_blocked():
+    code = (
+        "import sys, pkgutil, importlib, runpy\n"
+        "for m in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[m] = None\n"
+        "import repro_torch\n"
+        "for info in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(info.name)\n"
+        "runpy.run_path(sys.argv[1], run_name='not_main')\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def _smoke_setup(n=4, f=1, rule="coordinate_median"):
+    cfg = get_config("paper-100m-smoke")
+    ds = SyntheticLM(cfg.vocab_size, 16, n, 1)
+    bz = ByzantineConfig(n_agents=n, f=f,
+                         aggregator=make_spec(rule, f=f, n=n),
+                         attack="sign_flip")
+    return cfg, ds, bz, adamw(constant(1e-3))
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, ds, bz, opt = _smoke_setup()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_loop(cfg, bz, opt, ds, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(cfg, bz, opt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--smoke", "--steps", "1"])
+
+
+@pytest.mark.parametrize("rule", ["coordinate_median", "trimmed_mean",
+                                  "krum"])
+def test_train_loop_runs_on_cpu_when_asked(rule):
+    cfg, ds, bz, opt = _smoke_setup(rule=rule)
+    logs = []
+    params, hist = train_loop(cfg, bz, opt, ds, steps=2, device="cpu",
+                              log_fn=logs.append)
+    assert len(hist) == 2 and len(logs) == 2
+    assert all(math.isfinite(h["loss"]) for h in hist)
+    assert next(iter(params.values())).device.type == "cpu"
+
+
+def test_cli_runs_on_cpu_when_asked(capsys):
+    hist = launch_train.main(["--smoke", "--device", "cpu", "--steps", "2",
+                              "--n-agents", "4", "--f", "1", "--filter",
+                              "krum", "--attack", "sign_flip",
+                              "--momentum-alpha", "0.1", "--seq-len", "16",
+                              "--per-agent-batch", "1"])
+    assert math.isfinite(hist[-1]["loss"])
+    assert "final loss" in capsys.readouterr().out
+
+
+def test_unported_options_raise_and_name_the_roadmap():
+    cfg, ds, bz, opt = _smoke_setup()
+    import dataclasses
+    for kw in ({"draco_r": 2}, {"agg_dtype": "int8"}, {"group_size": 2},
+               {"attack": "spec_alie"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_train_step(cfg, dataclasses.replace(bz, **kw), opt,
+                            device="cpu")
