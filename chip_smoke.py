@@ -221,7 +221,8 @@ def kernel_checks(num_params):
         pms = time_ms(lambda: weighted_sum_plain(w, x), 5)
         wl = w.to(dtype)
         lms = time_ms(lambda: wl @ x, 5)
-        bms, by = bound(P * s + 4 * P + 4 * N, 2 * P)
+        nsel = int((w > 0).sum())          # rows this w makes it read
+        bms, by = bound(nsel * P * s + 4 * P + 4 * N, 2 * nsel * P)
         check("weighted_sum", err == 0.0, dtype=dname, shape=[N, P],
               weights="krum one-hot", max_abs_diff=err, exact=err == 0.0,
               kernel_ms=ms, plain_ms=pms, library_ms=lms,
