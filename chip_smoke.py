@@ -18,9 +18,10 @@ failure exits non-zero without a result line):
                full-width paper-100m (bf16, n = 8, f = 2, sign_flip,
                seq 256, 2 sequences per agent, remat on), 3 steps each of
                trimmed_mean, coordinate_median and krum through
-               ``train_loop`` with impl="auto"; the launch counts must
-               show that every step went through its kernels;
-   A traced step per rule then splits the device time by operator;
+               ``train_loop`` with impl="auto", after one untimed warm-up
+               step per rule; the launch counts must show that every
+               step went through its kernels.  A traced step per rule
+               then splits the device time by device event;
 4. kernel vs gather — one full-width step with impl="kernel" against
                impl="gather" from the same state and batch: median and
                krum aggregates exact, trimmed mean within 3e-6.
@@ -315,6 +316,9 @@ def phase_train(cfg):
         bz = ByzantineConfig(n_agents=N, f=F,
                              aggregator=make_spec(rule, f=F, n=N),
                              attack="sign_flip", remat=True)
+        # one untimed warm-up step, so that every timed step is warm
+        train_loop(cfg, bz, adamw(constant(1e-4)), ds, steps=1, seed=0,
+                   device=DEVICE, log_fn=lambda s: None)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
@@ -394,10 +398,43 @@ def phase_kernel_vs_gather(cfg):
     torch.use_deterministic_algorithms(False)
 
 
+OUR_KERNELS = ("coord_stat_kernel", "gram_reg_kernel", "gram_partial_kernel",
+               "gram_finish_kernel", "krum_select_kernel", "wsum_kernel")
+
+
+def device_busy(prof):
+    """Device-side events of a trace only (kernels, copies, sets): the
+    union of their intervals in ms, the span from the first start to the
+    last end in ms, and the time per event name.  CPU operator rows are
+    left out: they carry the device time of the kernels they launched,
+    which the kernels' own rows hold already."""
+    from torch.autograd import DeviceType
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    by_name = {}
+    for e in evs:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    span = (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
+    return busy / 1e3, span, by_name
+
+
 def phase_profile(cfg):
-    """One traced step per rule (after a warm-up step): device busy time,
-    the kernels' share of it and the top operators by device time.  Runs
-    after the main path's launch counts are read."""
+    """Per rule, after a warm-up step: one untimed-by-profiler step timed
+    on the host clock, then one traced step.  Reports the device busy
+    time (union of device events), the idle share against the untraced
+    step, the kernels' share of the busy time and the top device events.
+    Runs after the main path's launch counts are read."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.aggregators import make_spec
@@ -420,28 +457,28 @@ def phase_profile(cfg):
         batch = ds.batch(ds.draw_starts(gen))
         step(params, state, None, batch)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, None, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step(params, state, None, batch)
             torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        rows = [(e.key, e.self_device_time_total / 1e3)
-                for e in prof.key_averages()]
-        rows = [r for r in rows if r[1] > 0]
-        busy = sum(t for _, t in rows)
-        ours = sum(t for k, t in rows if any(
-            name in k for name in ("coord_stat_kernel", "gram_reg_kernel",
-                                   "gram_partial_kernel",
-                                   "gram_finish_kernel",
-                                   "krum_select_kernel", "wsum_kernel")))
-        top = sorted(rows, key=lambda r: -r[1])[:8]
-        emit("profile", rule=rule, traced_step_ms=wall_ms,
-             device_busy_ms=busy if rows else "not measured",
-             device_idle_share=(1 - busy / wall_ms) if rows else
+            traced_ms = 1e3 * (time.perf_counter() - t0)
+        busy, span, by_name = device_busy(prof)
+        seen = busy > 0
+        ours = sum(t for k, t in by_name.items()
+                   if any(name in k for name in OUR_KERNELS))
+        top = sorted(by_name.items(), key=lambda r: -r[1])[:8]
+        emit("profile", rule=rule, step_ms=wall_ms, traced_step_ms=traced_ms,
+             device_busy_ms=busy if seen else "not measured",
+             device_span_ms=span if seen else "not measured",
+             device_idle_share=(1 - busy / wall_ms) if seen else
              "not measured",
-             aggregation_kernels_ms=ours,
-             top_device_ops_ms=[[k[:60], t] for k, t in top])
+             aggregation_kernels_ms=ours if seen else "not measured",
+             top_device_events_ms=[[k[:60], t] for k, t in top])
         del state
     del params
     torch.cuda.empty_cache()

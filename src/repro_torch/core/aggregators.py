@@ -54,15 +54,12 @@ def trim_count(n: int, f: int, beta: float | None) -> int:
 
 @dataclass(frozen=True)
 class AggregatorCaps:
-    """What an aggregation rule can do — drives engine dispatch."""
+    """What an aggregation rule can do — drives engine dispatch.  Later
+    slices add the JAX package's other flags with the code that reads
+    them."""
     coordwise: bool = False           # per-coordinate rule
-    weight_decomposable: bool = False  # filter(g) == sum_i w_i g_i exactly
-    iterative: bool = False           # fixed-point / multi-round rule
-    masked_capable: bool = True       # supports mask/weights aggregation
-    sharding_aware: bool = False      # fused impl avoids full-stack gather
-    stateful: bool = False            # carries init_state/update_state
-    staleness_aware: bool = False     # `weights` = raw staleness rounds
     pairwise: bool = False            # statistics derivable from the Gram
+    stateful: bool = False            # carries init_state/update_state
 
 
 @dataclass(frozen=True)
@@ -232,18 +229,17 @@ def make_spec(name: str, f: int = 0, impl: str = "auto",
 
 register_aggregator(
     "mean",
-    caps=AggregatorCaps(weight_decomposable=True, sharding_aware=True),
+    caps=AggregatorCaps(),
     dense_fn=D.mean)
 register_aggregator(
     "krum",
-    caps=AggregatorCaps(weight_decomposable=True, sharding_aware=True,
-                        pairwise=True),
+    caps=AggregatorCaps(pairwise=True),
     dense_fn=D.krum)
 register_aggregator(
     "coordinate_median",
-    caps=AggregatorCaps(coordwise=True, sharding_aware=True),
+    caps=AggregatorCaps(coordwise=True),
     dense_fn=D.coordinate_median)
 register_aggregator(
     "trimmed_mean",
-    caps=AggregatorCaps(coordwise=True, sharding_aware=True),
+    caps=AggregatorCaps(coordwise=True),
     hyper=("beta",), gather=("beta",), dense_fn=D.trimmed_mean)

@@ -113,15 +113,11 @@ def lib():
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         L.rt_coord_stat.argtypes = [vp, i32, vp, i32, i64, i64, i32, i32, vp]
         L.rt_gram.argtypes = [vp, i32, vp, vp, i32, i64, i64, i32, vp]
-        L.rt_gram_smem_bytes.argtypes = [i32]
-        L.rt_gram_chunk.argtypes = [i64, i32]
         L.rt_krum_select.argtypes = [vp, vp, i32, i32, vp]
         L.rt_weighted_sum.argtypes = [vp, vp, i32, vp, i32, i64, i64, vp]
         for fn in ("rt_coord_stat", "rt_gram", "rt_krum_select",
                    "rt_weighted_sum"):
             getattr(L, fn).restype = i32
-        L.rt_gram_smem_bytes.restype = i64
-        L.rt_gram_chunk.restype = i64
         _LIB = L
     return _LIB
 

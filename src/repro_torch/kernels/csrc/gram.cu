@@ -181,7 +181,7 @@ __global__ void gram_finish_kernel(const double* __restrict__ partial,
 }
 
 // Shared memory one partial block needs (the tile, then the lane buffer).
-RT_EXPORT long long rt_gram_smem_bytes(int n) {
+static long long gram_smem_bytes(int n) {
   const int npairs = n * (n + 1) / 2;
   const int lanes = npairs >= kThreads ? 1 : kThreads / npairs;
   const long long tile = (long long)n * kTD * sizeof(float);
@@ -190,7 +190,7 @@ RT_EXPORT long long rt_gram_smem_bytes(int n) {
 }
 
 // Columns per block for a d split over `blocks` blocks (a tile multiple).
-RT_EXPORT long long rt_gram_chunk(long long d, int blocks) {
+static long long gram_chunk(long long d, int blocks) {
   long long c = (d + blocks - 1) / blocks;
   return (c + kTD - 1) / kTD * kTD;
 }
@@ -201,8 +201,8 @@ RT_EXPORT int rt_gram(const void* x, int dtype, double* partial, float* out,
                       void* stream) {
   if (n < 1 || n > 64 || blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long chunk = rt_gram_chunk(d, blocks);
-  const size_t smem = (size_t)rt_gram_smem_bytes(n);
+  const long long chunk = gram_chunk(d, blocks);
+  const size_t smem = (size_t)gram_smem_bytes(n);
   if (dtype == RT_F32) {
     if (!launch_reg((const float*)x, partial, n, d, ld, blocks, s)) {
       cudaFuncSetAttribute(gram_partial_kernel<float>,

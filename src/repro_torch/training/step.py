@@ -21,11 +21,9 @@ ROADMAP.md slice that brings it.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
-
 import torch
 
-from repro_torch.core.aggregators import AggregatorSpec, make_spec
+from repro_torch.core.aggregators import AggregatorSpec
 from repro_torch.core.attacks import ATTACKS, get_attack, make_byzantine_mask
 from repro_torch.core.flat import FlatPlan
 from repro_torch.core.momentum import worker_momentum
@@ -35,17 +33,11 @@ from repro_torch.optim import apply_updates
 from repro_torch.tree import tree_leaves
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, kw_only=True)
 class ByzantineConfig:
     n_agents: int = 16
     f: int = 3
-    # robust aggregation: EITHER a first-class spec (preferred) ...
-    aggregator: Optional[AggregatorSpec] = None
-    # ... or the string triple, resolved to a spec by resolve_spec().
-    # impl: auto | kernel | gather ("fused", the JAX default, is not ported)
-    filter_name: str = "trimmed_mean"
-    filter_hyper: dict = field(default_factory=dict)
-    impl: str = "auto"
+    aggregator: AggregatorSpec          # robust aggregation (make_spec)
     attack: str = "none"
     attack_hyper: dict = field(default_factory=dict)
     momentum_alpha: float = 0.0         # 0 = raw gradients
@@ -56,21 +48,17 @@ class ByzantineConfig:
     reshard: bool = False
 
     def resolve_spec(self) -> AggregatorSpec:
-        """The explicit ``aggregator`` if set (it must agree with the
-        config's f and n), else the string triple compiled to a spec."""
-        if self.aggregator is not None:
-            spec = self.aggregator
-            if spec.f != self.f:
-                raise ValueError(
-                    f"aggregator {spec.describe()} was built for f={spec.f} "
-                    f"but the config declares f={self.f}")
-            if spec.n is not None and spec.n != self.n_agents:
-                raise ValueError(
-                    f"aggregator {spec.describe()} was built for n={spec.n} "
-                    f"but the config declares n_agents={self.n_agents}")
-            return spec
-        return make_spec(self.filter_name, f=self.f, impl=self.impl,
-                         n=self.n_agents, **self.filter_hyper)
+        """The ``aggregator``, checked against the config's f and n."""
+        spec = self.aggregator
+        if spec.f != self.f:
+            raise ValueError(
+                f"aggregator {spec.describe()} was built for f={spec.f} "
+                f"but the config declares f={self.f}")
+        if spec.n is not None and spec.n != self.n_agents:
+            raise ValueError(
+                f"aggregator {spec.describe()} was built for n={spec.n} "
+                f"but the config declares n_agents={self.n_agents}")
+        return spec
 
 
 def _unsupported(bz: ByzantineConfig, bucket, telemetry):
