@@ -26,10 +26,41 @@ failure exits non-zero without a result line):
                impl="gather" from the same state and batch: median and
                krum aggregates exact, trimmed mean within 3e-6.
 
+The async path (ROADMAP.md slice 2) adds:
+
+2b. masked kernels — K5 masked_coord_stat, K6 masked_gram, K7
+               masked_weighted_sum and the imputed mean (through K4)
+               against their plain versions at n = 8, P = 124,668,672 in
+               fp32 (the async arena) and bf16, masks of 6, 1 and 0 of 8
+               arrived, weights one-hot on a live row, one-hot on a ghost
+               and a {0,1} set; K5 at full width at the elastic churn
+               run's bucket masks (3 and 4 of 4, 6 of 6, 7 of 8 live,
+               ghost rows repeating the first slot); the NaN / +-inf /
+               tie hazards and n = 3, 4, 6 at a small width; times,
+               library yardsticks and bounds;
+3b. async    — the full-width configuration of phase 3 under stragglers
+               (lognormal 0.8, quorum 6, max staleness 3: 6 deliveries and
+               staleness up to 2 every step, no step pure) through
+               ``train_loop(sim=...)``: 1 warm-up step, then 4 timed steps
+               per rule; the launch counts must show one K5 per step
+               (median, trimmed) or one each of K4 (the imputed mean), K6,
+               K3 and K7 (krum).  Then the elastic trimmed_mean
+               (f=frac(0.25), n=elastic(8, (4, 6, 8))) for 8 steps under
+               Churn(rate=0.25, mean_out=2.0): live 8, 6, 4, 6, 6, 7, 4,
+               3, exactly 3 bucket steps and 1 synchronous step built.  A
+               traced async step per rule splits the device time;
+4b. masked kernel vs gather — one full-width async step per rule with
+               impl="kernel" against impl="gather" from the same state,
+               buffer, batch and trace row, and the elastic
+               trimmed_mean's bucket steps with ghost rows (3 live in
+               bucket 4, 7 live in bucket 8): median and krum exact,
+               trimmed mean within 3e-6.
+
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
 not available.
 """
+import dataclasses
 import json
 import math
 import os
@@ -38,6 +69,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -51,6 +83,13 @@ RULES = ("trimmed_mean", "coordinate_median", "krum")
 RULE_KERNELS = {"trimmed_mean": ("coord_stat",),
                 "coordinate_median": ("coord_stat",),
                 "krum": ("gram", "krum_select", "weighted_sum")}
+ASYNC_STEPS = 4
+ASYNC_RULE_KERNELS = {
+    "trimmed_mean": ("masked_coord_stat",),
+    "coordinate_median": ("masked_coord_stat",),
+    "krum": ("weighted_sum", "masked_gram", "krum_select",
+             "masked_weighted_sum")}
+CHURN_LIVE = [8, 6, 4, 6, 6, 7, 4, 3]
 SOURCES = {
     "coord_stat": ("src/repro_torch/kernels/csrc/coord_stat.cu",
                    "src/repro/kernels/coord_stats.py:95"),
@@ -60,6 +99,12 @@ SOURCES = {
                     "src/repro/kernels/select.py:106"),
     "weighted_sum": ("src/repro_torch/kernels/csrc/wsum.cu",
                      "src/repro/kernels/wsum.py:45"),
+    "masked_coord_stat": ("src/repro_torch/kernels/csrc/masked_coord_stat.cu",
+                          "src/repro/kernels/masked.py:235"),
+    "masked_gram": ("src/repro_torch/kernels/csrc/masked_gram.cu",
+                    "src/repro/kernels/pairwise.py:89"),
+    "masked_weighted_sum": ("src/repro_torch/kernels/csrc/masked_wsum.cu",
+                            "src/repro/kernels/wsum.py:87"),
 }
 
 
@@ -146,13 +191,14 @@ def kernel_checks(num_params):
     from repro_torch.kernels.wsum import weighted_sum_plain
 
     P = num_params
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    summary = {k: {"max_abs_err": 0.0} for k in SOURCES}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    summary = {k: {"max_abs_err": 0.0} for k in SOURCES
+               if not k.startswith("masked")}
     agg_ms = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
         s = torch.finfo(dtype).bits // 8
-        x = (torch.randn((N, P), generator=gen, device="cuda",
+        x = (torch.randn((N, P), generator=gen, device=DEVICE,
                          dtype=torch.float32) * 1e-3).to(dtype)
         main = dtype == torch.bfloat16       # the main path's arena dtype
         # K1 coord_stat
@@ -255,11 +301,11 @@ def hazard_checks():
     from repro_torch.kernels.select import krum_select_plain
     from repro_torch.kernels.wsum import weighted_sum_plain
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
     d = 4099
     for hazard in ("nan", "inf", "ties", "spots"):
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn((N, d), generator=gen, device="cuda") * 2.0
+            x = torch.randn((N, d), generator=gen, device=DEVICE) * 2.0
             if hazard == "nan":
                 x[1] = math.nan
             elif hazard == "inf":
@@ -297,6 +343,266 @@ def hazard_checks():
             check("hazards", ok, hazard=hazard,
                   dtype=str(dtype).replace("torch.", ""), shape=[N, d],
                   max_abs_diff=errs)
+
+
+# ---------------------------------------------------------------------------
+# phase 2b
+
+
+def arrival_mask(arrived, n=N):
+    """(n,) {0,1} fp32 mask with the first ``arrived`` rows arrived."""
+    m = torch.zeros(n, device=DEVICE)
+    m[:arrived] = 1.0
+    return m
+
+
+def discount_weights(m):
+    """Staleness discounts {1, 1/2, 1/3} on the arrived rows and the
+    normalized wn = w / tot the kernels take."""
+    n = m.shape[0]
+    w = m * torch.tensor([1.0, 0.5, 1.0 / 3.0] * n, device=m.device)[:n]
+    return w, w / torch.clamp_min(w.sum(), 1e-30)
+
+
+def masked_kernel_checks(num_params):
+    """K5, K6, K7 and the imputed mean at the main path's shapes; the
+    summary takes the fp32 arena's numbers (the async arena is fp32)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.masked import masked_coord_stat_plain
+    from repro_torch.kernels.pairwise import masked_gram_plain
+    from repro_torch.kernels.ref import imputed_mean_ref
+    from repro_torch.kernels.select import krum_select_plain
+    from repro_torch.kernels.wsum import masked_weighted_sum_plain
+
+    P = num_params
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    summary = {k: {"max_abs_err": 0.0} for k in SOURCES
+               if k.startswith("masked")}
+    summary["imputed_mean"] = {"max_abs_err": 0.0}
+
+    def note(name, err, timing=None):
+        """Keep the largest error, and the timing of the summary's case."""
+        summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], err)
+        if timing:
+            summary[name].update(
+                ms=timing["kernel_ms"],
+                **{k: timing[k] for k in ("plain_ms", "library_ms",
+                                          "bound_ms", "bound_by")})
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        s = torch.finfo(dtype).bits // 8
+        main = dtype == torch.float32
+        x = (torch.randn((N, P), generator=gen, device=DEVICE,
+                         dtype=torch.float32) * 1e-3).to(dtype)
+        for arrived in (6, 1, 0):
+            m = arrival_mask(arrived)
+            _, wn = discount_weights(m)
+            timed = arrived == 6                  # the straggler rows' mask
+            # K5 masked_coord_stat
+            for stat, b in (("median", 0), ("trimmed_mean", 2)):
+                out = kernels.masked_coord_stat(x, m, wn, stat, b)
+                ref = masked_coord_stat_plain(x, m, wn, stat, b)
+                err = max_abs_err(out, ref)
+                ok = err == 0.0 if stat == "median" else bool(
+                    torch.allclose(out, ref, rtol=TOL, atol=TOL))
+                if arrived == 0:
+                    ok = ok and not bool(out.any())
+                kw = {}
+                if timed:
+                    ms = time_ms(lambda: kernels.masked_coord_stat(
+                        x, m, wn, stat, b), 10)
+                    pms = time_ms(lambda: masked_coord_stat_plain(
+                        x, m, wn, stat, b), 2)
+                    lms = time_ms(lambda: torch.sort(x, dim=0), 2)
+                    bms, by = bound(arrived * P * s + 4 * P,
+                                    N * (N - 1) // 2 * 2 * P)
+                    kw = dict(kernel_ms=ms, plain_ms=pms, library_ms=lms,
+                              library="torch.sort(dim=0)", bound_ms=bms,
+                              bound_by=by)
+                check("masked_coord_stat", ok, stat=stat, dtype=dname,
+                      shape=[N, P], arrived=arrived, max_abs_diff=err,
+                      exact=err == 0.0, **kw)
+                note("masked_coord_stat", err,
+                     main and stat == "trimmed_mean" and kw)
+                del out, ref
+            if arrived == 0:
+                continue
+            # the imputed mean, through K4
+            mean = kernels.imputed_mean(x, wn)
+            ref = imputed_mean_ref(x, wn)
+            err = max_abs_err(mean, ref)
+            ok = bool(torch.allclose(mean.float(), ref.float(), rtol=TOL,
+                                     atol=TOL))
+            kw = {}
+            if timed:
+                ms = time_ms(lambda: kernels.imputed_mean(x, wn), 10)
+                pms = time_ms(lambda: imputed_mean_ref(x, wn), 2)
+                wl = wn.to(dtype)
+                lms = time_ms(lambda: wl @ x, 5)
+                bms, by = bound(arrived * P * s + P * s,
+                                2 * arrived * P)
+                kw = dict(kernel_ms=ms, plain_ms=pms, library_ms=lms,
+                          library="w @ x", bound_ms=bms, bound_by=by)
+            check("imputed_mean", ok, via="weighted_sum", dtype=dname,
+                  shape=[N, P], arrived=arrived, max_abs_diff=err,
+                  exact=err == 0.0, **kw)
+            note("imputed_mean", err, main and kw)
+            # K6 masked_gram, then K3 on it
+            gr = kernels.masked_gram(x, m, wn, mean)
+            ref = masked_gram_plain(x, m, wn, mean)
+            err = max_abs_err(gr, ref)
+            ok = (bool(torch.allclose(gr, ref, rtol=TOL, atol=TOL))
+                  and torch.equal(gr, kernels.masked_gram(x, m, wn, mean)))
+            sel = kernels.krum_select(gr, F)
+            ok = ok and torch.equal(sel, krum_select_plain(gr, F))
+            kw = {}
+            if timed:
+                ms = time_ms(lambda: kernels.masked_gram(x, m, wn, mean), 10)
+                pms = time_ms(lambda: masked_gram_plain(x, m, wn, mean), 2)
+                lms = time_ms(lambda: x @ x.T, 5)
+                bms, by = bound(arrived * P * s + P * s + 4 * N * N,
+                                N * (N + 1) // 2 * 2 * P)
+                kw = dict(kernel_ms=ms, plain_ms=pms, library_ms=lms,
+                          library="x @ x.T", bound_ms=bms, bound_by=by)
+            check("masked_gram", ok, dtype=dname, shape=[N, P],
+                  arrived=arrived, max_abs_diff=err, exact=err == 0.0,
+                  bitwise_repeat=True, krum_select_exact=True, **kw)
+            note("masked_gram", err, main and kw)
+            del gr, ref
+            # K7 masked_weighted_sum: one-hot live, one-hot ghost, a set
+            eye = torch.eye(N, device=DEVICE)
+            cases = [("one-hot live", eye[0], x[0].float())]
+            if arrived < N:
+                cases.append(("one-hot ghost", eye[N - 1], mean.float()))
+                cases.append(("{0,1} set", eye[0] + eye[1] + eye[N - 1],
+                              None))
+            for label, w, want in cases:
+                out = kernels.masked_weighted_sum(w, x, m, mean)
+                ref = masked_weighted_sum_plain(w, x, m, mean)
+                err = max_abs_err(out, ref)
+                if want is None:
+                    ok = bool(torch.allclose(out, ref, rtol=TOL, atol=TOL))
+                else:
+                    err = max(err, max_abs_err(out, want))
+                    ok = err == 0.0
+                kw = {}
+                if timed and label == "one-hot live":
+                    ms = time_ms(lambda: kernels.masked_weighted_sum(
+                        w, x, m, mean), 10)
+                    pms = time_ms(lambda: masked_weighted_sum_plain(
+                        w, x, m, mean), 5)
+                    wl = w.to(dtype)
+                    lms = time_ms(lambda: wl @ x, 5)
+                    bms, by = bound(P * s + 4 * P + 8 * N, 2 * P)
+                    kw = dict(kernel_ms=ms, plain_ms=pms, library_ms=lms,
+                              library="w @ x", bound_ms=bms, bound_by=by)
+                check("masked_weighted_sum", ok, weights=label, dtype=dname,
+                      shape=[N, P], arrived=arrived, max_abs_diff=err,
+                      exact=err == 0.0, **kw)
+                note("masked_weighted_sum", err, main and kw)
+                del out, ref
+            del mean
+        del x
+        torch.cuda.empty_cache()
+    note("masked_coord_stat", masked_bucket_checks(P, gen))
+    masked_hazard_checks()
+    return summary
+
+
+# (bucket n, live rows, trimmed b = the bucket's f): the masks that the
+# elastic churn run of phase 3b gives K5 (live 6, 4, 7 and 3 of buckets 6,
+# 4, 8 and 4), the ghost rows packed as repeats of the first live slot
+CHURN_BUCKETS = ((4, 4, 1), (4, 3, 1), (6, 6, 1), (8, 7, 2))
+
+
+def masked_bucket_checks(P, gen):
+    """K5 at full width, fp32 (the async arena), at the elastic churn
+    run's bucket shapes and masks: median exact, trimmed mean within
+    3e-6 of the plain version.  Returns the largest error."""
+    from repro_torch import kernels
+    from repro_torch.kernels.masked import masked_coord_stat_plain
+
+    x = torch.randn((N, P), generator=gen, device=DEVICE) * 1e-3
+    worst = 0.0
+    for n, live, b in CHURN_BUCKETS:
+        xb = x[:n]
+        xb[live:] = xb[0]                      # ghost rows: the first slot
+        m = arrival_mask(live, n)
+        _, wn = discount_weights(m)
+        for stat, bb in (("median", 0), ("trimmed_mean", b)):
+            out = kernels.masked_coord_stat(xb, m, wn, stat, bb)
+            ref = masked_coord_stat_plain(xb, m, wn, stat, bb)
+            err = max_abs_err(out, ref)
+            ok = err == 0.0 if stat == "median" else bool(
+                torch.allclose(out, ref, rtol=TOL, atol=TOL))
+            check("masked_coord_stat", ok, stat=stat, dtype="float32",
+                  shape=[n, P], arrived=live, bucket=True, max_abs_diff=err,
+                  exact=err == 0.0)
+            worst = max(worst, err)
+            del out, ref
+    del x
+    torch.cuda.empty_cache()
+    return worst
+
+
+def masked_hazard_checks():
+    """NaN in an arrived row, NaN / +-inf in an absent row, +-inf arrived
+    rows, ties, at a small width and n = 3, 4, 6, 8."""
+    from repro_torch import kernels
+    from repro_torch.kernels.masked import masked_coord_stat_plain
+    from repro_torch.kernels.pairwise import masked_gram_plain
+    from repro_torch.kernels.wsum import masked_weighted_sum_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    d = 4099
+    for n in (3, 4, 6, 8):
+        b = min(2 if n == 8 else 1, (n - 1) // 2)
+        m = arrival_mask(max(n - 2, 1), n)
+        _, wn = discount_weights(m)
+        live, absent = int(m.sum()), n - int(m.sum())
+        for hazard in ("nan", "absent", "inf", "ties"):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((n, d), generator=gen, device=DEVICE) * 2.0
+                if hazard == "nan":
+                    x[0] = math.nan
+                elif hazard == "absent" and absent:
+                    x[n - 1, ::2] = math.nan
+                    x[n - 1, 1::2] = math.inf
+                elif hazard == "inf":
+                    x[0], x[live - 1] = math.inf, -math.inf
+                elif hazard == "ties":
+                    x[:live] = x[0].clone()
+                    x[:, ::3] = torch.round(x[:, ::3])
+                x = x.to(dtype)
+                errs, ok = {}, True
+                for stat, bb in (("median", 0), ("trimmed_mean", b)):
+                    out = kernels.masked_coord_stat(x, m, wn, stat, bb)
+                    ref = masked_coord_stat_plain(x, m, wn, stat, bb)
+                    errs[stat] = max_abs_err(out, ref)
+                    ok = ok and (errs[stat] == 0.0 if stat == "median"
+                                 else bool(torch.allclose(
+                                     out, ref, rtol=TOL, atol=TOL,
+                                     equal_nan=True)))
+                    if hazard == "absent":
+                        ok = ok and bool(torch.isfinite(out).all())
+                if hazard in ("absent", "ties"):
+                    mean = kernels.imputed_mean(x, wn)
+                    gr = kernels.masked_gram(x, m, wn, mean)
+                    ref = masked_gram_plain(x, m, wn, mean)
+                    errs["masked_gram"] = max_abs_err(gr, ref)
+                    ok = ok and bool(torch.allclose(gr, ref, rtol=TOL,
+                                                    atol=TOL))
+                    w = kernels.krum_select(gr, 1)
+                    out = kernels.masked_weighted_sum(w, x, m, mean)
+                    errs["masked_weighted_sum"] = max_abs_err(
+                        out, masked_weighted_sum_plain(w, x, m, mean))
+                    ok = (ok and errs["masked_weighted_sum"] == 0.0
+                          and bool(torch.isfinite(out).all()))
+                torch.cuda.synchronize()
+                check("masked_hazards", ok, hazard=hazard, n=n,
+                      arrived=live, dtype=str(dtype).replace("torch.", ""),
+                      shape=[n, d], max_abs_diff=errs)
 
 
 # ---------------------------------------------------------------------------
@@ -398,8 +704,273 @@ def phase_kernel_vs_gather(cfg):
     torch.use_deterministic_algorithms(False)
 
 
+def straggler_sim():
+    from repro_torch.simulator import SimConfig, Straggler
+    return SimConfig(faults=(Straggler("lognormal", 0.8),), quorum=6,
+                     max_staleness=3, seed=0)
+
+
+def phase_async(cfg):
+    """The async path at full width: 1 warm-up + 4 timed steps per rule
+    under stragglers, then the elastic trimmed_mean under churn.  Launch
+    counts are reset just before each run and read just after."""
+    from repro_torch import kernels
+    from repro_torch.core.aggregators import elastic, frac, make_spec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.obs.counters import counter_delta, snapshot
+    from repro_torch.optim import adamw, constant
+    from repro_torch.simulator import Churn, SimConfig, plan_arrivals
+    from repro_torch.training import ByzantineConfig, train_loop
+
+    sim = straggler_sim()
+    tr = plan_arrivals(sim, N, 6)
+    if (tr.contrib.sum(1).tolist() != [6] * 6
+            or tr.staleness.max(1).tolist() != [0, 1, 2, 1, 2, 1]):
+        fail(f"straggler trace changed: arrived {tr.contrib.sum(1)}, "
+             f"max staleness {tr.staleness.max(1)}")
+    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT)
+    totals = {k: 0 for k in SOURCES}
+    step_ms_by_rule = {}
+    for rule in RULES:
+        bz = ByzantineConfig(n_agents=N, f=F,
+                             aggregator=make_spec(rule, f=F, n=N),
+                             attack="sign_flip", remat=True)
+        train_loop(cfg, bz, adamw(constant(1e-4)), ds, steps=1, seed=0,
+                   device=DEVICE, sim=sim, log_fn=lambda s: None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = snapshot()
+        kernels.reset_launch_counts()
+        _, hist = train_loop(cfg, bz, adamw(constant(1e-4)), ds,
+                             steps=ASYNC_STEPS, seed=0, device=DEVICE,
+                             sim=sim, log_every=1, log_fn=lambda s: None)
+        counts = kernels.launch_counts()
+        torch.cuda.synchronize()
+        built = counter_delta(before)
+        peak = torch.cuda.max_memory_allocated()
+        wall = [h["wall_s"] for h in hist]
+        step_ms = [1e3 * (b - a) for a, b in zip([0.0] + wall[:-1], wall)]
+        losses = [h["loss"] for h in hist]
+        want = {k: (ASYNC_STEPS if k in ASYNC_RULE_KERNELS[rule] else 0)
+                for k in SOURCES}
+        step_ms_by_rule[rule] = statistics.median(step_ms)
+        emit("async", rule=rule, impl=bz.aggregator.impl, steps=ASYNC_STEPS,
+             arrived=[h["arrived"] for h in hist],
+             staleness_mean=[h["staleness_mean"] for h in hist],
+             losses=losses, step_ms=step_ms,
+             median_step_ms=step_ms_by_rule[rule], peak_mem_gb=peak / 1e9,
+             launches=counts, steps_built=built)
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"async {rule}: non-finite loss {losses}")
+        if counts != want:
+            fail(f"async {rule}: kernel launches {counts}, expected {want}")
+        if built != {"async_step": 1}:
+            fail(f"async {rule}: built {built}, expected one async step")
+        for k, v in counts.items():
+            totals[k] += v
+
+    # elastic membership under churn: one step build per bucket
+    spec = make_spec("trimmed_mean", f=frac(0.25), n=elastic(N, (4, 6, 8)))
+    bz = ByzantineConfig(n_agents=N, f=F, aggregator=spec,
+                         attack="sign_flip", remat=True)
+    sim = SimConfig(faults=(Churn(rate=0.25, mean_out=2.0),), seed=0)
+    before = snapshot()
+    kernels.reset_launch_counts()
+    _, hist = train_loop(cfg, bz, adamw(constant(1e-4)), ds,
+                         steps=len(CHURN_LIVE), seed=0, device=DEVICE,
+                         sim=sim, log_every=1, log_fn=lambda s: None)
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    built = counter_delta(before)
+    live = [h["n_live"] for h in hist]
+    losses = [h["loss"] for h in hist]
+    wall = [h["wall_s"] for h in hist]
+    step_ms = [1e3 * (b - a) for a, b in zip([0.0] + wall[:-1], wall)]
+    want = {k: 0 for k in SOURCES}
+    want.update(coord_stat=1, masked_coord_stat=len(CHURN_LIVE) - 1)
+    emit("async_elastic", rule="trimmed_mean", spec=spec.describe(),
+         n_live=live, losses=losses, step_ms=step_ms, launches=counts,
+         steps_built=built)
+    if live != CHURN_LIVE:
+        fail(f"churn trace changed: live {live}, expected {CHURN_LIVE}")
+    if built != {"async_step": 3, "train_step": 1}:
+        fail(f"elastic run built {built}, expected 3 bucket async steps "
+             "and 1 synchronous step")
+    if counts != want:
+        fail(f"elastic run launches {counts}, expected {want}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"elastic run: non-finite loss {losses}")
+    for k, v in counts.items():
+        totals[k] += v
+    return totals, step_ms_by_rule
+
+
+def async_setup(cfg, seed):
+    """Full-width parameters, a nonzero fp32 in-flight buffer, a batch and
+    row 2 of the straggler trace (max staleness 2), all from ``seed``."""
+    from repro_torch.core.flat import FlatPlan
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.models import init_params
+    from repro_torch.simulator import plan_arrivals, staleness_weights
+
+    gen = make_generator(seed, DEVICE)
+    params = init_params(cfg, gen)
+    total = FlatPlan.for_proto(params).total
+    buffer = torch.randn((N, total), generator=gen, device=DEVICE) * 1e-3
+    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT)
+    batch = ds.batch(ds.draw_starts(gen))
+    sim = straggler_sim()
+    tr = plan_arrivals(sim, N, 3)
+    cw = torch.from_numpy(staleness_weights(sim, tr)[2]).to(DEVICE)
+    return params, buffer, batch, tr.refresh[2], cw
+
+
+def phase_profile_async(cfg):
+    """Per rule, one async step (row 2 of the straggler trace) after a
+    warm-up step: untraced on the host clock, then traced; device busy
+    time, idle share and the top device events, as phase_profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.aggregators import make_spec
+    from repro_torch.optim import adamw, constant
+    from repro_torch.simulator import make_async_step
+    from repro_torch.training import ByzantineConfig
+
+    params, buffer, batch, refresh, cw = async_setup(cfg, 5)
+    for rule in RULES:
+        opt = adamw(constant(1e-4))
+        bz = ByzantineConfig(n_agents=N, f=F,
+                             aggregator=make_spec(rule, f=F, n=N),
+                             attack="sign_flip", remat=True)
+        step = make_async_step(cfg, bz, opt, device=DEVICE)
+        state = opt.init(params)
+        args = (batch, None, refresh, cw)
+        step(params, state, None, buffer, {}, *args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, None, buffer, {}, *args)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(params, state, None, buffer, {}, *args)
+            torch.cuda.synchronize()
+            traced_ms = 1e3 * (time.perf_counter() - t0)
+        busy, span, by_name = device_busy(prof)
+        seen = busy > 0
+        ours = sum(t for k, t in by_name.items()
+                   if any(name in k for name in OUR_KERNELS))
+        top = sorted(by_name.items(), key=lambda r: -r[1])[:8]
+        emit("profile_async", rule=rule, step_ms=wall_ms,
+             traced_step_ms=traced_ms,
+             device_busy_ms=busy if seen else "not measured",
+             device_span_ms=span if seen else "not measured",
+             device_idle_share=(1 - busy / wall_ms) if seen else
+             "not measured",
+             aggregation_kernels_ms=ours if seen else "not measured",
+             top_device_events_ms=[[k[:60], t] for k, t in top])
+        del state
+    del params, buffer
+    torch.cuda.empty_cache()
+
+
+def phase_masked_vs_gather(cfg):
+    """One full-width async step per rule with impl="kernel" and with
+    impl="gather", from the same parameters, buffer, batch and trace row,
+    then the same for the elastic trimmed_mean's bucket steps with ghost
+    rows (3 live in bucket 4, 7 live in bucket 8): the aggregates must
+    agree (median and krum exact, trimmed 3e-6)."""
+    from repro_torch.core.aggregators import (AggregatorSpec, elastic,
+                                              frac, make_spec)
+    from repro_torch.optim import adamw, constant
+    from repro_torch.simulator import make_async_step
+    from repro_torch.training import ByzantineConfig
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    base, buffer, batch, refresh, cw = async_setup(cfg, 6)
+    aggs = {}
+
+    class Recorded(AggregatorSpec):
+        """The spec, keeping the fp32 aggregate vector it returns."""
+        def aggregate_flat(self, stack, *args, **kw):
+            aggs[self.impl] = super().aggregate_flat(stack, *args, **kw)
+            return aggs[self.impl]
+
+    for rule in RULES:
+        losses = {}
+        for impl in ("kernel", "gather"):
+            s = make_spec(rule, f=F, impl=impl, n=N)
+            spec = Recorded(name=s.name, f=s.f, hyper=s.hyper, impl=s.impl,
+                            n=s.n)
+            bz = ByzantineConfig(n_agents=N, f=F, aggregator=spec,
+                                 attack="sign_flip", remat=True)
+            opt = adamw(constant(1e-4))
+            step = make_async_step(cfg, bz, opt, device=DEVICE)
+            params = _clone(base)
+            _, _, _, _, _, met = step(params, opt.init(params), None,
+                                      buffer.clone(), {}, batch, None,
+                                      refresh, cw)
+            losses[impl] = float(met["loss"])
+            del params
+        torch.cuda.empty_cache()
+        agree(rule, aggs, losses, arrived=int((cw > 0).sum()))
+
+    # the elastic trimmed_mean's bucket steps that carry ghost rows: the
+    # live roster packed into buckets 4 and 8 as the churn run packs it
+    for live in ((1, 3, 6), (0, 1, 2, 3, 4, 5, 7)):
+        spec_e = make_spec("trimmed_mean", f=frac(0.25),
+                           n=elastic(N, (4, 6, 8)))
+        b, idx, valid = spec_e.elastic.pack(np.asarray(live))
+        cw_b = torch.zeros(N, device=DEVICE)
+        cw_b[list(live)] = 1.0
+        refresh_b = np.zeros(N, bool)
+        refresh_b[list(live)] = True
+        losses = {}
+        for impl in ("kernel", "gather"):
+            s = make_spec("trimmed_mean", f=frac(0.25), impl=impl,
+                          n=elastic(N, (4, 6, 8)))
+            spec = Recorded(**{k.name: getattr(s, k.name)
+                               for k in dataclasses.fields(s)})
+            bz = ByzantineConfig(n_agents=N, f=F, aggregator=spec,
+                                 attack="sign_flip", remat=True)
+            opt = adamw(constant(1e-4))
+            step = make_async_step(cfg, bz, opt, device=DEVICE, bucket=int(b))
+            params = _clone(base)
+            _, _, _, _, _, met = step(
+                params, opt.init(params), None, buffer.clone(), {}, batch,
+                None, refresh_b, cw_b, False,
+                torch.as_tensor(idx, dtype=torch.int64, device=DEVICE),
+                torch.as_tensor(valid, device=DEVICE))
+            losses[impl] = float(met["loss"])
+            del params
+        torch.cuda.empty_cache()
+        agree("trimmed_mean", aggs, losses, arrived=len(live),
+              bucket=int(b))
+    torch.use_deterministic_algorithms(False)
+    del buffer
+
+
+def agree(rule, aggs, losses, **kw):
+    """The kernel and gather aggregates of one step: median and krum
+    exact, trimmed mean within 3e-6."""
+    err = max_abs_err(aggs["kernel"], aggs["gather"])
+    if rule == "trimmed_mean":
+        ok = bool(torch.allclose(aggs["kernel"], aggs["gather"], rtol=TOL,
+                                 atol=TOL))
+    else:
+        ok = err == 0.0
+    emit("masked_vs_gather", rule=rule, ok=ok, max_abs_diff=err, **kw,
+         loss_kernel=losses["kernel"], loss_gather=losses["gather"])
+    if not ok:
+        fail(f"async {rule} {kw}: kernel aggregate differs from gather by "
+             f"{err}")
+
+
 OUR_KERNELS = ("coord_stat_kernel", "gram_reg_kernel", "gram_partial_kernel",
-               "gram_finish_kernel", "krum_select_kernel", "wsum_kernel")
+               "gram_finish_kernel", "krum_select_kernel", "wsum_kernel",
+               "masked_wsum_kernel")
 
 
 def device_busy(prof):
@@ -510,19 +1081,26 @@ def main():
     card = phase_device()
     cfg = get_config("paper-100m")
     summary, _ = kernel_checks(num_params(cfg))
+    summary.update(masked_kernel_checks(num_params(cfg)))
     totals = phase_train(cfg)
+    async_totals, async_step_ms = phase_async(cfg)
     phase_profile(cfg)
+    phase_profile_async(cfg)
     phase_kernel_vs_gather(cfg)
+    phase_masked_vs_gather(cfg)
     kern = []
     for name, (src, replaces) in SOURCES.items():
         s = summary[name]
         kern.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": totals[name],
+                     "replaces": replaces,
+                     "launches": totals[name] + async_totals[name],
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": s["bound_by"],
                      "library_ms": s["library_ms"]})
-    emit("done", seconds=round(time.time() - t0, 1))
+    emit("done", seconds=round(time.time() - t0, 1),
+         imputed_mean=summary["imputed_mean"],
+         async_median_step_ms=async_step_ms)
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def tensor_from_numpy(arr, device="cpu"):
@@ -48,6 +48,17 @@ def params_to_numpy(tree, like=None):
     if like is None:
         return tree_map(tensor_to_numpy, tree)
     return tree_map(tensor_to_numpy, tree, like)
+
+
+def arena_from_numpy(tree, device="cpu"):
+    """A tree of (n, ...) numpy leaves (the JAX async loop's fp32 in-flight
+    buffer, or its worker momentum) -> the port's (n, P) fp32 arena, the
+    leaves' columns in FlatPlan order."""
+    leaves = [np.asarray(l) for l in tree_leaves(tree)]
+    n = leaves[0].shape[0]
+    arena = np.concatenate([l.reshape(n, -1).astype(np.float32)
+                            for l in leaves], axis=1)
+    return torch.from_numpy(arena).to(device)
 
 
 def opt_state_from_numpy(state, device="cpu"):

@@ -1,15 +1,15 @@
 """Robust-aggregation registry: typed, validated specs (registry core).
 
-Counterpart of ``repro.core.aggregators`` for the synchronous path of the
-port's first slice:
+Counterpart of ``repro.core.aggregators`` for the rules of the port's
+first two slices:
 
 * :class:`AggregatorCaps` / :class:`AggregatorDef` / :func:`register_aggregator`
   — the single extension point;
 * :class:`AggregatorSpec` / :func:`make_spec` — a frozen handle naming a
   rule plus its static configuration (``f``, hyper-parameters, ``impl``),
   hyper keys validated at build time;
-* ``spec.aggregate`` / ``spec.aggregate_flat`` — the synchronous engine
-  over a pytree or a pre-raveled (n, P) arena.
+* ``spec.aggregate`` / ``spec.aggregate_flat`` — the engine over a
+  pytree or a pre-raveled (n, P) arena, synchronous or masked.
 
 Registered so far: ``mean``, ``coordinate_median``, ``trimmed_mean`` and
 ``krum``.  Impls:
@@ -23,16 +23,26 @@ Registered so far: ``mean``, ``coordinate_median``, ``trimmed_mean`` and
 * ``fused`` — the JAX package's leaf-wise, sharding-aware impl: not
   ported yet (ROADMAP.md slice 11, distribution); asking for it raises.
 
-The masked/weighted engine, elastic specs, wrappers, state and telemetry
-come with ROADMAP.md slices 2, 3, 6 and 7.
+Masked / staleness-weighted aggregation (``mask=``, ``weights=``): the
+coordinate-wise rules take the order statistic over the ARRIVED rows only
+(absent rows are +inf sort sentinels, the rank window follows the
+arrived count), krum runs on the mean-imputed stack, mean is the exact
+weighted mean of the arrived rows; each but mean is then scaled by the
+mean arrived weight.  ``impl="kernel"`` runs the fused masked kernels
+(K5-K7).  Elastic membership: ``make_spec(..., f=frac(r),
+n=elastic(n_max, buckets))`` and ``spec.respecialize(n_live)``.
+
+Wrappers, state and telemetry come with ROADMAP.md slices 3, 6 and 7.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.filters import dense as D
@@ -46,6 +56,107 @@ def trim_count(n: int, f: int, beta: float | None) -> int:
     """Per-side trim count of the coordinate-wise trimmed mean."""
     b = int(math.ceil((beta if beta is not None else f / n) * n)) if n else 0
     return min(b, (n - 1) // 2)
+
+
+# ---------------------------------------------------------------------------
+# elastic membership: n as a bucketed range, f as a live-roster policy
+
+
+@dataclass(frozen=True)
+class ElasticN:
+    """A bucketed range of live agent counts for elastic-n specs: a live
+    roster of ``n_live`` agents is served by the smallest bucket >=
+    n_live (live rows packed into the bucket's stack, surplus slots are
+    ghost rows masked out).  Build via :func:`elastic`."""
+    n_max: int
+    buckets: Tuple[int, ...]
+
+    def __post_init__(self):
+        if not self.buckets:
+            raise ValueError("elastic: need at least one bucket")
+        if list(self.buckets) != sorted(set(self.buckets)):
+            raise ValueError(
+                f"elastic: buckets must be strictly ascending, got "
+                f"{self.buckets}")
+        if self.buckets[-1] != self.n_max or self.buckets[0] < 1:
+            raise ValueError(
+                f"elastic: buckets must lie in [1, n_max={self.n_max}] and "
+                f"end at n_max, got {self.buckets}")
+
+    def bucket_for(self, n_live: int) -> int:
+        """Smallest bucket capacity serving ``n_live`` live agents."""
+        if n_live > self.n_max:
+            raise ValueError(
+                f"n_live={n_live} exceeds the elastic n_max={self.n_max}")
+        if n_live < 1:
+            raise ValueError(f"n_live must be >= 1, got {n_live}")
+        return next(b for b in self.buckets if b >= n_live)
+
+    def pack(self, live):
+        """``live``: ascending live agent slots (>= 1 entry) -> ``(bucket,
+        idx, valid)``: ``idx`` (bucket,) int32, the live slots padded by
+        REPEATING the first live slot, and ``valid`` (bucket,) bool
+        marking the real ones."""
+        live = np.asarray(live, np.int32)
+        b = self.bucket_for(len(live))       # raises on an empty roster
+        idx = np.concatenate([live, np.full(b - len(live), live[0],
+                                            np.int32)])
+        valid = np.arange(b) < len(live)
+        return b, idx, valid
+
+
+def elastic(n_max: int, buckets: int | Tuple[int, ...] = 3,
+            n_min: int | None = None) -> ElasticN:
+    """Elastic agent count for ``make_spec(..., n=elastic(n_max, ...))``:
+    an explicit ascending tuple of capacities ending at ``n_max``, or a
+    bucket COUNT spread evenly over [n_min (default ~n_max/2), n_max]."""
+    if isinstance(buckets, int):
+        lo = n_min if n_min is not None else max(1, (n_max + 1) // 2)
+        if not 1 <= lo <= n_max:
+            raise ValueError(f"n_min={lo} outside [1, n_max={n_max}]")
+        k = max(1, int(buckets))
+        if k == 1:
+            return ElasticN(n_max=n_max, buckets=(n_max,))
+        pts = np.unique(np.linspace(lo, n_max, k).round().astype(int))
+        return ElasticN(n_max=n_max, buckets=tuple(int(b) for b in pts))
+    return ElasticN(n_max=n_max, buckets=tuple(int(b) for b in buckets))
+
+
+@dataclass(frozen=True)
+class FracF:
+    """A Byzantine-budget POLICY: ``f = max(min_f, floor(ratio * n))``,
+    re-derived per elastic bucket.  Build via :func:`frac`."""
+    ratio: float
+    min_f: int = 0
+
+    def __post_init__(self):
+        if not 0.0 <= self.ratio < 1.0:
+            raise ValueError(f"frac ratio must be in [0, 1), got "
+                             f"{self.ratio}")
+
+    def resolve(self, n: int) -> int:
+        # the epsilon guards fp products landing just below an integer
+        # (0.29 * 100 == 28.999999999999996)
+        return max(self.min_f, int(np.floor(self.ratio * n + 1e-9)))
+
+
+def frac(ratio: float, min_f: int = 0) -> FracF:
+    """``f=frac(0.2)``: tolerate 20% of the LIVE roster per bucket."""
+    return FracF(ratio=ratio, min_f=min_f)
+
+
+def staleness_discount_table(s, weighting: str = "poly",
+                             power: float = 1.0, gamma: float = 0.7):
+    """Staleness rounds -> discount multipliers: ``none`` -> 1, ``poly``
+    -> (1+s)^-power, ``exp`` -> gamma^s.  Plain operators, so it works
+    on numpy float64 (host-side trace planning) and tensors alike."""
+    if weighting == "none":
+        return s * 0.0 + 1.0
+    if weighting == "poly":
+        return (1.0 + s) ** (-power)
+    if weighting == "exp":
+        return gamma ** s
+    raise KeyError(weighting)
 
 
 # ---------------------------------------------------------------------------
@@ -70,6 +181,10 @@ class AggregatorDef:
     hyper_keys: frozenset          # allowed hyper-parameter names
     gather_keys: frozenset         # hyper forwarded to the dense gather fn
     dense_fn: Optional[Callable] = None    # (stack, f, **hyper) -> (P,)
+    # masked-law override (stack, wn) -> (P,) fp32, wn = w / tot: rules
+    # whose masked law is not impute-then-scale (mean's exact weighted
+    # mean of the arrived rows)
+    masked_fn: Optional[Callable] = None
 
 
 REGISTRY: dict[str, AggregatorDef] = {}
@@ -77,13 +192,14 @@ REGISTRY: dict[str, AggregatorDef] = {}
 
 def register_aggregator(name: str, *, caps: AggregatorCaps,
                         hyper: tuple = (), gather: tuple = (),
-                        dense_fn=None):
+                        dense_fn=None, masked_fn=None):
     """Register an aggregation rule (raises on a duplicate name)."""
     if name in REGISTRY:
         raise ValueError(f"aggregator {name!r} already registered")
     REGISTRY[name] = AggregatorDef(
         name=name, caps=caps, hyper_keys=frozenset(hyper),
-        gather_keys=frozenset(gather), dense_fn=dense_fn)
+        gather_keys=frozenset(gather), dense_fn=dense_fn,
+        masked_fn=masked_fn)
     return REGISTRY[name]
 
 
@@ -107,7 +223,11 @@ class AggregatorSpec:
     f: int = 0
     hyper: tuple = ()                 # sorted ((key, value), ...)
     impl: str = "gather"              # kernel | gather
-    n: Optional[int] = None           # static agent count
+    n: Optional[int] = None           # static agent count (n_max if elastic)
+    # elastic-n: the bucketed live-count range this spec was built for;
+    # ``respecialize(n_live)`` selects the per-bucket concrete spec
+    elastic: Optional[ElasticN] = None
+    f_policy: Optional[FracF] = None  # f re-derived per bucket when set
 
     @property
     def caps(self) -> AggregatorCaps:
@@ -122,7 +242,18 @@ class AggregatorSpec:
 
     def describe(self) -> str:
         h = ", ".join(f"{k}={v}" for k, v in self.hyper)
-        return f"{self.name}(f={self.f}{', ' + h if h else ''})"
+        el = (f", elastic[{'/'.join(map(str, self.elastic.buckets))}]"
+              if self.elastic else "")
+        return f"{self.name}(f={self.f}{', ' + h if h else ''}{el})"
+
+    def respecialize(self, n_live: int) -> "AggregatorSpec":
+        """The concrete spec serving a live roster of ``n_live`` agents:
+        for an elastic spec the smallest bucket >= n_live, equal to a
+        fresh ``make_spec(name, f=f_b, impl=..., n=b, **hyper)`` and the
+        SAME object on every call for that bucket (prebuilt at
+        ``make_spec`` time).  A static spec returns itself when n matches
+        (or was never pinned) and raises otherwise."""
+        return _respecialize(self, n_live)
 
     @property
     def flat_capable(self) -> bool:
@@ -133,22 +264,35 @@ class AggregatorSpec:
     def aggregate(self, grads, mask=None, weights=None, state=None):
         """Aggregate per-agent gradients (leading axis = agent): a tree of
         (n, ...) leaves or an (n, P) stack.  Returns the same structure
-        without the agent axis (leaf dtypes restored for a tree)."""
+        without the agent axis (leaf dtypes restored for a tree).
+
+        ``mask`` (n,) bool — rows that arrived (None = all); ``weights``
+        (n,) float — per-agent multipliers (staleness discounts), zeroed
+        where ``mask`` is False."""
         if isinstance(grads, torch.Tensor):
             return self.aggregate_flat(grads, mask, weights, state)
         plan = FlatPlan.for_tree(grads)
-        vec = self.aggregate_flat(plan.ravel(grads, torch.float32), mask,
-                                  weights, state)
-        return plan.unravel(vec)
+        if mask is None and weights is None:
+            vec = self.aggregate_flat(plan.ravel(grads, torch.float32),
+                                      state=state)
+            return plan.unravel(vec)
+        if plan.uniform_dtype is not None:
+            # ravel in the leaves' own dtype: the engine's double rounding
+            # through the arena dtype is then the tree engine's per-leaf
+            # rounding (bit-for-bit with the JAX masked tree path)
+            return plan.unravel(self.aggregate_flat(
+                plan.ravel(grads), mask, weights, state))
+        raise NotImplementedError(
+            "masked aggregation of a tree with mixed leaf dtypes comes "
+            "with ROADMAP.md slice 4 (the per-dtype arenas)")
 
     def aggregate_flat(self, stack, mask=None, weights=None, state=None,
                        scale=None):
         """Aggregate a pre-raveled (n, P) arena (fp32 or bf16) -> (P,)
         fp32.  The kernel impl reads the arena in its own dtype; the
-        gather impl takes an fp32 view or copy, as the JAX engine does."""
-        if mask is not None or weights is not None:
-            raise NotImplementedError(
-                "masked/weighted aggregation comes with ROADMAP.md slice 2")
+        gather impl takes an fp32 view or copy, as the JAX engine does.
+        With ``mask``/``weights`` the masked law of the rule applies (see
+        the module docstring)."""
         if scale is not None:
             raise NotImplementedError(
                 "quantized arenas come with ROADMAP.md slice 4")
@@ -159,13 +303,118 @@ class AggregatorSpec:
             raise ValueError(f"{self.describe()} was built for n={self.n}, "
                              f"got a stack of {stack.shape[0]} rows")
         d = get_aggregator_def(self.name)
-        if self.impl == "kernel":
-            from repro_torch.kernels import kernel_aggregate
-            return kernel_aggregate(self.name, stack, self.f, self.hyper)
-        if self.impl == "gather":
-            hyper = {k: v for k, v in self.hyper if k in d.gather_keys}
-            return d.dense_fn(stack.float(), self.f, **hyper)
+        if mask is None and weights is None:
+            return _flat_sync_vec(self, d, stack)
+        if mask is None:
+            mask = torch.ones((stack.shape[0],), dtype=torch.bool,
+                              device=stack.device)
+        return _flat_masked_vec(self, d, stack, mask, weights)
+
+
+@functools.lru_cache(maxsize=None)
+def _respecialize(spec: AggregatorSpec, n_live: int) -> AggregatorSpec:
+    """Cached: repeat calls for the same (spec, n_live) return the SAME
+    object."""
+    if spec.elastic is None:
+        if spec.n is None or spec.n == n_live:
+            return spec
+        raise ValueError(
+            f"{spec.describe()} was built for static n={spec.n}, not "
+            f"n_live={n_live} — build it with n=elastic(...) to allow "
+            "membership changes")
+    return _bucket_spec(spec, spec.elastic.bucket_for(n_live))
+
+
+@functools.lru_cache(maxsize=None)
+def _bucket_spec(spec: AggregatorSpec, b: int) -> AggregatorSpec:
+    """The concrete per-bucket spec of an elastic spec (cached)."""
+    f_b = spec.f_policy.resolve(b) if spec.f_policy is not None else spec.f
+    out = dataclasses.replace(spec, n=b, f=f_b, elastic=None, f_policy=None)
+    _warm_plan(out, b)
+    return out
+
+
+def _warm_plan(spec: AggregatorSpec, n: int):
+    """Precompute per-(n, f) static work at spec-build time."""
+    if spec.name == "trimmed_mean":
+        trim_count(n, spec.f, spec.hp("beta"))
+
+
+# ---------------------------------------------------------------------------
+# engine
+
+
+def _flat_sync_vec(spec, d, stack):
+    """(n, P) arena -> (P,) fp32, synchronous."""
+    if spec.impl == "kernel":
+        from repro_torch.kernels import kernel_aggregate
+        return kernel_aggregate(spec.name, stack, spec.f, spec.hyper)
+    if spec.impl == "gather":
+        hyper = {k: v for k, v in spec.hyper if k in d.gather_keys}
+        return d.dense_fn(stack.float(), spec.f, **hyper)
+    raise NotImplementedError(_FUSED_MSG)
+
+
+def _masked_prelude(mask, weights):
+    """(mask bool, w = weights * mask fp32, cnt >= 1, tot >= 1e-30), all
+    on the mask's device (no host sync)."""
+    mask = mask.to(torch.bool)
+    mf = mask.float()
+    w = mf if weights is None else weights.float() * mf
+    cnt = torch.clamp_min(torch.sum(mf), 1.0)
+    tot = torch.clamp_min(torch.sum(w), 1e-30)
+    return mask, w, cnt, tot
+
+
+# the coordinate-wise rules whose masked law is the order statistic over
+# the ARRIVED rows only (absent rows are +inf sort sentinels).  Imputing
+# them at the delivered mean is not robust: the mean is attack-
+# contaminated, so ghost rows land inside the trim window.  The JAX
+# package's sign_sgd, phocas and mean_around_median join with slices 3-4.
+_ARRIVED_STAT_RULES = ("coordinate_median", "trimmed_mean")
+
+
+def _arrived_coord_vec(spec, xf, mask):
+    """(n, P) fp32 -> (P,) fp32: the statistic over the arrived rows
+    (the gather oracle :func:`repro_torch.kernels.ref.masked_stat_ref`)."""
+    from repro_torch.kernels import ref
+    if spec.name == "coordinate_median":
+        return ref.masked_stat_ref(xf, mask, None, "median")
+    b = trim_count(xf.shape[0], spec.f, spec.hp("beta"))
+    return ref.masked_stat_ref(xf, mask, None, "trimmed_mean", b=b)
+
+
+def _flat_masked_vec(spec, d, stack, mask, weights):
+    """Masked/weighted flat path: the arrived-window law for the
+    coordinate-wise rules, the impute-at-delivered-mean law for krum,
+    each scaled by tot/cnt (an explicit 0 when no weight was delivered);
+    mean's exact weighted mean.  ``impl="kernel"`` fuses the law into the
+    masked kernels: no masked (n, P) copy is made, and the mask, the
+    weights and the counts stay on the device."""
+    mask, w, cnt, tot = _masked_prelude(mask, weights)
+    if d.masked_fn is not None:
+        return d.masked_fn(stack, w / tot)
+    # the zero-total guard: tot == sum(w) whenever sum(w) > 0
+    scale = torch.where(torch.sum(w) > 0, tot / cnt,
+                        torch.zeros((), device=w.device))
+
+    def scaled(vec):
+        # the tree engine rounds the aggregate to the leaf dtype before
+        # it scales; the round trip through the arena dtype keeps bf16
+        # arenas bit-for-bit with it (a no-op for fp32)
+        return vec.to(stack.dtype).float() * scale
+
+    if spec.impl == "kernel":
+        from repro_torch.kernels import kernel_masked_aggregate
+        return scaled(kernel_masked_aggregate(
+            spec.name, stack, mask.float(), w / tot, spec.f, spec.hyper))
+    if spec.impl != "gather":
         raise NotImplementedError(_FUSED_MSG)
+    if d.caps.coordwise and spec.name in _ARRIVED_STAT_RULES:
+        return scaled(_arrived_coord_vec(spec, stack.float(), mask))
+    from repro_torch.kernels import ref
+    imputed = ref.masked_impute_ref(stack, mask, w / tot)
+    return scaled(_flat_sync_vec(spec, d, imputed))
 
 
 _FUSED_MSG = ("impl='fused' (the leaf-wise, sharding-aware impl) is not "
@@ -203,25 +452,53 @@ def _resolve_impl(name: str, impl: str) -> str:
     return impl
 
 
-def make_spec(name: str, f: int = 0, impl: str = "auto",
-              n: int | None = None, **hyper) -> AggregatorSpec:
+def make_spec(name: str, f: "int | FracF" = 0, impl: str = "auto",
+              n: "int | ElasticN | None" = None, **hyper) -> AggregatorSpec:
     """Build a validated :class:`AggregatorSpec` (unknown hyper keys and
-    unsupported impls raise here)."""
+    unsupported impls raise here).
+
+    ``n=elastic(n_max, buckets=...)`` builds an ELASTIC spec: every
+    bucket's concrete spec is prebuilt here and
+    :meth:`AggregatorSpec.respecialize` selects it.  ``f`` may then be a
+    :func:`frac` policy, re-derived per bucket (a plain int f is carried
+    unchanged)."""
     d = get_aggregator_def(name)
+    el = n if isinstance(n, ElasticN) else None
+    n_int = el.n_max if el is not None else n
+    f_policy = f if isinstance(f, FracF) else None
+    if f_policy is not None:
+        if n_int is None:
+            raise ValueError(
+                f"{name}: f=frac(...) needs n= to resolve the budget — "
+                "pass n=<int> or n=elastic(...)")
+        f = f_policy.resolve(n_int)
+        if el is None:
+            f_policy = None           # static n: nothing to re-derive
     if not isinstance(f, int) or f < 0:
-        raise ValueError(f"f must be an int >= 0, got {f!r} (frac(...) "
-                         "budgets come with ROADMAP.md slice 2)")
-    if n is not None and not isinstance(n, int):
-        raise NotImplementedError("elastic n comes with ROADMAP.md slice 2")
+        raise ValueError(f"f must be an int >= 0 or frac(...), got {f!r}")
+    if n_int is not None and not isinstance(n_int, int):
+        raise ValueError(f"n must be an int or elastic(...), got {n!r}")
     for k in hyper:
         if k not in d.hyper_keys:
             raise ValueError(f"{name}: unknown hyper-parameter {k!r} "
                              f"(allowed: {sorted(d.hyper_keys)})")
     spec = AggregatorSpec(name=name, f=f, hyper=tuple(sorted(hyper.items())),
-                          impl=_resolve_impl(name, impl), n=n)
-    if n is not None and name == "trimmed_mean":
-        trim_count(n, f, spec.hp("beta"))
+                          impl=_resolve_impl(name, impl), n=n_int,
+                          elastic=el, f_policy=f_policy)
+    if el is not None:
+        for b in el.buckets:          # prebuild every bucket's spec NOW
+            _bucket_spec(spec, b)
+    elif n_int is not None:
+        _warm_plan(spec, n_int)
     return spec
+
+
+def _mean_masked(stack, wn):
+    """Exact weighted mean of the arrived rows (no imputation, no scale):
+    ``wn`` is w / tot, zero on absent rows; summed as the fused
+    multiply-add chain of the jitted JAX step."""
+    from repro_torch.kernels import ref
+    return ref.fma_weighted_sum(wn, stack)
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +507,7 @@ def make_spec(name: str, f: int = 0, impl: str = "auto",
 register_aggregator(
     "mean",
     caps=AggregatorCaps(),
-    dense_fn=D.mean)
+    dense_fn=D.mean, masked_fn=_mean_masked)
 register_aggregator(
     "krum",
     caps=AggregatorCaps(pairwise=True),

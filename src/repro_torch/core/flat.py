@@ -55,6 +55,11 @@ class FlatPlan:
                      tuple(tuple(l.shape) for _, l in items),
                      tuple(dtype_name(l.dtype) for _, l in items))
 
+    def as_dtype(self, dtype: str) -> "FlatPlan":
+        """The same layout with every leaf in ``dtype`` (the fp32 in-flight
+        buffer of a bf16 model unravels to fp32 leaves)."""
+        return _plan(self.paths, self.shapes, (dtype,) * len(self.paths))
+
     @property
     def arena_dtype(self) -> torch.dtype:
         """The uniform leaf dtype when there is one, fp32 otherwise."""

@@ -6,15 +6,21 @@ kernel (or raises) for a CUDA tensor, and counts its launches in
 ``<wrapper>.launches``; :func:`launch_counts` reads them all and
 :func:`reset_launch_counts` sets them to 0."""
 from repro_torch.kernels.coord_stats import coord_stat
-from repro_torch.kernels.dispatch import (KERNEL_RULES, kernel_aggregate,
+from repro_torch.kernels.dispatch import (KERNEL_MASKED_RULES, KERNEL_RULES,
+                                          kernel_aggregate,
+                                          kernel_masked_aggregate,
                                           kernel_supported)
-from repro_torch.kernels.ops import kernel_krum
-from repro_torch.kernels.pairwise import gram
+from repro_torch.kernels.masked import masked_coord_stat
+from repro_torch.kernels.ops import kernel_krum, kernel_krum_masked
+from repro_torch.kernels.pairwise import gram, imputed_mean, masked_gram
 from repro_torch.kernels.select import krum_select
-from repro_torch.kernels.wsum import weighted_sum
+from repro_torch.kernels.wsum import masked_weighted_sum, weighted_sum
 
 WRAPPERS = {"coord_stat": coord_stat, "gram": gram,
-            "krum_select": krum_select, "weighted_sum": weighted_sum}
+            "krum_select": krum_select, "weighted_sum": weighted_sum,
+            "masked_coord_stat": masked_coord_stat,
+            "masked_gram": masked_gram,
+            "masked_weighted_sum": masked_weighted_sum}
 
 
 def launch_counts() -> dict:
@@ -27,6 +33,8 @@ def reset_launch_counts():
 
 
 __all__ = ["coord_stat", "gram", "krum_select", "weighted_sum",
-           "kernel_krum", "KERNEL_RULES", "kernel_aggregate",
-           "kernel_supported", "WRAPPERS", "launch_counts",
-           "reset_launch_counts"]
+           "masked_coord_stat", "masked_gram", "masked_weighted_sum",
+           "imputed_mean", "kernel_krum", "kernel_krum_masked",
+           "KERNEL_RULES", "KERNEL_MASKED_RULES", "kernel_aggregate",
+           "kernel_masked_aggregate", "kernel_supported", "WRAPPERS",
+           "launch_counts", "reset_launch_counts"]

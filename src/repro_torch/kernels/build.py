@@ -115,8 +115,15 @@ def lib():
         L.rt_gram.argtypes = [vp, i32, vp, vp, i32, i64, i64, i32, vp]
         L.rt_krum_select.argtypes = [vp, vp, i32, i32, vp]
         L.rt_weighted_sum.argtypes = [vp, vp, i32, vp, i32, i64, i64, vp]
+        L.rt_masked_coord_stat.argtypes = [vp, i32, vp, vp, i32, i64, i64,
+                                           i32, i32, vp]
+        L.rt_masked_gram.argtypes = [vp, i32, vp, vp, vp, vp, i32, i64, i64,
+                                     i32, vp]
+        L.rt_masked_weighted_sum.argtypes = [vp, vp, i32, vp, vp, vp, i32,
+                                             i64, i64, vp]
         for fn in ("rt_coord_stat", "rt_gram", "rt_krum_select",
-                   "rt_weighted_sum"):
+                   "rt_weighted_sum", "rt_masked_coord_stat",
+                   "rt_masked_gram", "rt_masked_weighted_sum"):
             getattr(L, fn).restype = i32
         _LIB = L
     return _LIB

@@ -23,26 +23,17 @@
 // predicates, so it is the n-row network whatever MAXN is.
 #include "coord_stat.cuh"
 
-template <typename T>
-static int dispatch(const void* x, float* out, int n, long long d,
-                    long long ld, int stat, int b, cudaStream_t s) {
-  if (n <= 4) coord_stat_launch<4, T>(x, out, n, d, ld, stat, b, s);
-  else if (n <= 8) coord_stat_launch<8, T>(x, out, n, d, ld, stat, b, s);
-  else if (n <= 16) coord_stat_launch<16, T>(x, out, n, d, ld, stat, b, s);
-  else if (n <= 32) coord_stat_launch<32, T>(x, out, n, d, ld, stat, b, s);
-  else if (n <= 64) coord_stat_launch<64, T>(x, out, n, d, ld, stat, b, s);
-  else return (int)cudaErrorInvalidValue;
-  return rt_status();
-}
-
 // stat: 0 = median, 1 = trimmed mean with b per side.
 RT_EXPORT int rt_coord_stat(const void* x, int dtype, float* out, int n,
                             long long d, long long ld, int stat, int b,
                             void* stream) {
   if (d <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == RT_F32) return dispatch<float>(x, out, n, d, ld, stat, b, s);
+  if (dtype == RT_F32)
+    return coord_stat_dispatch<float, false>(x, nullptr, out, n, d, ld, stat,
+                                             b, s);
   if (dtype == RT_BF16)
-    return dispatch<__nv_bfloat16>(x, out, n, d, ld, stat, b, s);
+    return coord_stat_dispatch<__nv_bfloat16, false>(x, nullptr, out, n, d,
+                                                     ld, stat, b, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,11 @@
-// coord_stat for 32-row register capacity, __nv_bfloat16 input (one
-// translation unit per instance: they compile in parallel).
+// coord_stat for 32-row register capacity, __nv_bfloat16 input: K1's
+// plain and K5's masked instance (one translation unit per capacity
+// and dtype: they compile in parallel).
 #include "coord_stat.cuh"
 
-template void coord_stat_launch<32, __nv_bfloat16>(
-    const void*, float*, int, long long, long long, int, int, cudaStream_t);
+template void coord_stat_launch<32, __nv_bfloat16, false>(
+    const void*, const float*, float*, int, long long, long long, int, int,
+    cudaStream_t);
+template void coord_stat_launch<32, __nv_bfloat16, true>(
+    const void*, const float*, float*, int, long long, long long, int, int,
+    cudaStream_t);

@@ -1,6 +1,11 @@
-// coord_stat for 64-row register capacity, float input (one
-// translation unit per instance: they compile in parallel).
+// coord_stat for 64-row register capacity, float input: K1's
+// plain and K5's masked instance (one translation unit per capacity
+// and dtype: they compile in parallel).
 #include "coord_stat.cuh"
 
-template void coord_stat_launch<64, float>(
-    const void*, float*, int, long long, long long, int, int, cudaStream_t);
+template void coord_stat_launch<64, float, false>(
+    const void*, const float*, float*, int, long long, long long, int, int,
+    cudaStream_t);
+template void coord_stat_launch<64, float, true>(
+    const void*, const float*, float*, int, long long, long long, int, int,
+    cudaStream_t);

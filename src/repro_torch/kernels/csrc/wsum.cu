@@ -11,10 +11,11 @@
 // Design: each block first lists the selected rows (w_i > 0) in shared
 // memory, so the per-coordinate loop touches only those and carries no
 // weight loads or branches; then a grid-stride loop over coordinates (a
-// few blocks per SM) sums the selected rows in row order, in fp32,
-// starting from the first selected term, so a one-hot w returns exactly
-// the selected row's bits and 0 * inf from a rejected row cannot reach
-// the sum.
+// few blocks per SM) sums the selected rows in row order, in fp32, as a
+// chain of fused multiply-adds starting from the first selected product
+// (the arithmetic the jitted JAX step compiles sum(w * x) to), so a
+// one-hot w returns exactly the selected row's bits and 0 * inf from a
+// rejected row cannot reach the sum.
 #include "common.cuh"
 
 namespace {
@@ -48,8 +49,8 @@ wsum_kernel(const float* __restrict__ w, const T* __restrict__ x,
        j += stride) {
     float acc = 0.f;
     for (int k = 0; k < m; ++k) {
-      const float t = wsel[k] * to_f32(x[(long long)sel[k] * ld + j]);
-      acc = k ? acc + t : t;
+      const float v = to_f32(x[(long long)sel[k] * ld + j]);
+      acc = k ? __fmaf_rn(wsel[k], v, acc) : wsel[k] * v;
     }
     out[j] = acc;
   }

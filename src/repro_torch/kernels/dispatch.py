@@ -1,16 +1,19 @@
 """Caps-driven kernel dispatch: rule name -> kernel implementation.
 
-Counterpart of the synchronous table of ``repro.kernels.dispatch``
-(``PALLAS_RULES`` there, ``KERNEL_RULES`` here).  Every entry takes the
-(n, P) arena in its native dtype (fp32 or bf16: the kernels upcast in
-registers, so no fp32 (n, P) copy is made) and returns the (P,) fp32
-aggregate.  The masked, scaled and remaining selection tables come with
-ROADMAP.md slices 2-4.
+Counterpart of the synchronous and masked tables of
+``repro.kernels.dispatch`` (``PALLAS_RULES`` / ``PALLAS_MASKED_RULES``
+there, ``KERNEL_RULES`` / ``KERNEL_MASKED_RULES`` here).  Every entry
+takes the (n, P) arena in its native dtype (fp32 or bf16: the kernels
+upcast in registers, so no fp32 (n, P) copy is made) and returns the (P,)
+fp32 aggregate; the masked entries also take the (n,) fp32 mask and the
+normalized weights wn = w / tot, on the arena's device.  The scaled and
+remaining selection tables come with ROADMAP.md slices 3-4.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.coord_stats import coord_stat
-from repro_torch.kernels.ops import kernel_krum
+from repro_torch.kernels.masked import masked_coord_stat
+from repro_torch.kernels.ops import kernel_krum, kernel_krum_masked
 
 
 def _trim_b(n: int, f: int, hyper: dict) -> int:
@@ -46,3 +49,39 @@ def kernel_aggregate(name: str, stack, f: int, hyper: tuple = ()):
     """stack: (n, P) fp32 or bf16 -> (P,) fp32 via the rule's kernels.
     ``hyper`` is the spec's sorted static hyper tuple."""
     return KERNEL_RULES[name](stack, f, dict(hyper))
+
+
+# masked rules: the coordinate statistics take the arrived-window law
+# inside K5, krum the mean-imputed law inside K6 and K7
+
+
+def _masked_median(stack, mask, wn, f, hyper):
+    return masked_coord_stat(stack, mask, wn, "median")
+
+
+def _masked_trimmed_mean(stack, mask, wn, f, hyper):
+    return masked_coord_stat(stack, mask, wn, "trimmed_mean",
+                             b=_trim_b(stack.shape[0], f, hyper))
+
+
+def _masked_krum(stack, mask, wn, f, hyper):
+    return kernel_krum_masked(stack, mask, wn, f)
+
+
+KERNEL_MASKED_RULES = {
+    "coordinate_median": _masked_median,
+    "trimmed_mean": _masked_trimmed_mean,
+    "krum": _masked_krum,
+}
+
+
+def kernel_masked_aggregate(name: str, stack, mask, wn, f: int,
+                            hyper: tuple = ()):
+    """stack: (n, P) fp32 or bf16, mask: (n,) {0,1} fp32, wn: (n,) fp32
+    -> (P,) fp32 masked statistic via the rule's kernels (the engine
+    applies the tot/cnt scale)."""
+    if name not in KERNEL_MASKED_RULES:
+        raise NotImplementedError(
+            f"{name}: no masked kernel path yet (the other masked rules "
+            "come with ROADMAP.md slices 3-4)")
+    return KERNEL_MASKED_RULES[name](stack, mask, wn, f, dict(hyper))

@@ -1,36 +1,35 @@
-"""K4: the weighted sum w^T G over the agent axis.
+"""K4 and K7: the weighted sum w^T G over the agent axis, plain and over
+the mean-imputed stack.
 
-Replaces the Pallas TPU kernel ``repro/kernels/wsum.py:weighted_sum`` with
-the CUDA kernel ``csrc/wsum.cu``, which also fuses the caller's
-``_drop_unselected`` (``repro/kernels/ops.py:53-59``): rows with w <= 0 are
-skipped, never read, so a rejected +-inf row cannot leak 0 * inf.
+* K4 :func:`weighted_sum` replaces the Pallas TPU kernel
+  ``repro/kernels/wsum.py:weighted_sum`` with the CUDA kernel
+  ``csrc/wsum.cu``, which also fuses the caller's ``_drop_unselected``
+  (``repro/kernels/ops.py:53-59``): rows with w <= 0 are skipped, never
+  read, so a rejected +-inf row cannot leak 0 * inf.
+* K7 :func:`masked_weighted_sum` replaces
+  ``repro/kernels/wsum.py:masked_weighted_sum`` with
+  ``csrc/masked_wsum.cu``: live rows with w > 0 are read raw, and the
+  ghost weight (the absent rows' total) multiplies the (d,) imputed mean,
+  so the imputed stack is never built.
 
-:func:`weighted_sum` launches the kernel for a CUDA tensor and runs the
-plain version :func:`weighted_sum_plain` for a CPU tensor.
-``weighted_sum.launches`` counts kernel launches.
+Each wrapper launches its kernel for a CUDA tensor and runs its plain
+version for a CPU tensor; ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 MAX_N = 64
 
 
 def weighted_sum_plain(w, g):
-    """(n,), (n, d) -> (d,) fp32: sum over rows with w_i > 0, in row
-    order, starting from the first selected term (a one-hot w returns the
-    selected row's values exactly; an all-zero w returns zeros)."""
-    wf = w.float()
-    acc = None
-    for i in torch.nonzero(wf > 0).flatten().tolist():
-        t = wf[i] * g[i].float()
-        acc = t if acc is None else acc + t
-    if acc is None:
-        return torch.zeros((g.shape[1],), dtype=torch.float32,
-                           device=g.device)
-    return acc
+    """(n,), (n, d) -> (d,) fp32: the fused multiply-add chain over rows
+    with w_i > 0, in row order (:func:`ref.fma_weighted_sum`; a one-hot w
+    returns the selected row's values exactly; an all-zero w returns
+    zeros)."""
+    return ref.fma_weighted_sum(w, g)
 
 
 def weighted_sum(w, g):
@@ -61,3 +60,72 @@ def weighted_sum(w, g):
 
 
 weighted_sum.launches = 0
+
+
+def masked_weighted_sum_plain(w, g, mask, mean):
+    """(n,), (n, d), (n,), (d,) -> (d,) fp32: the fused multiply-add chain
+    over the live rows with w_i > 0, in row order, then one more fused
+    step with the ghost weight (the absent rows' w, summed in row order)
+    and the mean, only when that weight is > 0."""
+    wf = w.float()
+    live = mask.float() > 0.5
+    acc = ref.fma_weighted_sum(torch.where(live, wf, 0.0), g)
+    ghost = torch.zeros((), dtype=torch.float32, device=g.device)
+    for i in torch.nonzero(~live).flatten().tolist():
+        ghost = ghost + wf[i]
+    if float(ghost) > 0:
+        any_live = bool((wf * live > 0).any())
+        acc = ref.fma_f32(ghost, mean, acc if any_live else None)
+    return acc
+
+
+def masked_weighted_sum(w, g, mask, mean):
+    """w: (n,) fp32 NON-NEGATIVE weights, g: (n, d) fp32 or bf16, mask:
+    (n,) {0,1} fp32 (1 = arrived), mean: (d,) imputed mean in g's dtype
+    -> (d,) fp32 weighted sum over the mean-imputed stack.
+
+    ``w >= 0`` is the caller's precondition, as in the JAX kernel: the
+    kernel gates rows on w > 0, so a negative weight would be dropped, not
+    subtracted.  The plain version (a CPU tensor) refuses one; on the card
+    the check would cost a host sync, and the one caller (Krum's one-hot
+    from K3) is {0,1} by construction."""
+    if g.dim() != 2 or w.shape != (g.shape[0],) or mask.shape != w.shape:
+        raise ValueError(f"masked_weighted_sum: shapes w {tuple(w.shape)}, "
+                         f"g {tuple(g.shape)}, mask {tuple(mask.shape)}")
+    if not 1 <= g.shape[0] <= MAX_N:
+        raise ValueError(f"masked_weighted_sum: n={g.shape[0]} outside "
+                         f"[1, {MAX_N}]")
+    if mean.shape != (g.shape[1],) or mean.dtype != g.dtype:
+        raise ValueError(f"masked_weighted_sum: mean {tuple(mean.shape)} "
+                         f"{mean.dtype} for a stack {tuple(g.shape)} "
+                         f"{g.dtype}")
+    if g.device.type == "cpu":
+        if bool(torch.any(w < 0)):
+            raise ValueError("masked_weighted_sum: weights must be >= 0 (a "
+                             "negative weight would be dropped, not "
+                             "subtracted)")
+        return masked_weighted_sum_plain(w, g, mask, mean)
+    if g.device.type != "cuda" or {w.device, mask.device,
+                                   mean.device} != {g.device}:
+        raise ValueError(f"masked_weighted_sum: w on {w.device}, g on "
+                         f"{g.device}, mask on {mask.device}, mean on "
+                         f"{mean.device}")
+    if g.stride(1) != 1 or not mean.is_contiguous():
+        raise ValueError("masked_weighted_sum: rows and mean must be "
+                         "contiguous")
+    for name, t in (("w", w), ("mask", mask)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"masked_weighted_sum: {name} must be "
+                             "contiguous float32")
+    code = build.dtype_code(g)
+    n, d = g.shape
+    out = torch.empty((d,), dtype=torch.float32, device=g.device)
+    rc = build.lib().rt_masked_weighted_sum(
+        w.data_ptr(), g.data_ptr(), code, mask.data_ptr(), mean.data_ptr(),
+        out.data_ptr(), n, d, g.stride(0), build.stream_ptr(g))
+    build.check(rc, "masked_weighted_sum")
+    masked_weighted_sum.launches += 1
+    return out
+
+
+masked_weighted_sum.launches = 0

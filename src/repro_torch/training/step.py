@@ -13,10 +13,16 @@ The survey's server-based BGD framework (Algorithm 2), on one card:
      hand-written CUDA kernels;
   5. one unravel, then the server-side optimizer applies the update.
 
-Restricted to the plain synchronous case: ``bucket=None``, ``draco_r=0``,
-no ``agg_dtype``, ``group_size=1``, ``reshard=False``, stateless specs and
-static attacks.  Everything else raises ``NotImplementedError`` naming the
-ROADMAP.md slice that brings it.
+``bucket`` (elastic membership): gradients are still computed for all n
+agents, but the rule runs over the LIVE roster packed into a (bucket,)
+stack (``roster_idx``, padded by repeating a live slot, and
+``roster_valid`` marking the real slots), with the bucket's respecialized
+spec.  Each build counts once as ``"train_step"``
+(:mod:`repro_torch.obs.counters`).
+
+Restricted to ``draco_r=0``, no ``agg_dtype``, ``group_size=1``,
+``reshard=False``, stateless specs and static attacks.  Everything else
+raises ``NotImplementedError`` naming the ROADMAP.md slice that brings it.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from repro_torch.core.flat import FlatPlan
 from repro_torch.core.momentum import worker_momentum
 from repro_torch.device import resolve_device
 from repro_torch.models import loss_fn
+from repro_torch.obs.counters import count_trace
 from repro_torch.optim import apply_updates
 from repro_torch.tree import tree_leaves
 
@@ -61,9 +68,9 @@ class ByzantineConfig:
         return spec
 
 
-def _unsupported(bz: ByzantineConfig, bucket, telemetry):
-    if bucket is not None:
-        return "elastic membership (bucket=) comes with ROADMAP.md slice 2"
+def unsupported(bz: ByzantineConfig, telemetry=False):
+    """Why ``bz`` cannot run on the port yet (naming the ROADMAP.md slice),
+    or None."""
     if bz.draco_r:
         return "coded aggregation (draco_r) comes with ROADMAP.md slice 5"
     if bz.agg_dtype:
@@ -79,29 +86,39 @@ def _unsupported(bz: ByzantineConfig, bucket, telemetry):
     return None
 
 
-def attack_arena(attack_fn, gen, plan: FlatPlan, arena, byz_mask):
-    """Apply a static attack leaf by leaf, in place: each leaf's (n, size)
-    column block is attacked in fp32 and cast back (the JAX
-    ``tree_attack``; every attack is coordinate-decomposable)."""
-    for col in plan.leaf_columns(arena):
-        col.copy_(attack_fn(gen, col.float(), byz_mask))
+def attack_arena(attack_fn, gen, plan: FlatPlan, arena, byz_mask,
+                 out=None):
+    """Apply a static attack leaf by leaf: each leaf's (n, size) column
+    block is attacked in fp32 and cast back (the JAX ``tree_attack``;
+    every attack is coordinate-decomposable).  In place, or into ``out``
+    (an arena like ``arena``) when given."""
+    out = arena if out is None else out
+    for src, dst in zip(plan.leaf_columns(arena), plan.leaf_columns(out)):
+        dst.copy_(attack_fn(gen, src.float(), byz_mask))
 
 
 def make_train_step(cfg, bz: ByzantineConfig, optimizer, device=None,
                     bucket: int | None = None, telemetry: bool = False):
-    """Returns ``train_step(params, opt_state, momentum, batch, gen=None)
-    -> (params, opt_state, momentum, metrics)``.
+    """Returns ``train_step(params, opt_state, momentum, batch, gen=None,
+    roster_idx=None, roster_valid=None) -> (params, opt_state, momentum,
+    metrics)``.
 
     ``params`` is the nested parameter dict (updated in place),
     ``momentum`` the (n, P) fp32 worker-momentum buffer or None,
     ``batch`` holds (n, b, T) ``tokens``/``labels`` on ``device``, ``gen``
-    the generator of attacks that draw noise.  ``device`` defaults to
-    ``cuda`` and raises when CUDA is missing."""
+    the generator of attacks that draw noise; ``roster_idx`` (bucket,)
+    int64 and ``roster_valid`` (bucket,) bool, on ``device``, when
+    ``bucket`` is set.  ``device`` defaults to ``cuda`` and raises when
+    CUDA is missing."""
     dev = resolve_device(device)
-    why = _unsupported(bz, bucket, telemetry)
+    why = unsupported(bz, telemetry)
     if why:
         raise NotImplementedError(why)
     spec = bz.resolve_spec()
+    if bucket is not None or spec.elastic is not None:
+        # an elastic master runs as its n_max bucket
+        spec = spec.respecialize(bucket if bucket is not None
+                                 else bz.n_agents)
     if spec.stateful:
         raise NotImplementedError(
             f"{spec.name} is stateful: stateful rules come with ROADMAP.md "
@@ -113,8 +130,12 @@ def make_train_step(cfg, bz: ByzantineConfig, optimizer, device=None,
     n = bz.n_agents
     byz_mask = make_byzantine_mask(n, bz.f, device=dev)
     honest = (~byz_mask).float()
+    count_trace("train_step")
 
-    def train_step(params, opt_state, momentum, batch, gen=None):
+    def train_step(params, opt_state, momentum, batch, gen=None,
+                   roster_idx=None, roster_valid=None):
+        if (roster_idx is None) != (bucket is None):
+            raise ValueError("roster_idx/roster_valid go with bucket=")
         leaves = tree_leaves(params)
         for leaf in leaves:
             if leaf.device != dev:
@@ -146,8 +167,13 @@ def make_train_step(cfg, bz: ByzantineConfig, optimizer, device=None,
             if attack_fn is not None:
                 attack_arena(attack_fn, gen, plan, arena, byz_mask)
 
-            # (4) robust aggregation on the arena, one unravel
-            vec = spec.aggregate_flat(arena)
+            # (4) robust aggregation on the arena (the live roster packed
+            # into its bucket under elastic membership), one unravel
+            if bucket is not None:
+                vec = spec.aggregate_flat(arena[roster_idx],
+                                          mask=roster_valid)
+            else:
+                vec = spec.aggregate_flat(arena)
             del arena
             agg = plan.unravel(vec)
 

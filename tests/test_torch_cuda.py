@@ -5,8 +5,10 @@ with the card (no JAX needed):
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Bars: median values, Krum's one-hot and the one-hot weighted sum exact;
-trimmed means, Grams and general weighted sums within rtol = atol = 3e-6.
+Bars: median values (plain and masked), Krum's one-hot and the one-hot
+weighted sums (plain and masked, live row or ghost) exact; trimmed means,
+Grams (plain and masked), the imputed mean and general weighted sums
+within rtol = atol = 3e-6.
 """
 import math
 
@@ -15,9 +17,12 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.coord_stats import coord_stat_plain
-from repro_torch.kernels.pairwise import gram_plain
+from repro_torch.kernels.masked import masked_coord_stat_plain
+from repro_torch.kernels.pairwise import gram_plain, masked_gram_plain
+from repro_torch.kernels.ref import imputed_mean_ref
 from repro_torch.kernels.select import krum_select_plain
-from repro_torch.kernels.wsum import weighted_sum_plain
+from repro_torch.kernels.wsum import (masked_weighted_sum_plain,
+                                      weighted_sum_plain)
 
 TOL = 3e-6
 F = 2
@@ -85,10 +90,90 @@ def test_cuda_launch_counters_count_launches(cuda_device):
     g = torch.randn(8, 1000, device=cuda_device)
     kernels.kernel_krum(g, F)
     kernels.coord_stat(g, "median")
-    assert kernels.launch_counts() == {"coord_stat": 1, "gram": 1,
-                                       "krum_select": 1, "weighted_sum": 1}
-    coord_stat_plain(g, "median")                  # the plain version
+    m = torch.ones(8, device=cuda_device)
+    m[3] = 0.0
+    kernels.kernel_krum_masked(g, m, m / 7.0, F)
+    kernels.masked_coord_stat(g, m, m, "median")
+    assert kernels.launch_counts() == {
+        "coord_stat": 1, "gram": 1, "krum_select": 2, "weighted_sum": 2,
+        "masked_coord_stat": 1, "masked_gram": 1, "masked_weighted_sum": 1}
+    coord_stat_plain(g, "median")                  # the plain versions
+    masked_coord_stat_plain(g, m, m, "median")
     assert kernels.launch_counts()["coord_stat"] == 1
+    assert kernels.launch_counts()["masked_coord_stat"] == 1
+
+
+MASKS = ["most", "one", "none", "all"]
+
+
+def mask_of(n, case, device):
+    """(n,) {0,1} fp32 arrival mask: n - 2 (at least 1), one, none, all."""
+    k = {"most": max(n - 2, 1), "one": 1, "none": 0, "all": n}[case]
+    m = torch.zeros(n)
+    m[torch.randperm(n, generator=torch.Generator().manual_seed(n))[:k]] = 1
+    return m.to(device)
+
+
+def masked_hazard(g, m, hazard):
+    live = torch.nonzero(m > 0.5).flatten().tolist()
+    absent = torch.nonzero(m <= 0.5).flatten().tolist()
+    if hazard == "nan" and live:
+        g[live[0]] = math.nan                     # spreads as in JAX
+    elif hazard == "absent" and absent:
+        g[absent[0], ::2] = math.nan              # never shows
+        g[absent[0], 1::2] = math.inf
+    elif hazard == "inf" and live:
+        g[live[0]], g[live[-1]] = math.inf, -math.inf
+    elif hazard == "ties" and live:
+        g[live] = g[live[0]].clone()
+        g[:, ::3] = torch.round(g[:, ::3])
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hazard", [None, "nan", "absent", "inf", "ties"])
+@pytest.mark.parametrize("n", [3, 4, 6, 8])
+def test_cuda_masked_kernels_match_plain(cuda_device, n, hazard, dtype):
+    d = 4099
+    b = min(1 if n < 8 else 2, (n - 1) // 2)
+    for case in MASKS:
+        m = mask_of(n, case, cuda_device)
+        g = masked_hazard(stack(n, d, 3, None, cuda_device, torch.float32),
+                          m, hazard).to(dtype)
+        w = m * torch.tensor([1.0, 0.5, 1 / 3] * 22, device=cuda_device)[:n]
+        wn = w / torch.clamp_min(w.sum(), 1e-30)
+        for stat, bb in (("median", 0), ("trimmed_mean", b)):
+            ours = kernels.masked_coord_stat(g, m, wn, stat, bb)
+            ref = masked_coord_stat_plain(g, m, wn, stat, bb)
+            tol = 0 if stat == "median" else TOL
+            torch.testing.assert_close(ours, ref, rtol=tol, atol=tol,
+                                       equal_nan=True)
+            if hazard == "absent":
+                assert torch.isfinite(ours).all()
+        if case == "none" or hazard in ("nan", "inf"):
+            continue
+        mean = kernels.imputed_mean(g, wn)
+        torch.testing.assert_close(mean.float(),
+                                   imputed_mean_ref(g, wn).float(),
+                                   rtol=TOL, atol=TOL)
+        gr = kernels.masked_gram(g, m, wn, mean)
+        torch.testing.assert_close(gr, masked_gram_plain(g, m, wn, mean),
+                                   rtol=TOL, atol=TOL)
+        assert torch.equal(gr, kernels.masked_gram(g, m, wn, mean))
+        sel = kernels.krum_select(gr, 1)
+        for onehot in torch.eye(n, device=cuda_device):
+            out = kernels.masked_weighted_sum(onehot, g, m, mean)
+            assert torch.equal(out, masked_weighted_sum_plain(onehot, g, m,
+                                                              mean))
+        sets = (m > 0.5).float()
+        sets[torch.nonzero(m <= 0.5).flatten()[:1]] = 1.0
+        torch.testing.assert_close(
+            kernels.masked_weighted_sum(sets, g, m, mean),
+            masked_weighted_sum_plain(sets, g, m, mean), rtol=TOL, atol=TOL)
+        assert torch.equal(kernels.kernel_krum_masked(g, m, wn, 1),
+                           kernels.masked_weighted_sum(sel, g, m, mean))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -13,15 +13,20 @@ import numpy as np
 import torch
 
 import repro.optim as jopt
+import repro.simulator as JS
 import repro_torch.optim as topt
+import repro_torch.simulator as TS
 from repro.configs import get_config as jax_get_config
+from repro.core.aggregators import elastic as jax_elastic
+from repro.core.aggregators import frac as jax_frac
 from repro.core.aggregators import make_spec as jax_make_spec
 from repro.models import init_params as jax_init_params
 from repro.training.step import ByzantineConfig as JaxBz
 from repro.training.step import make_train_step as jax_make_train_step
 from repro_torch.configs import get_config
-from repro_torch.convert import params_from_numpy, params_to_numpy
-from repro_torch.core.aggregators import make_spec
+from repro_torch.convert import (arena_from_numpy, params_from_numpy,
+                                 params_to_numpy)
+from repro_torch.core.aggregators import elastic, frac, make_spec
 from repro_torch.core.momentum import init_momentum
 from repro_torch.data import SyntheticLM
 from repro_torch.training import ByzantineConfig, make_train_step
@@ -149,4 +154,125 @@ def check_slice(rule, alpha):
         np.testing.assert_allclose(ta, ja, rtol=GRAD_TOL, atol=GRAD_TOL,
                                    err_msg=msg)
         np.testing.assert_allclose(tpar, jpar, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=msg)
+
+
+# ---------------------------------------------------------------------------
+# the async slice: the JAX make_async_step (jitted, impl="pallas") and the
+# port's side by side, fed the same trace rows
+
+
+def straggler_sim(mod):
+    """The straggler profile: lognormal(0.8) latencies, quorum 6, max
+    staleness 3 (six deliveries per step, staleness up to 2)."""
+    return mod.SimConfig(faults=(mod.Straggler("lognormal", 0.8),),
+                         quorum=6, max_staleness=3, seed=0)
+
+
+def churn_sim(mod):
+    """Churn(rate=0.25, mean_out=2.0) at seed 0: live 8, 6, 4, 6, 6, 7,
+    4, 3 — step 0 is pure; rows 4-7 hit all three buckets of (4, 6, 8),
+    and the rosters of 7 and 3 put a ghost row into buckets 8 and 4."""
+    return mod.SimConfig(faults=(mod.Churn(rate=0.25, mean_out=2.0),),
+                         seed=0)
+
+
+def in_flight_np(seed, n=N):
+    """A nonzero (n, ...) fp32 tree shaped like the parameters: the
+    buffer (and momentum) both steps start from."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda p: (rng.normal(size=(n,) + p.shape) * 1e-2).astype(
+            np.float32), jax_params_numpy())
+
+
+def run_async(rule, alpha, trace="stragglers", steps=4,
+              attack="sign_flip"):
+    """Per step (jax loss, torch loss, jax agg, torch agg, jax params,
+    torch params, jax buffer, torch buffer) as flat numpy, the two steps
+    fed the same trace rows, batches, weights and starting buffer."""
+    cfg, jcfg = configs()
+    jp = jax.tree.map(jnp.asarray, jax_params_numpy())
+    tp = params_from_numpy(jax_params_numpy())
+    jo = _jax_recording(jopt.adamw(jopt.constant(LR), eps=EPS))
+    to = _torch_recording(topt.adamw(topt.constant(LR), eps=EPS))
+    if trace == "churn":
+        jspec = jax_make_spec(rule, f=jax_frac(0.25), impl="pallas",
+                              n=jax_elastic(N, (4, 6, 8)))
+        tspec = make_spec(rule, f=frac(0.25), n=elastic(N, (4, 6, 8)))
+        sims = (churn_sim(JS), churn_sim(TS))
+        rows = range(4, 4 + steps)
+    else:
+        jspec = jax_make_spec(rule, f=F, impl="pallas", n=N)
+        tspec = make_spec(rule, f=F, n=N)
+        sims = (straggler_sim(JS), straggler_sim(TS))
+        rows = range(steps)
+    assert tspec.impl == "kernel"
+    jbz = JaxBz(n_agents=N, f=F, aggregator=jspec, attack=attack,
+                momentum_alpha=alpha)
+    tbz = ByzantineConfig(n_agents=N, f=F, aggregator=tspec, attack=attack,
+                          momentum_alpha=alpha)
+    jtr = JS.plan_arrivals(sims[0], N, rows[-1] + 1)
+    ttr = TS.plan_arrivals(sims[1], N, rows[-1] + 1)
+    jw, tw = (JS.staleness_weights(sims[0], jtr),
+              TS.staleness_weights(sims[1], ttr))
+    np.testing.assert_array_equal(tw, jw)
+    jsteps, tsteps = {}, {}
+    js, ts = jo.init(jp), to.init(tp)
+    buf0 = in_flight_np(1)
+    jbuf = jax.tree.map(jnp.asarray, buf0)
+    tbuf = arena_from_numpy(buf0)
+    jm = tm = None
+    if alpha:
+        m0 = in_flight_np(2)
+        jm, tm = jax.tree.map(jnp.asarray, m0), arena_from_numpy(m0)
+    out = []
+    for k, r in enumerate(rows):
+        extra_j, extra_t, b = (), (), None
+        if trace == "churn":
+            live = np.flatnonzero(ttr.roster[r])
+            b, idx, valid = tspec.elastic.pack(live)
+            jb_, jidx, jvalid = jspec.elastic.pack(live)
+            assert jb_ == b
+            np.testing.assert_array_equal(idx, jidx)
+            extra_j = (jnp.asarray(jidx), jnp.asarray(jvalid))
+            extra_t = (torch.as_tensor(idx, dtype=torch.int64),
+                       torch.as_tensor(valid))
+        if b not in jsteps:
+            jsteps[b] = jax.jit(JS.make_async_step(jcfg, jbz, jo, bucket=b))
+            tsteps[b] = TS.make_async_step(cfg, tbz, to, device="cpu",
+                                           bucket=b)
+        tb, jb = batch_np(300 + k)
+        refresh = jtr.refresh[r]
+        jp, js, jm, jbuf, _, jmet = jsteps[b](
+            jp, js, jm, jbuf, {}, jb, jax.random.PRNGKey(7),
+            jnp.asarray(refresh), jnp.asarray(jw[r]), jnp.asarray(False),
+            *extra_j)
+        tp, ts, tm, tbuf, _, tmet = tsteps[b](
+            tp, ts, tm, tbuf, {}, tb, None, refresh,
+            torch.from_numpy(tw[r]), False, *extra_t)
+        out.append((float(jmet["loss"]), float(tmet["loss"]),
+                    flat_np(js["agg"]), flat_np(params_to_numpy(ts["agg"])),
+                    flat_np(jp), flat_np(params_to_numpy(tp)),
+                    np.concatenate([x.reshape(N, -1)
+                                    for x in leaves_np(jbuf)], axis=1),
+                    tbuf.numpy().copy()))
+    return out
+
+
+def check_async(rule, alpha, trace="stragglers"):
+    """Losses, aggregates, post-step parameters and the in-flight buffer
+    within the slice-1 bars (loss 1e-5, the rest 1e-4) after each of 4
+    steps."""
+    for step, (jl, tl, ja, ta, jpar, tpar, jbuf, tbuf) in enumerate(
+            run_async(rule, alpha, trace)):
+        msg = f"{rule} alpha={alpha} {trace} step {step}"
+        np.testing.assert_allclose(tl, jl, rtol=LOGIT_TOL, atol=LOGIT_TOL,
+                                   err_msg=msg)
+        assert ta.dtype == np.float32       # the fp32 buffer's aggregate
+        np.testing.assert_allclose(ta, ja, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=msg)
+        np.testing.assert_allclose(tpar, jpar, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=msg)
+        np.testing.assert_allclose(tbuf, jbuf, rtol=GRAD_TOL, atol=GRAD_TOL,
                                    err_msg=msg)

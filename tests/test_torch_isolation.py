@@ -2,9 +2,11 @@
 
 * ``repro_torch`` (every module) and ``chip_smoke.py`` import with ``jax``
   and ``repro`` blocked, and no import statement names either;
-* the entry points (``train_loop``, ``make_train_step``, ``python -m
-  repro_torch.launch.train``) raise on a host without CUDA unless the
-  caller asks for the CPU — and with ``device="cpu"`` they run.
+* the entry points (``train_loop`` with and without ``sim=``,
+  ``async_train_loop``, ``make_train_step``, ``make_async_step``,
+  ``python -m repro_torch.launch.train`` with and without the simulator
+  flags) raise on a host without CUDA unless the caller asks for the CPU
+  — and with ``device="cpu"`` they run.
 """
 import ast
 import math
@@ -21,6 +23,8 @@ from repro_torch.core.aggregators import make_spec
 from repro_torch.data import SyntheticLM
 from repro_torch.launch import train as launch_train
 from repro_torch.optim import adamw, constant
+from repro_torch.simulator import (Straggler, SimConfig, async_train_loop,
+                                   make_async_step)
 from repro_torch.training import ByzantineConfig, make_train_step, train_loop
 
 torch.set_num_threads(2)
@@ -75,15 +79,53 @@ def _smoke_setup(n=4, f=1, rule="coordinate_median"):
     return cfg, ds, bz, adamw(constant(1e-3))
 
 
+STRAGGLERS = SimConfig(faults=(Straggler("lognormal", 0.8),), quorum=3,
+                       max_staleness=3, seed=0)
+SIM_FLAGS = [[], ["--quorum", "3"],
+             ["--sample-policy", "uniform", "--sample-m", "3",
+              "--elastic-buckets", "2", "--poison-labels"]]
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg, ds, bz, opt = _smoke_setup()
     with pytest.raises(RuntimeError, match="CUDA"):
         train_loop(cfg, bz, opt, ds, steps=1)
     with pytest.raises(RuntimeError, match="CUDA"):
+        train_loop(cfg, bz, opt, ds, steps=1, sim=STRAGGLERS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        async_train_loop(cfg, bz, opt, ds, steps=1, sim=STRAGGLERS)
+    with pytest.raises(RuntimeError, match="CUDA"):
         make_train_step(cfg, bz, opt)
     with pytest.raises(RuntimeError, match="CUDA"):
-        launch_train.main(["--smoke", "--steps", "1"])
+        make_async_step(cfg, bz, opt)
+    for flags in SIM_FLAGS:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launch_train.main(["--smoke", "--steps", "1"] + flags)
+
+
+@pytest.mark.parametrize("rule", ["coordinate_median", "trimmed_mean",
+                                  "krum"])
+def test_async_loop_runs_on_cpu_when_asked(rule):
+    """train_loop(sim=stragglers) takes the async path (quorum 3 of 4)."""
+    cfg, ds, bz, opt = _smoke_setup(rule=rule)
+    params, hist = train_loop(cfg, bz, opt, ds, steps=3, device="cpu",
+                              sim=STRAGGLERS, log_every=1,
+                              log_fn=lambda *_: None)
+    assert [h["arrived"] for h in hist] == [3, 3, 3]
+    assert all(math.isfinite(h["loss"]) for h in hist)
+    assert next(iter(params.values())).device.type == "cpu"
+
+
+@pytest.mark.parametrize("flags", SIM_FLAGS[1:])
+def test_cli_simulator_flags_run_on_cpu_when_asked(flags, capsys):
+    hist = launch_train.main(["--smoke", "--device", "cpu", "--steps", "2",
+                              "--n-agents", "4", "--f", "1", "--filter",
+                              "trimmed_mean", "--attack", "sign_flip",
+                              "--seq-len", "16", "--per-agent-batch", "1"]
+                             + flags)
+    assert math.isfinite(hist[-1]["loss"])
+    assert "final loss" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("rule", ["coordinate_median", "trimmed_mean",

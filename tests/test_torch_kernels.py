@@ -240,9 +240,9 @@ def test_make_spec_resolves_and_rejects_impls():
         make_spec("mean", impl="kernel")
     with pytest.raises(ValueError):
         make_spec("trimmed_mean", f=1, gamma=0.1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_spec("krum", f=1).aggregate_flat(torch.zeros(4, 3),
-                                              mask=torch.ones(4, dtype=bool))
+                                              scale=torch.ones(4))
 
 
 # ---------------------------------------------------------------------------
