@@ -56,6 +56,29 @@ The async path (ROADMAP.md slice 2) adds:
                bucket 4, 7 live in bucket 8): median and krum exact,
                trimmed mean within 3e-6.
 
+The selection family (ROADMAP.md slice 3) adds:
+
+2c. selection kernels — K8 cge_select, K9 multi_krum_order, K10
+               iterative_order, K11 ordered_apply and K13 bulyan_coord
+               against their plain versions at full width (P =
+               124,668,672) in bf16 and fp32: K8-K10 on the full-width
+               Gram (asserted bitwise symmetric) at n = 8 and 11, K11
+               with the orders of multi_krum (m = 3), m_krum (m = 3) and
+               mda (k = n - f = 6) at n = 8, K13 at n = 11 (theta 7, beta
+               3) and n = 8 (theta 4, beta 1); the NaN / +-inf /
+               duplicate-row / pair-tie hazards at a small width and n =
+               3, 4, 8, 11, 16; times, yardsticks and bounds;
+3c. selection train — the phase-3 configuration for cge, multi_krum (m
+               = 3), m_krum (m = 3) and mda at n = 8 and bulyan at n = 11
+               (f = 2): 1 warm-up step, then 2 timed steps per rule; the
+               launch counts must show K2, K8, K4 (cge), K2, K9, K11
+               (multi_krum), K2, K10, K11 (m_krum), K2, K11 (mda) and K2,
+               K10, K13 (bulyan) once per step; a traced step per rule;
+4c. selection kernel vs gather — one full-width step per rule with
+               impl="kernel" against impl="gather" from the same state and
+               batch: the same arena, equal losses, the selected set and
+               pick order equal, the aggregates within 3e-6.
+
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
 not available.
@@ -105,7 +128,28 @@ SOURCES = {
                     "src/repro/kernels/pairwise.py:89"),
     "masked_weighted_sum": ("src/repro_torch/kernels/csrc/masked_wsum.cu",
                             "src/repro/kernels/wsum.py:87"),
+    "cge_select": ("src/repro_torch/kernels/csrc/cge_select.cu",
+                   "src/repro/kernels/select.py:120"),
+    "multi_krum_order": ("src/repro_torch/kernels/csrc/order.cu",
+                         "src/repro/kernels/select.py:212"),
+    "iterative_order": ("src/repro_torch/kernels/csrc/order.cu",
+                        "src/repro/kernels/select.py:220"),
+    "ordered_apply": ("src/repro_torch/kernels/csrc/ordered_apply.cu",
+                      "src/repro/kernels/wsum.py:318"),
+    "bulyan_coord": ("src/repro_torch/kernels/csrc/bulyan_coord.cu",
+                     "src/repro/kernels/select.py:288"),
 }
+SYNC_KERNELS = ("coord_stat", "gram", "krum_select", "weighted_sum")
+# the selection family: rule -> (n, hyper, the kernels of one step)
+SEL_RULES = {
+    "cge": (N, {}, ("gram", "cge_select", "weighted_sum")),
+    "multi_krum": (N, {"m": 3}, ("gram", "multi_krum_order",
+                                 "ordered_apply")),
+    "m_krum": (N, {"m": 3}, ("gram", "iterative_order", "ordered_apply")),
+    "mda": (N, {}, ("gram", "ordered_apply")),
+    "bulyan": (11, {}, ("gram", "iterative_order", "bulyan_coord")),
+}
+SEL_STEPS = 2
 
 
 def emit(phase, **kw):
@@ -192,8 +236,7 @@ def kernel_checks(num_params):
 
     P = num_params
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    summary = {k: {"max_abs_err": 0.0} for k in SOURCES
-               if not k.startswith("masked")}
+    summary = {k: {"max_abs_err": 0.0} for k in SYNC_KERNELS}
     agg_ms = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
@@ -606,21 +649,240 @@ def masked_hazard_checks():
 
 
 # ---------------------------------------------------------------------------
+# phase 2c
+
+
+def selection_kernel_checks(num_params):
+    """K8-K11 and K13 against their plain versions at the main path's
+    shapes (see the module docstring), then the small-width hazards.  The
+    summary takes the bf16 arena's numbers (the sync arena): K8 and K9 at
+    n = 8, K10 at n = 8 with m_krum's 3 picks, K11 with multi_krum's
+    order, K13 at n = 11."""
+    from repro_torch import kernels
+    from repro_torch.kernels.ops import mda_order
+    from repro_torch.kernels.select import (bulyan_beta, bulyan_coord_plain,
+                                            cge_select_plain, gram_d2,
+                                            iterative_order_plain,
+                                            multi_krum_order_plain)
+    from repro_torch.kernels.wsum import ordered_apply_plain
+
+    P = num_params
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    names = ("cge_select", "multi_krum_order", "iterative_order",
+             "ordered_apply", "bulyan_coord")
+    summary = {k: {"max_abs_err": 0.0} for k in names}
+
+    def note(name, err, timing=None):
+        summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], err)
+        if timing:
+            summary[name].update(
+                ms=timing["kernel_ms"],
+                **{k: timing[k] for k in ("plain_ms", "library_ms",
+                                          "bound_ms", "bound_by")})
+
+    def timing(fn, plain, reps, plain_reps, bytes_moved, flops,
+               library=None, label=None):
+        bms, by = bound(bytes_moved, flops)
+        return dict(kernel_ms=time_ms(fn, reps),
+                    plain_ms=time_ms(plain, plain_reps),
+                    library_ms=time_ms(library, 2) if library else None,
+                    library=label, bound_ms=bms, bound_by=by)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        s = torch.finfo(dtype).bits // 8
+        main = dtype == torch.bfloat16
+        for n in (N, 11):
+            theta = n - 2 * F
+            x = (torch.randn((n, P), generator=gen, device=DEVICE,
+                             dtype=torch.float32) * 1e-3).to(dtype)
+            gr = kernels.gram(x)
+            sym = torch.equal(gr, gr.T)
+            timed = main and n == N
+            # K8 cge_select
+            w = kernels.cge_select(gr, n - F)
+            err = max_abs_err(w, cge_select_plain(gr, n - F))
+            kw = timing(lambda: kernels.cge_select(gr, n - F),
+                        lambda: cge_select_plain(gr, n - F), 50, 5,
+                        8 * n, 2 * n * n) if timed else {}
+            check("cge_select", err == 0.0 and sym
+                  and float(w.sum()) == n - F, dtype=dname, n=n,
+                  n_keep=n - F, gram_symmetric=sym, max_abs_diff=err, **kw)
+            note("cge_select", err, kw)
+            # K9 multi_krum_order
+            for m in (2, 3):
+                o = kernels.multi_krum_order(gr, F, m)
+                err = max_abs_err(o.float(),
+                                  multi_krum_order_plain(gr, F, m).float())
+                ok = err == 0.0 and sorted(o[o < n].tolist()) == list(
+                    range(m))
+                kw = timing(lambda: kernels.multi_krum_order(gr, F, m),
+                            lambda: multi_krum_order_plain(gr, F, m), 50, 5,
+                            4 * n * n + 4 * n, n * n * (n + 4)) if (
+                    timed and m == 3) else {}
+                check("multi_krum_order", ok, dtype=dname, n=n, m=m,
+                      max_abs_diff=err, **kw)
+                note("multi_krum_order", err, kw)
+            # K10 iterative_order
+            for k_total in sorted({2, 3, theta}):
+                o = kernels.iterative_order(gr, F, k_total)
+                err = max_abs_err(o.float(), iterative_order_plain(
+                    gr, F, k_total).float())
+                ok = err == 0.0 and sorted(o[o < n].tolist()) == list(
+                    range(k_total))
+                kw = timing(lambda: kernels.iterative_order(gr, F, k_total),
+                            lambda: iterative_order_plain(gr, F, k_total),
+                            50, 5, 4 * n * n + 4 * n,
+                            k_total * n * n * (n + 4)) if (
+                    main and (n, k_total) in ((N, 3), (11, theta))) else {}
+                check("iterative_order", ok, dtype=dname, n=n,
+                      k_total=k_total, max_abs_diff=err, **kw)
+                note("iterative_order", err,
+                     kw if (n, k_total) == (N, 3) else None)
+            # K11 ordered_apply with the orders of the three rules
+            if n == N:
+                cases = (("multi_krum", kernels.multi_krum_order(gr, F, 3),
+                          3),
+                         ("m_krum", kernels.iterative_order(gr, F, 3), 3),
+                         ("mda", mda_order(gram_d2(gr), n, F), n - F))
+                for rule, order, k in cases:
+                    out = kernels.ordered_apply(order, x, k, div=k)
+                    err = max_abs_err(out, ordered_apply_plain(order, x, k,
+                                                               div=k))
+                    wl = torch.where(order < k, 1.0 / k, 0.0).to(dtype)
+                    kw = timing(
+                        lambda: kernels.ordered_apply(order, x, k, div=k),
+                        lambda: ordered_apply_plain(order, x, k, div=k),
+                        10, 2, k * P * s + 4 * P + 4 * n, (k + 1) * P,
+                        lambda: wl @ x, "w @ x, w = 1/k on the picked rows")
+                    check("ordered_apply", err == 0.0, dtype=dname, n=n,
+                          k=k, order_of=rule, shape=[n, P],
+                          max_abs_diff=err, **kw)
+                    note("ordered_apply", err,
+                         kw if main and rule == "multi_krum" else None)
+                    del out
+            # K13 bulyan_coord on K10's theta picks
+            sel = (kernels.iterative_order(gr, F, theta) < theta).float()
+            beta = bulyan_beta(theta, F)
+            out = kernels.bulyan_coord(x, sel, theta, F)
+            err = max_abs_err(out, bulyan_coord_plain(x, sel, theta, F))
+            del out
+            picked = sel > 0.5
+            kw = timing(lambda: kernels.bulyan_coord(x, sel, theta, F),
+                        lambda: bulyan_coord_plain(x, sel, theta, F), 10, 2,
+                        theta * P * s + 4 * P + 4 * n,
+                        (n * (n - 1) + 3 * beta * n) * P,
+                        lambda: torch.sort(x[picked], dim=0),
+                        "torch.sort(g[sel], dim=0), a partial yardstick")
+            check("bulyan_coord", err == 0.0, dtype=dname, n=n, theta=theta,
+                  beta=beta, shape=[n, P], max_abs_diff=err, **kw)
+            note("bulyan_coord", err, kw if main and n == 11 else None)
+            # aggregation time of each selection rule at this n (the
+            # spec's call, every stage included)
+            if main:
+                from repro_torch.core.aggregators import make_spec
+                agg_ms = {}
+                for rule, (rn, hyper, _) in SEL_RULES.items():
+                    if rn == n:
+                        spec = make_spec(rule, f=F, n=n, **hyper)
+                        agg_ms[rule] = time_ms(
+                            lambda: spec.aggregate_flat(x), 5)
+                emit("kernels", aggregation_ms=agg_ms, dtype=dname, n=n)
+            del x, gr, sel
+            torch.cuda.empty_cache()
+    selection_hazard_checks()
+    return summary
+
+
+def selection_hazard_checks():
+    """K8-K11 and K13 on NaN rows, +-inf rows, isolated non-finite
+    coordinates, duplicated rows (every score tied) and a near pair (the
+    K10 pair tie), with rounded columns (equidistant values), at a small
+    width and n = 3, 4, 8, 11, 16: every result exact against the plain
+    version, the card's Gram bitwise symmetric."""
+    from repro_torch import kernels
+    from repro_torch.kernels.select import (bulyan_coord_plain,
+                                            cge_select_plain,
+                                            iterative_order_plain,
+                                            multi_krum_order_plain)
+    from repro_torch.kernels.wsum import ordered_apply_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    d = 4099
+    for n in (3, 4, 8, 11, 16):
+        f = 1 if n < 8 else F
+        theta = max(n - 2 * f, 1)
+        for hazard in ("nan", "inf", "spots", "dup", "pair"):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((n, d), generator=gen, device=DEVICE) * 2.0
+                x[:, ::5] = torch.round(x[:, ::5])
+                if hazard == "nan":
+                    x[1] = math.nan
+                elif hazard == "inf":
+                    x[1], x[n - 1] = math.inf, -math.inf
+                elif hazard == "spots":
+                    x[1, 7], x[n - 1, 7], x[0, 11] = (math.nan, math.inf,
+                                                      -math.inf)
+                elif hazard == "dup":
+                    x[:] = x[0].clone()
+                else:
+                    x[n - 1] = x[n - 2] + 1e-3
+                x = x.to(dtype)
+                gr = kernels.gram(x)
+                errs = {"gram_symmetry": max_abs_err(gr, gr.T)}
+                errs["cge_select"] = max_abs_err(
+                    kernels.cge_select(gr, n - f), cge_select_plain(gr, n - f))
+                m = min(3, n)
+                errs["multi_krum_order"] = max_abs_err(
+                    kernels.multi_krum_order(gr, f, m).float(),
+                    multi_krum_order_plain(gr, f, m).float())
+                ok = True
+                for k_total in sorted({m, theta, n}):
+                    o = kernels.iterative_order(gr, f, k_total)
+                    errs[f"iterative_order_{k_total}"] = max_abs_err(
+                        o.float(), iterative_order_plain(gr, f,
+                                                         k_total).float())
+                    ok = ok and sorted(o[o < n].tolist()) == list(
+                        range(k_total))
+                for order in (kernels.multi_krum_order(gr, f, m),
+                              kernels.iterative_order(gr, f, m)):
+                    errs["ordered_apply"] = max(
+                        errs.get("ordered_apply", 0.0),
+                        max_abs_err(kernels.ordered_apply(order, x, m, div=m),
+                                    ordered_apply_plain(order, x, m, div=m)))
+                sel = (kernels.iterative_order(gr, f, theta)
+                       < theta).float()
+                errs["bulyan_coord"] = max_abs_err(
+                    kernels.bulyan_coord(x, sel, theta, f),
+                    bulyan_coord_plain(x, sel, theta, f))
+                torch.cuda.synchronize()
+                ok = ok and all(v == 0.0 for v in errs.values())
+                check("selection_hazards", ok, hazard=hazard, n=n, f=f,
+                      dtype=str(dtype).replace("torch.", ""), shape=[n, d],
+                      max_abs_diff=errs)
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4
 
 
-def phase_train(cfg):
+def phase_train(cfg, table, steps):
+    """Per rule of ``table`` (rule -> (n, hyper, kernels of one step)):
+    one untimed warm-up step, then ``steps`` timed steps through
+    ``train_loop``; the launch counts, reset just before the timed run
+    and read just after, must show each of the rule's kernels once per
+    step and no other."""
     from repro_torch import kernels
     from repro_torch.core.aggregators import make_spec
     from repro_torch.data import SyntheticLM
     from repro_torch.optim import adamw, constant
     from repro_torch.training import ByzantineConfig, train_loop
 
-    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT)
     totals = {k: 0 for k in SOURCES}
-    for rule in RULES:
-        bz = ByzantineConfig(n_agents=N, f=F,
-                             aggregator=make_spec(rule, f=F, n=N),
+    for rule, (n, hyper, names) in table.items():
+        ds = SyntheticLM(cfg.vocab_size, SEQ, n, PER_AGENT)
+        bz = ByzantineConfig(n_agents=n, f=F,
+                             aggregator=make_spec(rule, f=F, n=n, **hyper),
                              attack="sign_flip", remat=True)
         # one untimed warm-up step, so that every timed step is warm
         train_loop(cfg, bz, adamw(constant(1e-4)), ds, steps=1, seed=0,
@@ -629,7 +891,7 @@ def phase_train(cfg):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         _, hist = train_loop(cfg, bz, adamw(constant(1e-4)), ds,
-                             steps=STEPS, seed=0, device=DEVICE,
+                             steps=steps, seed=0, device=DEVICE,
                              log_every=1, log_fn=lambda s: None)
         counts = kernels.launch_counts()
         torch.cuda.synchronize()
@@ -637,10 +899,9 @@ def phase_train(cfg):
         wall = [h["wall_s"] for h in hist]
         step_ms = [1e3 * (b - a) for a, b in zip([0.0] + wall[:-1], wall)]
         losses = [h["loss"] for h in hist]
-        want = {k: (STEPS if k in RULE_KERNELS[rule] else 0)
-                for k in SOURCES}
-        emit("train", rule=rule, impl=bz.aggregator.impl, steps=STEPS,
-             losses=losses, step_ms=step_ms,
+        want = {k: (steps if k in names else 0) for k in SOURCES}
+        emit("train", rule=rule, n=n, hyper=hyper, impl=bz.aggregator.impl,
+             steps=steps, losses=losses, step_ms=step_ms,
              median_step_ms=statistics.median(step_ms),
              peak_mem_gb=peak / 1e9, launches=counts)
         if not all(math.isfinite(v) for v in losses):
@@ -702,6 +963,123 @@ def phase_kernel_vs_gather(cfg):
         if not ok:
             fail(f"{rule}: kernel aggregate differs from gather by {err}")
     torch.use_deterministic_algorithms(False)
+
+
+def kernel_selection(rule, stack, n, f, hyper):
+    """The kernel path's selection on the arena: CGE's keep-mask, else the
+    (n,) pick order (sentinel n)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.ops import mda_order
+    from repro_torch.kernels.select import gram_d2
+    gr = kernels.gram(stack)
+    if rule == "cge":
+        return kernels.cge_select(gr, n - f)
+    if rule == "multi_krum":
+        return kernels.multi_krum_order(gr, f, hyper["m"]).long()
+    if rule == "mda":
+        return mda_order(gram_d2(gr), n, f).long()
+    k = hyper["m"] if rule == "m_krum" else n - 2 * f
+    return kernels.iterative_order(gr, f, k).long()
+
+
+def gather_selection(rule, g, n, f, hyper):
+    """The gather law's selection on the fp32 arena, in the form of
+    :func:`kernel_selection`, recomputed with the dense laws' own helpers
+    (``repro_torch.core.filters.dense``)."""
+    from repro_torch.core.aggregators import mda_combos
+    from repro_torch.core.filters import dense as D
+    order = torch.full((n,), n, dtype=torch.int64, device=g.device)
+    if rule == "cge":
+        keep = torch.zeros((n,), device=g.device)
+        keep[D._ascending(torch.linalg.vector_norm(g, dim=-1), n - f)] = 1.0
+        return keep
+    d2 = D.pairwise_sq_dists(g)
+    if rule == "multi_krum":
+        m = hyper["m"]
+        order[D._ascending(D.krum_scores(d2, f), m)] = torch.arange(
+            m, device=g.device)
+        return order
+    if rule == "mda":
+        combos = torch.as_tensor(mda_combos(n, f), device=g.device)
+        sub = d2[combos[:, :, None], combos[:, None, :]]
+        best = combos[D.argmin_tiebreak(torch.amax(sub, dim=(1, 2)),
+                                        torch.sum(sub, dim=(1, 2)))]
+        order[best] = torch.arange(n - f, device=g.device)
+        return order
+    k = hyper["m"] if rule == "m_krum" else n - 2 * f
+    mask = torch.ones((n,), dtype=torch.bool, device=g.device)
+    for it in range(k):
+        sc = D.krum_scores(d2, f, mask=mask, k=max(n - it - f - 2, 1))
+        i = D.argmin_tiebreak(sc, D.masked_row_sums(d2, mask))
+        order[i] = it
+        mask[i] = False
+    return order
+
+
+def phase_selection_vs_gather(cfg):
+    """One full-width step per selection rule with impl="kernel" against
+    impl="gather", from the same state and batch: the two arenas equal,
+    the losses equal, the selections (set and pick order) equal and the
+    aggregates within 3e-6."""
+    from repro_torch.core.aggregators import AggregatorSpec, make_spec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, constant
+    from repro_torch.training import ByzantineConfig, make_train_step
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    gen = make_generator(3, DEVICE)
+    base = init_params(cfg, gen)
+    aggs, stacks = {}, {}
+
+    class Recorded(AggregatorSpec):
+        """The spec, keeping the arena it gets and the fp32 aggregate it
+        returns."""
+        def aggregate_flat(self, stack, *args, **kw):
+            stacks[self.impl] = stack
+            aggs[self.impl] = super().aggregate_flat(stack, *args, **kw)
+            return aggs[self.impl]
+
+    for rule, (n, hyper, _) in SEL_RULES.items():
+        ds = SyntheticLM(cfg.vocab_size, SEQ, n, PER_AGENT)
+        batch = ds.batch(ds.draw_starts(gen))
+        losses = {}
+        for impl in ("kernel", "gather"):
+            s = make_spec(rule, f=F, impl=impl, n=n, **hyper)
+            spec = Recorded(name=s.name, f=s.f, hyper=s.hyper, impl=s.impl,
+                            n=s.n)
+            bz = ByzantineConfig(n_agents=n, f=F, aggregator=spec,
+                                 attack="sign_flip", remat=True)
+            opt = adamw(constant(1e-4))
+            step = make_train_step(cfg, bz, opt, device=DEVICE)
+            params = _clone(base)
+            _, _, _, met = step(params, opt.init(params), None, batch)
+            losses[impl] = float(met["loss"])
+            del params
+        same_arena = torch.equal(stacks["kernel"], stacks["gather"])
+        sel_k = kernel_selection(rule, stacks["kernel"], n, F, hyper)
+        sel_g = gather_selection(rule, stacks["gather"].float(), n, F, hyper)
+        same_sel = torch.equal(sel_k, sel_g)
+        err = max_abs_err(aggs["kernel"], aggs["gather"])
+        close = bool(torch.allclose(aggs["kernel"], aggs["gather"],
+                                    rtol=TOL, atol=TOL))
+        ok = (same_arena and same_sel and close
+              and losses["kernel"] == losses["gather"])
+        emit("selection_vs_gather", rule=rule, n=n, hyper=hyper, ok=ok,
+             same_arena=same_arena, selection_kernel=sel_k.tolist(),
+             selection_gather=sel_g.tolist(), max_abs_diff=err,
+             loss_kernel=losses["kernel"], loss_gather=losses["gather"])
+        stacks.clear()
+        aggs.clear()
+        torch.cuda.empty_cache()
+        if not ok:
+            fail(f"{rule}: kernel path differs from gather (arena equal "
+                 f"{same_arena}, selection equal {same_sel}, aggregate "
+                 f"{err}, losses {losses})")
+    torch.use_deterministic_algorithms(False)
+    del base
+    torch.cuda.empty_cache()
 
 
 def straggler_sim():
@@ -970,7 +1348,9 @@ def agree(rule, aggs, losses, **kw):
 
 OUR_KERNELS = ("coord_stat_kernel", "gram_reg_kernel", "gram_partial_kernel",
                "gram_finish_kernel", "krum_select_kernel", "wsum_kernel",
-               "masked_wsum_kernel")
+               "masked_wsum_kernel", "cge_select_kernel",
+               "multi_krum_order_kernel", "iterative_order_kernel",
+               "ordered_apply_kernel", "bulyan_coord_kernel")
 
 
 def device_busy(prof):
@@ -1000,12 +1380,13 @@ def device_busy(prof):
     return busy / 1e3, span, by_name
 
 
-def phase_profile(cfg):
-    """Per rule, after a warm-up step: one untimed-by-profiler step timed
-    on the host clock, then one traced step.  Reports the device busy
-    time (union of device events), the idle share against the untraced
-    step, the kernels' share of the busy time and the top device events.
-    Runs after the main path's launch counts are read."""
+def phase_profile(cfg, table):
+    """Per rule of ``table``, after a warm-up step: one untimed-by-profiler
+    step timed on the host clock, then one traced step.  Reports the
+    device busy time (union of device events), the idle share against
+    the untraced step, the kernels' share of the busy time, the peak
+    device memory of the traced step and the top device events.  Runs
+    after the main path's launch counts are read."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.aggregators import make_spec
@@ -1017,11 +1398,11 @@ def phase_profile(cfg):
 
     gen = make_generator(2, DEVICE)
     params = init_params(cfg, gen)
-    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT)
-    for rule in ("trimmed_mean", "krum"):
+    for rule, (n, hyper, _) in table.items():
+        ds = SyntheticLM(cfg.vocab_size, SEQ, n, PER_AGENT)
         opt = adamw(constant(1e-4))
-        bz = ByzantineConfig(n_agents=N, f=F,
-                             aggregator=make_spec(rule, f=F, n=N),
+        bz = ByzantineConfig(n_agents=n, f=F,
+                             aggregator=make_spec(rule, f=F, n=n, **hyper),
                              attack="sign_flip", remat=True)
         step = make_train_step(cfg, bz, opt, device=DEVICE)
         state = opt.init(params)
@@ -1032,23 +1413,27 @@ def phase_profile(cfg):
         step(params, state, None, batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step(params, state, None, batch)
             torch.cuda.synchronize()
             traced_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
         busy, span, by_name = device_busy(prof)
         seen = busy > 0
         ours = sum(t for k, t in by_name.items()
                    if any(name in k for name in OUR_KERNELS))
         top = sorted(by_name.items(), key=lambda r: -r[1])[:8]
-        emit("profile", rule=rule, step_ms=wall_ms, traced_step_ms=traced_ms,
+        emit("profile", rule=rule, n=n, step_ms=wall_ms,
+             traced_step_ms=traced_ms,
              device_busy_ms=busy if seen else "not measured",
              device_span_ms=span if seen else "not measured",
              device_idle_share=(1 - busy / wall_ms) if seen else
              "not measured",
              aggregation_kernels_ms=ours if seen else "not measured",
+             peak_mem_gb=peak / 1e9,
              top_device_events_ms=[[k[:60], t] for k, t in top])
         del state
     del params
@@ -1082,23 +1467,31 @@ def main():
     cfg = get_config("paper-100m")
     summary, _ = kernel_checks(num_params(cfg))
     summary.update(masked_kernel_checks(num_params(cfg)))
-    totals = phase_train(cfg)
+    summary.update(selection_kernel_checks(num_params(cfg)))
+    totals = phase_train(cfg, {r: (N, {}, RULE_KERNELS[r]) for r in RULES},
+                         STEPS)
     async_totals, async_step_ms = phase_async(cfg)
-    phase_profile(cfg)
+    sel_totals = phase_train(cfg, SEL_RULES, SEL_STEPS)
+    phase_profile(cfg, {"trimmed_mean": (N, {}, ()), "krum": (N, {}, ()),
+                        **SEL_RULES})
     phase_profile_async(cfg)
     phase_kernel_vs_gather(cfg)
     phase_masked_vs_gather(cfg)
+    phase_selection_vs_gather(cfg)
     kern = []
     for name, (src, replaces) in SOURCES.items():
         s = summary[name]
         kern.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
-                     "launches": totals[name] + async_totals[name],
+                     "launches": (totals[name] + async_totals[name]
+                                  + sel_totals[name]),
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": s["bound_by"],
                      "library_ms": s["library_ms"]})
+    from repro_torch.kernels import build
     emit("done", seconds=round(time.time() - t0, 1),
+         kernel_build_s=round(build.BUILD_INFO.get("seconds", 0.0), 1),
          imputed_mean=summary["imputed_mean"],
          async_median_step_ms=async_step_ms)
     print(json.dumps({"kernels": kern}))

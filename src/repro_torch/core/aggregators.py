@@ -1,7 +1,7 @@
 """Robust-aggregation registry: typed, validated specs (registry core).
 
 Counterpart of ``repro.core.aggregators`` for the rules of the port's
-first two slices:
+first three slices:
 
 * :class:`AggregatorCaps` / :class:`AggregatorDef` / :func:`register_aggregator`
   — the single extension point;
@@ -11,14 +11,16 @@ first two slices:
 * ``spec.aggregate`` / ``spec.aggregate_flat`` — the engine over a
   pytree or a pre-raveled (n, P) arena, synchronous or masked.
 
-Registered so far: ``mean``, ``coordinate_median``, ``trimmed_mean`` and
-``krum``.  Impls:
+Registered so far: ``mean``, ``coordinate_median``, ``trimmed_mean``,
+``krum`` and the selection family ``cge``, ``multi_krum``, ``m_krum``,
+``mda`` and ``bulyan``.  Impls:
 
 * ``kernel`` — the hand-written CUDA kernels (:mod:`repro_torch.kernels`),
   the JAX package's ``pallas``.  On a CPU tensor each kernel wrapper runs
   its plain PyTorch version.
 * ``gather`` — the paper-faithful dense law (:mod:`.filters.dense`).
-* ``auto`` — ``kernel`` for the rules in the kernel table, else
+* ``auto`` — ``kernel`` for the rules in the kernel table whose hyper
+  selects a kernelized variant (not ``bulyan(base != "krum")``), else
   ``gather``.
 * ``fused`` — the JAX package's leaf-wise, sharding-aware impl: not
   ported yet (ROADMAP.md slice 11, distribution); asking for it raises.
@@ -29,8 +31,11 @@ coordinate-wise rules take the order statistic over the ARRIVED rows only
 arrived count), krum runs on the mean-imputed stack, mean is the exact
 weighted mean of the arrived rows; each but mean is then scaled by the
 mean arrived weight.  ``impl="kernel"`` runs the fused masked kernels
-(K5-K7).  Elastic membership: ``make_spec(..., f=frac(r),
-n=elastic(n_max, buckets))`` and ``spec.respecialize(n_live)``.
+(K5-K7); the selection family's masked kernels come with ROADMAP.md
+slice 3b, and until then a masked call on its kernel path raises (its
+gather path runs the mean-imputed law).  Elastic membership:
+``make_spec(..., f=frac(r), n=elastic(n_max, buckets))`` and
+``spec.respecialize(n_live)``.
 
 Wrappers, state and telemetry come with ROADMAP.md slices 3, 6 and 7.
 """
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
@@ -49,6 +55,16 @@ from repro_torch.core.filters import dense as D
 from repro_torch.core.flat import FlatPlan
 
 IMPLS = ("auto", "kernel", "gather", "fused")
+
+
+@functools.lru_cache(maxsize=None)
+def mda_combos(n: int, f: int) -> np.ndarray:
+    """All (n-f)-subsets of minimum-diameter averaging, enumerated once
+    per (n, f)."""
+    combos = np.asarray(list(itertools.combinations(range(n), n - f)))
+    if len(combos) > 200_000:
+        raise ValueError(f"MDA infeasible for n={n}, f={f}")
+    return combos
 
 
 @functools.lru_cache(maxsize=None)
@@ -336,6 +352,8 @@ def _bucket_spec(spec: AggregatorSpec, b: int) -> AggregatorSpec:
 
 def _warm_plan(spec: AggregatorSpec, n: int):
     """Precompute per-(n, f) static work at spec-build time."""
+    if spec.name == "mda":
+        mda_combos(n, spec.f)
     if spec.name == "trimmed_mean":
         trim_count(n, spec.f, spec.hp("beta"))
 
@@ -431,9 +449,19 @@ def kernel_available(name: str) -> bool:
     return kernel_supported(name)
 
 
-def _resolve_impl(name: str, impl: str) -> str:
-    """``auto`` -> ``kernel`` where a kernel exists, else ``gather``;
-    ``kernel`` on a rule without one raises here, at build time."""
+def _kernel_supports_hyper(name: str, hyper: dict | None) -> bool:
+    """Hyper-level kernel gate: bulyan's kernels implement only the
+    classic krum base (a generic base runs an arbitrary inner filter per
+    selection round, which is not Gram-derivable)."""
+    if name == "bulyan":
+        return (hyper or {}).get("base", "krum") == "krum"
+    return True
+
+
+def _resolve_impl(name: str, impl: str, hyper: dict | None = None) -> str:
+    """``auto`` -> ``kernel`` where a kernel exists and the hyper selects
+    a kernelized variant, else ``gather``; ``kernel`` on a rule without
+    one raises here, at build time."""
     if impl == "pallas":
         raise ValueError("impl='pallas' is the JAX package's name; the "
                          "port calls it impl='kernel'")
@@ -442,13 +470,16 @@ def _resolve_impl(name: str, impl: str) -> str:
                          f"{impl!r}")
     if impl == "fused":
         raise NotImplementedError(_FUSED_MSG)
-    supported = kernel_available(name)
+    supported = kernel_available(name) and _kernel_supports_hyper(name,
+                                                                 hyper)
     if impl == "auto":
         return "kernel" if supported else "gather"
     if impl == "kernel" and not supported:
-        raise ValueError(f"{name}: impl='kernel' requested but no kernel is "
-                         "registered for it (repro_torch.kernels.dispatch."
-                         "KERNEL_RULES)")
+        reason = ("its hyper-parameters select a non-kernelized variant"
+                  if kernel_available(name) else
+                  "no kernel is registered for it")
+        raise ValueError(f"{name}: impl='kernel' requested but {reason} "
+                         "(repro_torch.kernels.dispatch.KERNEL_RULES)")
     return impl
 
 
@@ -483,7 +514,7 @@ def make_spec(name: str, f: "int | FracF" = 0, impl: str = "auto",
             raise ValueError(f"{name}: unknown hyper-parameter {k!r} "
                              f"(allowed: {sorted(d.hyper_keys)})")
     spec = AggregatorSpec(name=name, f=f, hyper=tuple(sorted(hyper.items())),
-                          impl=_resolve_impl(name, impl), n=n_int,
+                          impl=_resolve_impl(name, impl, hyper), n=n_int,
                           elastic=el, f_policy=f_policy)
     if el is not None:
         for b in el.buckets:          # prebuild every bucket's spec NOW
@@ -512,6 +543,26 @@ register_aggregator(
     "krum",
     caps=AggregatorCaps(pairwise=True),
     dense_fn=D.krum)
+register_aggregator(
+    "multi_krum",
+    caps=AggregatorCaps(pairwise=True),
+    hyper=("m",), gather=("m",), dense_fn=D.multi_krum)
+register_aggregator(
+    "m_krum",
+    caps=AggregatorCaps(pairwise=True),
+    hyper=("m",), gather=("m",), dense_fn=D.m_krum)
+register_aggregator(
+    "mda",
+    caps=AggregatorCaps(pairwise=True),
+    dense_fn=D.mda)
+register_aggregator(
+    "cge",
+    caps=AggregatorCaps(pairwise=True),
+    hyper=("normalize",), gather=("normalize",), dense_fn=D.cge)
+register_aggregator(
+    "bulyan",
+    caps=AggregatorCaps(pairwise=True),
+    hyper=("base",), gather=("base",), dense_fn=D.bulyan)
 register_aggregator(
     "coordinate_median",
     caps=AggregatorCaps(coordwise=True),

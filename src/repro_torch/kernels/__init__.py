@@ -9,18 +9,27 @@ from repro_torch.kernels.coord_stats import coord_stat
 from repro_torch.kernels.dispatch import (KERNEL_MASKED_RULES, KERNEL_RULES,
                                           kernel_aggregate,
                                           kernel_masked_aggregate,
+                                          kernel_masked_supported,
                                           kernel_supported)
 from repro_torch.kernels.masked import masked_coord_stat
-from repro_torch.kernels.ops import kernel_krum, kernel_krum_masked
+from repro_torch.kernels.ops import (kernel_bulyan, kernel_cge, kernel_krum,
+                                     kernel_krum_masked, kernel_m_krum,
+                                     kernel_mda, kernel_multi_krum)
 from repro_torch.kernels.pairwise import gram, imputed_mean, masked_gram
-from repro_torch.kernels.select import krum_select
-from repro_torch.kernels.wsum import masked_weighted_sum, weighted_sum
+from repro_torch.kernels.select import (bulyan_coord, cge_select,
+                                        iterative_order, krum_select,
+                                        multi_krum_order)
+from repro_torch.kernels.wsum import (masked_weighted_sum, ordered_apply,
+                                      weighted_sum)
 
 WRAPPERS = {"coord_stat": coord_stat, "gram": gram,
             "krum_select": krum_select, "weighted_sum": weighted_sum,
             "masked_coord_stat": masked_coord_stat,
             "masked_gram": masked_gram,
-            "masked_weighted_sum": masked_weighted_sum}
+            "masked_weighted_sum": masked_weighted_sum,
+            "cge_select": cge_select, "multi_krum_order": multi_krum_order,
+            "iterative_order": iterative_order,
+            "ordered_apply": ordered_apply, "bulyan_coord": bulyan_coord}
 
 
 def launch_counts() -> dict:
@@ -34,7 +43,11 @@ def reset_launch_counts():
 
 __all__ = ["coord_stat", "gram", "krum_select", "weighted_sum",
            "masked_coord_stat", "masked_gram", "masked_weighted_sum",
-           "imputed_mean", "kernel_krum", "kernel_krum_masked",
-           "KERNEL_RULES", "KERNEL_MASKED_RULES", "kernel_aggregate",
-           "kernel_masked_aggregate", "kernel_supported", "WRAPPERS",
-           "launch_counts", "reset_launch_counts"]
+           "cge_select", "multi_krum_order", "iterative_order",
+           "ordered_apply", "bulyan_coord", "imputed_mean", "kernel_krum",
+           "kernel_krum_masked", "kernel_cge", "kernel_multi_krum",
+           "kernel_m_krum", "kernel_mda", "kernel_bulyan", "KERNEL_RULES",
+           "KERNEL_MASKED_RULES", "kernel_aggregate",
+           "kernel_masked_aggregate", "kernel_masked_supported",
+           "kernel_supported", "WRAPPERS", "launch_counts",
+           "reset_launch_counts"]

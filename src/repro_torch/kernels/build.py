@@ -121,9 +121,19 @@ def lib():
                                      i32, vp]
         L.rt_masked_weighted_sum.argtypes = [vp, vp, i32, vp, vp, vp, i32,
                                              i64, i64, vp]
+        L.rt_cge_select.argtypes = [vp, vp, i32, i32, vp]
+        L.rt_multi_krum_order.argtypes = [vp, vp, i32, i32, i32, vp]
+        L.rt_iterative_order.argtypes = [vp, vp, i32, i32, i32, vp]
+        L.rt_ordered_apply.argtypes = [vp, vp, i32, vp, i32, i64, i64, i32,
+                                       ctypes.c_float, vp]
+        L.rt_bulyan_coord.argtypes = [vp, i32, vp, vp, i32, i64, i64, i32,
+                                      i32, vp]
         for fn in ("rt_coord_stat", "rt_gram", "rt_krum_select",
                    "rt_weighted_sum", "rt_masked_coord_stat",
-                   "rt_masked_gram", "rt_masked_weighted_sum"):
+                   "rt_masked_gram", "rt_masked_weighted_sum",
+                   "rt_cge_select", "rt_multi_krum_order",
+                   "rt_iterative_order", "rt_ordered_apply",
+                   "rt_bulyan_coord"):
             getattr(L, fn).restype = i32
         _LIB = L
     return _LIB

@@ -1,0 +1,7 @@
+// bulyan_coord for 64-row register capacity, __nv_bfloat16 input (one
+// translation unit per capacity and dtype: they compile in parallel).
+#include "bulyan_coord.cuh"
+
+template void bulyan_coord_launch<64, __nv_bfloat16>(
+    const void*, const float*, float*, int, long long, long long, int, int,
+    cudaStream_t);

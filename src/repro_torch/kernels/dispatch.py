@@ -6,14 +6,17 @@ there, ``KERNEL_RULES`` / ``KERNEL_MASKED_RULES`` here).  Every entry
 takes the (n, P) arena in its native dtype (fp32 or bf16: the kernels
 upcast in registers, so no fp32 (n, P) copy is made) and returns the (P,)
 fp32 aggregate; the masked entries also take the (n,) fp32 mask and the
-normalized weights wn = w / tot, on the arena's device.  The scaled and
-remaining selection tables come with ROADMAP.md slices 3-4.
+normalized weights wn = w / tot, on the arena's device.  The masked
+selection family comes with ROADMAP.md slice 3b, the scaled table with
+slice 4.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.coord_stats import coord_stat
 from repro_torch.kernels.masked import masked_coord_stat
-from repro_torch.kernels.ops import kernel_krum, kernel_krum_masked
+from repro_torch.kernels.ops import (kernel_bulyan, kernel_cge, kernel_krum,
+                                     kernel_krum_masked, kernel_m_krum,
+                                     kernel_mda, kernel_multi_krum)
 
 
 def _trim_b(n: int, f: int, hyper: dict) -> int:
@@ -34,10 +37,40 @@ def _krum(stack, f, hyper):
     return kernel_krum(stack, f)
 
 
+def _cge(stack, f, hyper):
+    return kernel_cge(stack, f, normalize=hyper.get("normalize", True))
+
+
+def _multi_krum(stack, f, hyper):
+    return kernel_multi_krum(stack, f, m=hyper.get("m", 2))
+
+
+def _m_krum(stack, f, hyper):
+    return kernel_m_krum(stack, f, m=hyper.get("m", 2))
+
+
+def _mda(stack, f, hyper):
+    return kernel_mda(stack, f)
+
+
+def _bulyan(stack, f, hyper):
+    # only the classic krum base is Gram-derivable; make_spec gates the
+    # kernel impl on hyper, so a generic base never reaches this table
+    if hyper.get("base", "krum") != "krum":
+        raise ValueError(f"bulyan: no kernel path for base="
+                         f"{hyper['base']!r}")
+    return kernel_bulyan(stack, f)
+
+
 KERNEL_RULES = {
     "coordinate_median": _median,
     "trimmed_mean": _trimmed_mean,
     "krum": _krum,
+    "cge": _cge,
+    "multi_krum": _multi_krum,
+    "m_krum": _m_krum,
+    "mda": _mda,
+    "bulyan": _bulyan,
 }
 
 
@@ -75,13 +108,23 @@ KERNEL_MASKED_RULES = {
 }
 
 
+def kernel_masked_supported(name: str) -> bool:
+    return name in KERNEL_MASKED_RULES
+
+
+def masked_kernel_missing(name: str) -> str:
+    """Why ``name`` has no masked kernel path, naming the ROADMAP.md slice
+    that brings it."""
+    return (f"{name}: no masked kernel path yet — the masked selection "
+            "family (cge, multi_krum, m_krum, mda, bulyan) comes with "
+            "ROADMAP.md slice 3b; impl='gather' runs the masked law")
+
+
 def kernel_masked_aggregate(name: str, stack, mask, wn, f: int,
                             hyper: tuple = ()):
     """stack: (n, P) fp32 or bf16, mask: (n,) {0,1} fp32, wn: (n,) fp32
     -> (P,) fp32 masked statistic via the rule's kernels (the engine
     applies the tot/cnt scale)."""
     if name not in KERNEL_MASKED_RULES:
-        raise NotImplementedError(
-            f"{name}: no masked kernel path yet (the other masked rules "
-            "come with ROADMAP.md slices 3-4)")
+        raise NotImplementedError(masked_kernel_missing(name))
     return KERNEL_MASKED_RULES[name](stack, mask, wn, f, dict(hyper))

@@ -34,9 +34,13 @@ def gram_plain(g):
 
     fp64 because an fp32 sum over the ~1e8 coordinates of a model drifts
     by more than the 3e-6 bar the kernel is held to; the kernel keeps its
-    running sums in fp64 for the same reason."""
+    running sums in fp64 for the same reason.  The upper triangle is
+    mirrored, as the kernel mirrors it, so the Gram is bitwise symmetric:
+    the iterative selection's pair tie (K10) relies on d2(i, j) ==
+    d2(j, i)."""
     x = g.double()
-    return (x @ x.T).float()
+    gr = (x @ x.T).float()
+    return torch.triu(gr) + torch.triu(gr, 1).T
 
 
 def _check(name, g):

@@ -1,5 +1,5 @@
-"""K4 and K7: the weighted sum w^T G over the agent axis, plain and over
-the mean-imputed stack.
+"""K4, K7 and K11: the weighted sum w^T G over the agent axis, plain and
+over the mean-imputed stack, and the ordered application of a selection.
 
 * K4 :func:`weighted_sum` replaces the Pallas TPU kernel
   ``repro/kernels/wsum.py:weighted_sum`` with the CUDA kernel
@@ -11,6 +11,10 @@ the mean-imputed stack.
   ``csrc/masked_wsum.cu``: live rows with w > 0 are read raw, and the
   ghost weight (the absent rows' total) multiplies the (d,) imputed mean,
   so the imputed stack is never built.
+* K11 :func:`ordered_apply` replaces ``repro/kernels/wsum.py:ordered_apply``
+  with ``csrc/ordered_apply.cu``: the k rows a selection order picked,
+  summed in pick order and divided (multi-Krum, m-Krum, MDA); the other
+  rows are never read.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version for a CPU tensor; ``<wrapper>.launches`` counts kernel launches.
@@ -129,3 +133,55 @@ def masked_weighted_sum(w, g, mask, mean):
 
 
 masked_weighted_sum.launches = 0
+
+
+def ordered_apply_plain(order, g, k: int, div: float | None = None):
+    """(n,) int order, (n, d) -> (d,) fp32: the row picked at each position
+    r < k (the first row carrying r; none adds nothing) added in pick
+    order from 0, then divided by ``div`` (by a tensor, so that the card
+    divides too: a Python-scalar divisor becomes a reciprocal multiply
+    there)."""
+    acc = torch.zeros((g.shape[1],), dtype=torch.float32, device=g.device)
+    for r in range(k):
+        hit = order == r
+        row = g.index_select(0, torch.argmax(hit.int()).reshape(1))[0]
+        acc = acc + torch.where(hit.any(), row.float(), 0.0)
+    if div is not None:
+        acc = acc / torch.tensor(float(div), device=g.device)
+    return acc
+
+
+def ordered_apply(order, g, k: int, div: float | None = None):
+    """order: (n,) int32 pick order (a position >= k is not picked, each
+    position at most once), g: (n, d) fp32 or bf16 -> (d,) fp32: the k
+    picked rows summed in pick order, divided by ``div`` (None = no
+    division)."""
+    if g.dim() != 2 or order.shape != (g.shape[0],):
+        raise ValueError(f"ordered_apply: shapes order {tuple(order.shape)},"
+                         f" g {tuple(g.shape)}")
+    n, d = g.shape
+    if not 1 <= n <= MAX_N or not 0 <= k <= n:
+        raise ValueError(f"ordered_apply: n={n}, k={k} outside n in [1, "
+                         f"{MAX_N}], k in [0, n]")
+    if div is not None and not div > 0:
+        raise ValueError(f"ordered_apply: div={div} must be > 0")
+    if g.device.type == "cpu":
+        return ordered_apply_plain(order, g, k, div)
+    if g.device.type != "cuda" or order.device != g.device:
+        raise ValueError(f"ordered_apply: order on {order.device}, g on "
+                         f"{g.device}")
+    if g.stride(1) != 1:
+        raise ValueError("ordered_apply: rows must be contiguous")
+    if order.dtype != torch.int32 or not order.is_contiguous():
+        raise ValueError("ordered_apply: order must be contiguous int32")
+    code = build.dtype_code(g)
+    out = torch.empty((d,), dtype=torch.float32, device=g.device)
+    rc = build.lib().rt_ordered_apply(
+        order.data_ptr(), g.data_ptr(), code, out.data_ptr(), n, d,
+        g.stride(0), int(k), float(div or 0.0), build.stream_ptr(g))
+    build.check(rc, "ordered_apply")
+    ordered_apply.launches += 1
+    return out
+
+
+ordered_apply.launches = 0

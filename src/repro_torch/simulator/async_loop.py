@@ -305,6 +305,18 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
             & (atrace.staleness.max(1, initial=0) == 0))
     if roster is not None:
         pure &= roster.all(1)
+    # a row that is not pure aggregates through the masked engine: refuse
+    # a kernel spec without a masked kernel before any step runs, rather
+    # than failing mid-run or quietly running the gather law
+    masked_rows = ~pure & atrace.contrib.any(1)
+    if masked_rows.any() and spec.impl == "kernel":
+        from repro_torch.kernels.dispatch import (kernel_masked_supported,
+                                                  masked_kernel_missing)
+        if not kernel_masked_supported(spec.name):
+            raise NotImplementedError(
+                f"{masked_kernel_missing(spec.name)} (trace rows "
+                f"{np.flatnonzero(masked_rows)[:8].tolist()} are not "
+                "synchronous)")
 
     # the in-flight buffer (fp32 whatever the parameter dtype), zero until
     # the first async step writes it, and the dispatches deferred across

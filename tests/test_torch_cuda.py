@@ -8,7 +8,8 @@ with the card (no JAX needed):
 Bars: median values (plain and masked), Krum's one-hot and the one-hot
 weighted sums (plain and masked, live row or ghost) exact; trimmed means,
 Grams (plain and masked), the imputed mean and general weighted sums
-within rtol = atol = 3e-6.
+within rtol = atol = 3e-6.  The selection family (K8-K11, K13) exact:
+its plain versions order, sum and divide as the kernels do.
 """
 import math
 
@@ -20,8 +21,13 @@ from repro_torch.kernels.coord_stats import coord_stat_plain
 from repro_torch.kernels.masked import masked_coord_stat_plain
 from repro_torch.kernels.pairwise import gram_plain, masked_gram_plain
 from repro_torch.kernels.ref import imputed_mean_ref
-from repro_torch.kernels.select import krum_select_plain
+from repro_torch.kernels.select import (bulyan_coord_plain,
+                                        cge_select_plain,
+                                        iterative_order_plain,
+                                        krum_select_plain,
+                                        multi_krum_order_plain)
 from repro_torch.kernels.wsum import (masked_weighted_sum_plain,
+                                      ordered_apply_plain,
                                       weighted_sum_plain)
 
 TOL = 3e-6
@@ -96,7 +102,9 @@ def test_cuda_launch_counters_count_launches(cuda_device):
     kernels.masked_coord_stat(g, m, m, "median")
     assert kernels.launch_counts() == {
         "coord_stat": 1, "gram": 1, "krum_select": 2, "weighted_sum": 2,
-        "masked_coord_stat": 1, "masked_gram": 1, "masked_weighted_sum": 1}
+        "masked_coord_stat": 1, "masked_gram": 1, "masked_weighted_sum": 1,
+        "cge_select": 0, "multi_krum_order": 0, "iterative_order": 0,
+        "ordered_apply": 0, "bulyan_coord": 0}
     coord_stat_plain(g, "median")                  # the plain versions
     masked_coord_stat_plain(g, m, m, "median")
     assert kernels.launch_counts()["coord_stat"] == 1
@@ -185,3 +193,108 @@ def test_cuda_wrappers_raise_on_bad_input(cuda_device):
         kernels.gram(g[:, ::2])               # strided rows
     with pytest.raises(ValueError):
         kernels.weighted_sum(torch.ones(8), g)          # w on the CPU
+
+
+def assert_same(a, b):
+    """Bitwise agreement up to the sign of zero, NaN equal to NaN."""
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hazard", HAZARDS + ["dup"])
+@pytest.mark.parametrize("n", [3, 4, 8, 11, 16, 33])
+def test_cuda_selection_kernels_match_plain(cuda_device, n, hazard):
+    """K8, K9, K10 on the card's own Gram, which must be bitwise
+    symmetric (K10's pair tie relies on it)."""
+    f = 1 if n < 8 else 2
+    g = stack(max(n, 8), 4099, 5, None if hazard == "dup" else hazard,
+              cuda_device, torch.float32)[:n].contiguous()
+    if hazard == "dup":
+        g[:] = g[0].clone()
+    gr = kernels.gram(g)
+    assert_same(gr, gr.T)
+    for n_keep in (n - f, 1):
+        assert_same(kernels.cge_select(gr, n_keep),
+                    cge_select_plain(gr, n_keep))
+    for m in (1, 2, 3):
+        assert_same(kernels.multi_krum_order(gr, f, m),
+                    multi_krum_order_plain(gr, f, m))
+    for k_total in sorted({2, 3, max(n - 2 * f, 1), n}):
+        order = kernels.iterative_order(gr, f, k_total)
+        assert_same(order, iterative_order_plain(gr, f, k_total))
+        picked = sorted(order[order < n].tolist())
+        assert picked == list(range(k_total))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hazard", [None, "nan", "inf", "spots"])
+@pytest.mark.parametrize("n", [3, 8, 11, 16, 33])
+def test_cuda_ordered_apply_and_bulyan_coord_match_plain(cuda_device, n,
+                                                         hazard, dtype):
+    """K11 with the selection kernels' orders (and a hand-made one), K13
+    at each theta a Bulyan step can give; +-inf / NaN rows and spots in
+    and out of the selection, ties of equidistant values."""
+    f = 1 if n < 8 else 2
+    g = stack(max(n, 8), 4099, 6, hazard, cuda_device,
+              torch.float32)[:n].contiguous()
+    g[:, ::5] = torch.round(g[:, ::5])          # equidistant values
+    g = g.to(dtype)
+    gr = kernels.gram(g)
+    orders = [kernels.multi_krum_order(gr, f, min(3, n)),
+              kernels.iterative_order(gr, f, min(3, n))]
+    hand = torch.full((n,), n, dtype=torch.int32, device=cuda_device)
+    hand[torch.arange(n - 1, -1, -2, device=cuda_device)] = torch.arange(
+        (n + 1) // 2, dtype=torch.int32, device=cuda_device)
+    orders.append(hand)
+    for order in orders:
+        k = int((order < n).sum())
+        for div in (None, k):
+            assert_same(kernels.ordered_apply(order, g, k, div=div),
+                        ordered_apply_plain(order, g, k, div=div))
+    for theta in sorted({max(n - 2 * f, 1), max(n - 2 * f - 1, 1), n}):
+        sel = (kernels.iterative_order(gr, f, theta) < theta).float()
+        for ff in (0, f):
+            assert_same(kernels.bulyan_coord(g, sel, theta, ff),
+                        bulyan_coord_plain(g, sel, theta, ff))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_selection_compositions_count_their_launches(cuda_device):
+    """Each composition launches its kernels once: cge K2 K8 K4,
+    multi_krum K2 K9 K11, m_krum K2 K10 K11, mda K2 K11, bulyan K2 K10
+    K13."""
+    g = torch.randn(11, 5000, device=cuda_device)
+    want = {"cge": ("gram", "cge_select", "weighted_sum"),
+            "multi_krum": ("gram", "multi_krum_order", "ordered_apply"),
+            "m_krum": ("gram", "iterative_order", "ordered_apply"),
+            "mda": ("gram", "ordered_apply"),
+            "bulyan": ("gram", "iterative_order", "bulyan_coord")}
+    for rule, names in want.items():
+        kernels.reset_launch_counts()
+        kernels.kernel_aggregate(rule, g, 2)
+        counts = kernels.launch_counts()
+        assert counts == {k: int(k in names) for k in counts}, rule
+
+
+@pytest.mark.cuda
+def test_cuda_selection_wrappers_raise_on_bad_input(cuda_device):
+    g = torch.randn(8, 100, device=cuda_device)
+    gr = kernels.gram(g)
+    order = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        kernels.cge_select(gr.double(), 6)
+    with pytest.raises(ValueError):
+        kernels.iterative_order(gr.T, 2, 4)           # not contiguous
+    with pytest.raises(ValueError):
+        kernels.ordered_apply(order.long(), g, 3)
+    with pytest.raises(ValueError):
+        kernels.ordered_apply(order.cpu(), g, 3)
+    with pytest.raises(TypeError):
+        kernels.bulyan_coord(g.half(), torch.ones(8, device=cuda_device),
+                             4, 2)
+    with pytest.raises(ValueError):
+        kernels.bulyan_coord(g, torch.ones(8, device=cuda_device).bool(),
+                             4, 2)

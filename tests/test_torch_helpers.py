@@ -107,34 +107,34 @@ def _torch_recording(opt):
     return topt.Optimizer(opt.init, update)
 
 
-def run_slice(rule, alpha, steps=3, attack="sign_flip"):
+def run_slice(rule, alpha, steps=3, attack="sign_flip", n=N):
     """Run the JAX step (impl="pallas") and the torch step (impl="auto")
-    side by side from the same weights and batches; returns per step
-    (jax loss, torch loss, jax agg, torch agg, jax params, torch params)
-    as numpy."""
+    side by side from the same weights and batches, with ``n`` agents;
+    returns per step (jax loss, torch loss, jax agg, torch agg, jax
+    params, torch params) as numpy."""
     cfg, jcfg = configs()
     jp = jax.tree.map(jnp.asarray, jax_params_numpy())
     tp = params_from_numpy(jax_params_numpy())
     jo = _jax_recording(jopt.adamw(jopt.constant(LR), eps=EPS))
     to = _torch_recording(topt.adamw(topt.constant(LR), eps=EPS))
     jstep = jax.jit(jax_make_train_step(jcfg, JaxBz(
-        n_agents=N, f=F, aggregator=jax_make_spec(rule, f=F, impl="pallas",
-                                                  n=N),
+        n_agents=n, f=F, aggregator=jax_make_spec(rule, f=F, impl="pallas",
+                                                  n=n),
         attack=attack, momentum_alpha=alpha), jo))
-    spec = make_spec(rule, f=F, n=N)
+    spec = make_spec(rule, f=F, n=n)
     assert spec.impl == "kernel"
     tstep = make_train_step(cfg, ByzantineConfig(
-        n_agents=N, f=F, aggregator=spec, attack=attack,
+        n_agents=n, f=F, aggregator=spec, attack=attack,
         momentum_alpha=alpha), to, device="cpu")
     js, ts = jo.init(jp), to.init(tp)
     jm = tm = None
     if alpha:
-        jm = jax.tree.map(lambda p: jnp.zeros((N,) + p.shape, jnp.float32),
+        jm = jax.tree.map(lambda p: jnp.zeros((n,) + p.shape, jnp.float32),
                           jp)
-        tm = init_momentum(N, int(flat_np(jax_params_numpy()).size), "cpu")
+        tm = init_momentum(n, int(flat_np(jax_params_numpy()).size), "cpu")
     out = []
     for step in range(steps):
-        tb, jb = batch_np(100 + step)
+        tb, jb = batch_np(100 + step, n)
         jp, js, jm, jmet = jstep(jp, js, jm, jb, jax.random.PRNGKey(7))
         tp, ts, tm, tmet = tstep(tp, ts, tm, tb)
         out.append((float(jmet["loss"]), float(tmet["loss"]),
@@ -143,10 +143,10 @@ def run_slice(rule, alpha, steps=3, attack="sign_flip"):
     return out
 
 
-def check_slice(rule, alpha):
-    for step, (jl, tl, ja, ta, jpar, tpar) in enumerate(run_slice(rule,
-                                                                  alpha)):
-        msg = f"{rule} alpha={alpha} step {step}"
+def check_slice(rule, alpha, n=N):
+    for step, (jl, tl, ja, ta, jpar, tpar) in enumerate(
+            run_slice(rule, alpha, n=n)):
+        msg = f"{rule} alpha={alpha} n={n} step {step}"
         np.testing.assert_allclose(tl, jl, rtol=LOGIT_TOL, atol=LOGIT_TOL,
                                    err_msg=msg)
         # the aggregate is an order statistic / selection of gradients:

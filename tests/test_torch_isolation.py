@@ -129,7 +129,8 @@ def test_cli_simulator_flags_run_on_cpu_when_asked(flags, capsys):
 
 
 @pytest.mark.parametrize("rule", ["coordinate_median", "trimmed_mean",
-                                  "krum"])
+                                  "krum", "cge", "multi_krum", "m_krum",
+                                  "mda", "bulyan"])
 def test_train_loop_runs_on_cpu_when_asked(rule):
     cfg, ds, bz, opt = _smoke_setup(rule=rule)
     logs = []
@@ -146,6 +147,17 @@ def test_cli_runs_on_cpu_when_asked(capsys):
                               "krum", "--attack", "sign_flip",
                               "--momentum-alpha", "0.1", "--seq-len", "16",
                               "--per-agent-batch", "1"])
+    assert math.isfinite(hist[-1]["loss"])
+    assert "final loss" in capsys.readouterr().out
+
+
+def test_cli_runs_bulyan_on_cpu_when_asked(capsys):
+    """The selection family through the launcher at its registered
+    defaults: bulyan at n = 11, f = 2 (n >= 4f + 3)."""
+    hist = launch_train.main(["--smoke", "--device", "cpu", "--steps", "2",
+                              "--n-agents", "11", "--f", "2", "--filter",
+                              "bulyan", "--attack", "sign_flip",
+                              "--seq-len", "16", "--per-agent-batch", "1"])
     assert math.isfinite(hist[-1]["loss"])
     assert "final loss" in capsys.readouterr().out
 
