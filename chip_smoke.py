@@ -23,8 +23,9 @@ failure exits non-zero without a result line):
                step went through its kernels.  A traced step per rule
                then splits the device time by device event;
 4. kernel vs gather — one full-width step with impl="kernel" against
-               impl="gather" from the same state and batch: median and
-               krum aggregates exact, trimmed mean within 3e-6.
+               impl="gather" from the same state and batch: the same
+               arena and loss, median and krum aggregates exact, trimmed
+               mean within 3e-6 (phases 4b and 4d run as one pass).
 
 The async path (ROADMAP.md slice 2) adds:
 
@@ -79,6 +80,37 @@ The selection family (ROADMAP.md slice 3) adds:
                batch: the same arena, equal losses, the selected set and
                pick order equal, the aggregates within 3e-6.
 
+The masked selection family and sign_sgd (ROADMAP.md slice 3b) add:
+
+2.  K15 sign_vote against its plain version at full width in bf16 and
+               fp32 (with the other phase-2 kernels), its NaN / +-inf /
+               +-0 hazards at a small width;
+2d. masked selection kernels — K12 masked_ordered_apply with the orders
+               of multi_krum (m = 3), m_krum (m = 3) and mda (k = 6) on
+               the imputed Gram of a 6-of-8 mask, and a hand-made order
+               with a ghost (absent) row picked first; K14
+               masked_bulyan_coord at n = 11 (9 arrived) on K10's theta
+               picks, and with a ghost forced into the selection; K16
+               masked_sign_vote at masks of 6, 1 and 0 of 8; fp32 (the
+               async buffer) and bf16, full width; hazards at a small
+               width; times, yardsticks and bounds;
+3.  sign_sgd among the synchronous rules (K15 once a step);
+3d. async selection — cge, multi_krum (m = 3), m_krum (m = 3), mda and
+               sign_sgd at n = 8 under the phase-3b stragglers, bulyan at
+               n = 11 with quorum 9 (9 of 11 arrive, no step pure): 1
+               warm-up step, then 2 timed steps per rule; the launch
+               counts must show K4 (the imputed mean) and K6, then cge K8
+               K7, multi_krum K9 K12, m_krum K10 K12, mda K12, bulyan K10
+               K14, and sign_sgd K16, once a step; a traced async step for
+               multi_krum and bulyan;
+4.  sign_sgd kernel vs gather, exact;
+4d. masked selection kernel vs gather — one full-width async step per
+               rule of phase 3d with impl="kernel" against impl="gather"
+               from the same state, buffer, batch and trace row: the same
+               masked arena, the same selection and pick order on the
+               imputed stack (and whether a ghost row is selected), the
+               aggregates within 3e-6, sign_sgd exact.
+
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
 not available.
@@ -107,11 +139,13 @@ RULE_KERNELS = {"trimmed_mean": ("coord_stat",),
                 "coordinate_median": ("coord_stat",),
                 "krum": ("gram", "krum_select", "weighted_sum")}
 ASYNC_STEPS = 4
-ASYNC_RULE_KERNELS = {
-    "trimmed_mean": ("masked_coord_stat",),
-    "coordinate_median": ("masked_coord_stat",),
-    "krum": ("weighted_sum", "masked_gram", "krum_select",
-             "masked_weighted_sum")}
+# the async rules: rule -> (n, quorum, hyper, the kernels of one masked
+# step); the selection family's table is ASYNC_SEL_RULES below
+ASYNC_RULES = {
+    "trimmed_mean": (N, 6, {}, ("masked_coord_stat",)),
+    "coordinate_median": (N, 6, {}, ("masked_coord_stat",)),
+    "krum": (N, 6, {}, ("weighted_sum", "masked_gram", "krum_select",
+                        "masked_weighted_sum"))}
 CHURN_LIVE = [8, 6, 4, 6, 6, 7, 4, 3]
 SOURCES = {
     "coord_stat": ("src/repro_torch/kernels/csrc/coord_stat.cu",
@@ -138,8 +172,18 @@ SOURCES = {
                       "src/repro/kernels/wsum.py:318"),
     "bulyan_coord": ("src/repro_torch/kernels/csrc/bulyan_coord.cu",
                      "src/repro/kernels/select.py:288"),
+    "masked_ordered_apply": ("src/repro_torch/kernels/csrc/ordered_apply.cu",
+                             "src/repro/kernels/wsum.py:346"),
+    "masked_bulyan_coord": (
+        "src/repro_torch/kernels/csrc/masked_bulyan_coord.cu",
+        "src/repro/kernels/select.py:312"),
+    "sign_vote": ("src/repro_torch/kernels/csrc/sign_vote.cu",
+                  "src/repro/kernels/masked.py:62"),
+    "masked_sign_vote": ("src/repro_torch/kernels/csrc/sign_vote.cu",
+                         "src/repro/kernels/masked.py:90"),
 }
-SYNC_KERNELS = ("coord_stat", "gram", "krum_select", "weighted_sum")
+SYNC_KERNELS = ("coord_stat", "gram", "krum_select", "weighted_sum",
+                "sign_vote")
 # the selection family: rule -> (n, hyper, the kernels of one step)
 SEL_RULES = {
     "cge": (N, {}, ("gram", "cge_select", "weighted_sum")),
@@ -150,6 +194,22 @@ SEL_RULES = {
     "bulyan": (11, {}, ("gram", "iterative_order", "bulyan_coord")),
 }
 SEL_STEPS = 2
+SIGN_RULES = {"sign_sgd": (N, {}, ("sign_vote",))}
+# the async selection family and sign_sgd: rule -> (n, quorum, hyper, the
+# kernels of one masked step)
+IMPUTED = ("weighted_sum", "masked_gram")
+ASYNC_SEL_RULES = {
+    "cge": (N, 6, {}, IMPUTED + ("cge_select", "masked_weighted_sum")),
+    "multi_krum": (N, 6, {"m": 3}, IMPUTED + ("multi_krum_order",
+                                              "masked_ordered_apply")),
+    "m_krum": (N, 6, {"m": 3}, IMPUTED + ("iterative_order",
+                                          "masked_ordered_apply")),
+    "mda": (N, 6, {}, IMPUTED + ("masked_ordered_apply",)),
+    "sign_sgd": (N, 6, {}, ("masked_sign_vote",)),
+    "bulyan": (11, 9, {}, IMPUTED + ("iterative_order",
+                                     "masked_bulyan_coord")),
+}
+ASYNC_SEL_STEPS = 2
 
 
 def emit(phase, **kw):
@@ -195,6 +255,27 @@ def bound(bytes_moved, flops):
             "operations")
 
 
+def timing(fn, plain, reps, plain_reps, bytes_moved, flops, library=None,
+           label=None):
+    """Kernel, plain-version and (optional) library times with the bound,
+    as the keyword arguments of a ``check`` line."""
+    bms, by = bound(bytes_moved, flops)
+    return dict(kernel_ms=time_ms(fn, reps),
+                plain_ms=time_ms(plain, plain_reps),
+                library_ms=time_ms(library, 2) if library else None,
+                library=label, bound_ms=bms, bound_by=by)
+
+
+def note(summary, name, err, kw=None):
+    """Keep the largest error of ``name`` in ``summary``, and the timing
+    ``kw`` (from :func:`timing`) of the summary's case."""
+    summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], err)
+    if kw:
+        summary[name].update(
+            ms=kw["kernel_ms"], **{k: kw[k] for k in (
+                "plain_ms", "library_ms", "bound_ms", "bound_by")})
+
+
 # ---------------------------------------------------------------------------
 # phase 1
 
@@ -230,6 +311,7 @@ def check(name, ok, **kw):
 def kernel_checks(num_params):
     from repro_torch import kernels
     from repro_torch.kernels.coord_stats import coord_stat_plain
+    from repro_torch.kernels.masked import sign_vote_plain
     from repro_torch.kernels.pairwise import gram_plain
     from repro_torch.kernels.select import krum_select_plain
     from repro_torch.kernels.wsum import weighted_sum_plain
@@ -323,17 +405,76 @@ def kernel_checks(num_params):
             summary["weighted_sum"].update(ms=ms, plain_ms=pms,
                                            library_ms=lms, bound_ms=bms,
                                            bound_by=by)
+        # K15 sign_vote: the vote is exact, so the kernel equals its plain
+        # version bit for bit
+        out = kernels.sign_vote(x)
+        err = max_abs_err(out, sign_vote_plain(x))
+        del out
+        ms = time_ms(lambda: kernels.sign_vote(x), 10)
+        pms = time_ms(lambda: sign_vote_plain(x), 2)
+        lms = time_ms(lambda: torch.sign(torch.sign(x).sum(0)), 2)
+        bms, by = bound(N * P * s + 4 * P, 2 * N * P)
+        check("sign_vote", err == 0.0, dtype=dname, shape=[N, P],
+              max_abs_diff=err, exact=err == 0.0, kernel_ms=ms,
+              plain_ms=pms, library_ms=lms,
+              library="torch.sign(torch.sign(g).sum(0)), a partial "
+                      "yardstick (three calls)", bound_ms=bms, bound_by=by)
+        summary["sign_vote"]["max_abs_err"] = max(
+            summary["sign_vote"]["max_abs_err"], err)
+        if main:
+            summary["sign_vote"].update(ms=ms, plain_ms=pms, library_ms=lms,
+                                        bound_ms=bms, bound_by=by)
         # aggregation time of each rule on this arena (the spec's call)
         if main:
             from repro_torch.core.aggregators import make_spec
-            for rule in RULES:
+            for rule in RULES + tuple(SIGN_RULES):
                 spec = make_spec(rule, f=F, n=N)
                 agg_ms[rule] = time_ms(lambda: spec.aggregate_flat(x), 5)
             emit("kernels", aggregation_ms=agg_ms, dtype=dname)
         del x, gr
         torch.cuda.empty_cache()
     hazard_checks()
+    sign_hazard_checks()
     return summary, agg_ms
+
+
+def sign_hazard_checks():
+    """K15 and K16 on NaN, +-inf and +-0 values (and, for K16, NaN / +inf
+    in an absent row, which casts no vote: ROADMAP.md P10) at a small width
+    and n = 3, 8, 11: exact against the plain versions."""
+    from repro_torch import kernels
+    from repro_torch.kernels.masked import (masked_sign_vote_plain,
+                                            sign_vote_plain)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    d = 4099
+    for n in (3, 8, 11):
+        m = arrival_mask(max(n - 2, 1), n)
+        for hazard in ("nan", "inf", "zeros", "absent"):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((n, d), generator=gen, device=DEVICE)
+                if hazard == "nan":
+                    x[0, ::7] = math.nan
+                elif hazard == "inf":
+                    x[0, ::3], x[n - 1, 1::3] = math.inf, -math.inf
+                elif hazard == "zeros":
+                    x[:, ::2] = 0.0
+                    x[: n // 2, ::4] = -0.0
+                else:
+                    x[n - 1, ::2], x[n - 1, 1::2] = math.nan, math.inf
+                x = x.to(dtype)
+                errs = {"sign_vote": max_abs_err(kernels.sign_vote(x),
+                                                 sign_vote_plain(x))}
+                out = kernels.masked_sign_vote(x, m, m)
+                errs["masked_sign_vote"] = max_abs_err(
+                    out, masked_sign_vote_plain(x, m, m))
+                torch.cuda.synchronize()
+                ok = all(v == 0.0 for v in errs.values())
+                if hazard == "absent":
+                    ok = ok and bool(torch.isfinite(out).all())
+                check("sign_hazards", ok, hazard=hazard, n=n,
+                      dtype=str(dtype).replace("torch.", ""), shape=[n, d],
+                      max_abs_diff=errs)
 
 
 def hazard_checks():
@@ -423,15 +564,6 @@ def masked_kernel_checks(num_params):
                if k.startswith("masked")}
     summary["imputed_mean"] = {"max_abs_err": 0.0}
 
-    def note(name, err, timing=None):
-        """Keep the largest error, and the timing of the summary's case."""
-        summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], err)
-        if timing:
-            summary[name].update(
-                ms=timing["kernel_ms"],
-                **{k: timing[k] for k in ("plain_ms", "library_ms",
-                                          "bound_ms", "bound_by")})
-
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         s = torch.finfo(dtype).bits // 8
@@ -466,7 +598,7 @@ def masked_kernel_checks(num_params):
                 check("masked_coord_stat", ok, stat=stat, dtype=dname,
                       shape=[N, P], arrived=arrived, max_abs_diff=err,
                       exact=err == 0.0, **kw)
-                note("masked_coord_stat", err,
+                note(summary, "masked_coord_stat", err,
                      main and stat == "trimmed_mean" and kw)
                 del out, ref
             if arrived == 0:
@@ -490,7 +622,7 @@ def masked_kernel_checks(num_params):
             check("imputed_mean", ok, via="weighted_sum", dtype=dname,
                   shape=[N, P], arrived=arrived, max_abs_diff=err,
                   exact=err == 0.0, **kw)
-            note("imputed_mean", err, main and kw)
+            note(summary, "imputed_mean", err, main and kw)
             # K6 masked_gram, then K3 on it
             gr = kernels.masked_gram(x, m, wn, mean)
             ref = masked_gram_plain(x, m, wn, mean)
@@ -511,7 +643,7 @@ def masked_kernel_checks(num_params):
             check("masked_gram", ok, dtype=dname, shape=[N, P],
                   arrived=arrived, max_abs_diff=err, exact=err == 0.0,
                   bitwise_repeat=True, krum_select_exact=True, **kw)
-            note("masked_gram", err, main and kw)
+            note(summary, "masked_gram", err, main and kw)
             del gr, ref
             # K7 masked_weighted_sum: one-hot live, one-hot ghost, a set
             eye = torch.eye(N, device=DEVICE)
@@ -543,12 +675,12 @@ def masked_kernel_checks(num_params):
                 check("masked_weighted_sum", ok, weights=label, dtype=dname,
                       shape=[N, P], arrived=arrived, max_abs_diff=err,
                       exact=err == 0.0, **kw)
-                note("masked_weighted_sum", err, main and kw)
+                note(summary, "masked_weighted_sum", err, main and kw)
                 del out, ref
             del mean
         del x
         torch.cuda.empty_cache()
-    note("masked_coord_stat", masked_bucket_checks(P, gen))
+    note(summary, "masked_coord_stat", masked_bucket_checks(P, gen))
     masked_hazard_checks()
     return summary
 
@@ -671,23 +803,6 @@ def selection_kernel_checks(num_params):
     names = ("cge_select", "multi_krum_order", "iterative_order",
              "ordered_apply", "bulyan_coord")
     summary = {k: {"max_abs_err": 0.0} for k in names}
-
-    def note(name, err, timing=None):
-        summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], err)
-        if timing:
-            summary[name].update(
-                ms=timing["kernel_ms"],
-                **{k: timing[k] for k in ("plain_ms", "library_ms",
-                                          "bound_ms", "bound_by")})
-
-    def timing(fn, plain, reps, plain_reps, bytes_moved, flops,
-               library=None, label=None):
-        bms, by = bound(bytes_moved, flops)
-        return dict(kernel_ms=time_ms(fn, reps),
-                    plain_ms=time_ms(plain, plain_reps),
-                    library_ms=time_ms(library, 2) if library else None,
-                    library=label, bound_ms=bms, bound_by=by)
-
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
         s = torch.finfo(dtype).bits // 8
@@ -708,7 +823,7 @@ def selection_kernel_checks(num_params):
             check("cge_select", err == 0.0 and sym
                   and float(w.sum()) == n - F, dtype=dname, n=n,
                   n_keep=n - F, gram_symmetric=sym, max_abs_diff=err, **kw)
-            note("cge_select", err, kw)
+            note(summary, "cge_select", err, kw)
             # K9 multi_krum_order
             for m in (2, 3):
                 o = kernels.multi_krum_order(gr, F, m)
@@ -722,7 +837,7 @@ def selection_kernel_checks(num_params):
                     timed and m == 3) else {}
                 check("multi_krum_order", ok, dtype=dname, n=n, m=m,
                       max_abs_diff=err, **kw)
-                note("multi_krum_order", err, kw)
+                note(summary, "multi_krum_order", err, kw)
             # K10 iterative_order
             for k_total in sorted({2, 3, theta}):
                 o = kernels.iterative_order(gr, F, k_total)
@@ -737,7 +852,7 @@ def selection_kernel_checks(num_params):
                     main and (n, k_total) in ((N, 3), (11, theta))) else {}
                 check("iterative_order", ok, dtype=dname, n=n,
                       k_total=k_total, max_abs_diff=err, **kw)
-                note("iterative_order", err,
+                note(summary, "iterative_order", err,
                      kw if (n, k_total) == (N, 3) else None)
             # K11 ordered_apply with the orders of the three rules
             if n == N:
@@ -758,7 +873,7 @@ def selection_kernel_checks(num_params):
                     check("ordered_apply", err == 0.0, dtype=dname, n=n,
                           k=k, order_of=rule, shape=[n, P],
                           max_abs_diff=err, **kw)
-                    note("ordered_apply", err,
+                    note(summary, "ordered_apply", err,
                          kw if main and rule == "multi_krum" else None)
                     del out
             # K13 bulyan_coord on K10's theta picks
@@ -776,7 +891,8 @@ def selection_kernel_checks(num_params):
                         "torch.sort(g[sel], dim=0), a partial yardstick")
             check("bulyan_coord", err == 0.0, dtype=dname, n=n, theta=theta,
                   beta=beta, shape=[n, P], max_abs_diff=err, **kw)
-            note("bulyan_coord", err, kw if main and n == 11 else None)
+            note(summary, "bulyan_coord", err,
+                 kw if main and n == 11 else None)
             # aggregation time of each selection rule at this n (the
             # spec's call, every stage included)
             if main:
@@ -863,6 +979,239 @@ def selection_hazard_checks():
 
 
 # ---------------------------------------------------------------------------
+# phase 2d
+
+
+def ghost_first_order(m, k):
+    """(n,) int32 pick order with the first absent row at rank 0 and the
+    first k - 1 live rows after it (sentinel n elsewhere)."""
+    n = m.shape[0]
+    order = torch.full((n,), n, dtype=torch.int32, device=m.device)
+    rows = (torch.nonzero(m <= 0.5).flatten()[:1].tolist()
+            + torch.nonzero(m > 0.5).flatten().tolist())[:k]
+    order[rows] = torch.arange(len(rows), dtype=torch.int32, device=m.device)
+    return order
+
+
+def with_ghost(sel, m):
+    """``sel`` with its last selected live row swapped for the first absent
+    row, when no absent row is selected yet (else ``sel`` itself)."""
+    picked, live = sel > 0.5, m > 0.5
+    if bool((picked & ~live).any()) or bool(live.all()):
+        return sel
+    out = sel.clone()
+    out[torch.nonzero(picked & live).flatten()[-1]] = 0.0
+    out[torch.nonzero(~live).flatten()[0]] = 1.0
+    return out
+
+
+def masked_selection_kernel_checks(num_params):
+    """K12, K14 and K16 against their plain versions at the main path's
+    shapes (see the module docstring), then the small-width hazards.  The
+    ghost rows are the last ones (the mask's first rows arrive).  The
+    summary takes the fp32 buffer's numbers (the async arena): K12 with
+    multi_krum's order, K14 at n = 11 on K10's picks, K16 at 6 of 8."""
+    from repro_torch import kernels
+    from repro_torch.kernels.masked import masked_sign_vote_plain
+    from repro_torch.kernels.ops import mda_order
+    from repro_torch.kernels.select import (bulyan_beta, gram_d2,
+                                            masked_bulyan_coord_plain)
+    from repro_torch.kernels.wsum import masked_ordered_apply_plain
+
+    P = num_params
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    names = ("masked_ordered_apply", "masked_bulyan_coord",
+             "masked_sign_vote")
+    summary = {k: {"max_abs_err": 0.0} for k in names}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        s = torch.finfo(dtype).bits // 8
+        main = dtype == torch.float32
+        for n, arrived in ((N, 6), (11, 9)):
+            x = (torch.randn((n, P), generator=gen, device=DEVICE,
+                             dtype=torch.float32) * 1e-3).to(dtype)
+            m = arrival_mask(arrived, n)
+            live = m > 0.5
+            _, wn = discount_weights(m)
+            mean = kernels.imputed_mean(x, wn)
+            gr = kernels.masked_gram(x, m, wn, mean)
+            if n == N:
+                # K12 with the rules' orders on the imputed Gram
+                cases = (("multi_krum", kernels.multi_krum_order(gr, F, 3),
+                          3),
+                         ("m_krum", kernels.iterative_order(gr, F, 3), 3),
+                         ("mda", mda_order(gram_d2(gr), n, F), n - F),
+                         ("ghost first", ghost_first_order(m, 3), 3))
+                for rule, order, k in cases:
+                    picked = order < k
+                    ghost = bool((picked & ~live).any())
+                    out = kernels.masked_ordered_apply(order, x, m, mean, k,
+                                                       div=k)
+                    err = max_abs_err(out, masked_ordered_apply_plain(
+                        order, x, m, mean, k, div=k))
+                    del out
+                    reads = int((picked & live).sum()) + int(ghost)
+                    kw = timing(
+                        lambda: kernels.masked_ordered_apply(
+                            order, x, m, mean, k, div=k),
+                        lambda: masked_ordered_apply_plain(
+                            order, x, m, mean, k, div=k), 10, 2,
+                        reads * P * s + 4 * P + 8 * n, (k + 1) * P) if (
+                        rule != "ghost first") else {}
+                    check("masked_ordered_apply", err == 0.0, dtype=dname,
+                          n=n, k=k, order_of=rule, arrived=arrived,
+                          ghost_picked=ghost, shape=[n, P],
+                          max_abs_diff=err, **kw)
+                    note(summary, "masked_ordered_apply", err,
+                         kw if main and rule == "multi_krum" else None)
+                # K16 at masks of 6, 1 and 0 of 8
+                for arr in (6, 1, 0):
+                    mm = arrival_mask(arr, n)
+                    out = kernels.masked_sign_vote(x, mm, mm)
+                    err = max_abs_err(out, masked_sign_vote_plain(x, mm, mm))
+                    ok = err == 0.0 and (arr > 0 or not bool(out.any()))
+                    del out
+                    kw = timing(
+                        lambda: kernels.masked_sign_vote(x, mm, mm),
+                        lambda: masked_sign_vote_plain(x, mm, mm), 10, 2,
+                        arr * P * s + 4 * P + 4 * n, 2 * arr * P,
+                        lambda: torch.sign((torch.sign(x)
+                                            * mm[:, None]).sum(0)),
+                        "torch.sign((torch.sign(g) * mask[:, None]).sum(0))"
+                        ", a partial yardstick (four calls)") if (
+                        arr == 6) else {}
+                    check("masked_sign_vote", ok, dtype=dname, n=n,
+                          arrived=arr, shape=[n, P], max_abs_diff=err, **kw)
+                    note(summary, "masked_sign_vote", err,
+                         kw if main and arr == 6 else None)
+            else:
+                # K14 on K10's theta picks, then with a ghost selected
+                theta = n - 2 * F
+                beta = bulyan_beta(theta, F)
+                sel = (kernels.iterative_order(gr, F, theta)
+                       < theta).float()
+                for label, sl in (("K10 picks", sel),
+                                  ("ghost selected", with_ghost(sel, m))):
+                    if label != "K10 picks" and sl is sel:
+                        continue
+                    picked = sl > 0.5
+                    ghost = bool((picked & ~live).any())
+                    out = kernels.masked_bulyan_coord(x, m, mean, sl, theta,
+                                                      F)
+                    err = max_abs_err(out, masked_bulyan_coord_plain(
+                        x, m, mean, sl, theta, F))
+                    del out
+                    reads = int((picked & live).sum()) + int(ghost)
+                    kw = timing(
+                        lambda: kernels.masked_bulyan_coord(
+                            x, m, mean, sl, theta, F),
+                        lambda: masked_bulyan_coord_plain(
+                            x, m, mean, sl, theta, F), 10, 2,
+                        reads * P * s + 4 * P + 12 * n,
+                        (n * (n - 1) + 3 * beta * n) * P,
+                        lambda: torch.sort(x[picked], dim=0),
+                        "torch.sort(g[sel], dim=0), a partial yardstick") if (
+                        label == "K10 picks") else {}
+                    check("masked_bulyan_coord", err == 0.0, dtype=dname,
+                          n=n, theta=theta, beta=beta, arrived=arrived,
+                          selection=label, ghost_selected=ghost,
+                          shape=[n, P], max_abs_diff=err, **kw)
+                    note(summary, "masked_bulyan_coord", err,
+                         kw if main and label == "K10 picks" else None)
+            del x, gr, mean
+            torch.cuda.empty_cache()
+    masked_selection_hazard_checks()
+    return summary
+
+
+def masked_selection_hazard_checks():
+    """K12 and K14 on NaN and +-inf live rows, NaN / +inf in an absent row
+    (never read), and tied rows with rounded columns, at a small width, n
+    = 3, 4, 8, 11, 16 and n - 2 or 1 rows arrived: exact against the plain
+    versions, a ghost among the picks and the selected rows."""
+    from repro_torch import kernels
+    from repro_torch.kernels.select import masked_bulyan_coord_plain
+    from repro_torch.kernels.wsum import masked_ordered_apply_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    d = 4099
+    for n in (3, 4, 8, 11, 16):
+        f = 1 if n < 8 else F
+        theta = max(n - 2 * f, 1)
+        for arrived in (max(n - 2, 1), 1):
+            m = arrival_mask(arrived, n)
+            _, wn = discount_weights(m)
+            for hazard in ("nan", "inf", "absent", "ties"):
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn((n, d), generator=gen,
+                                    device=DEVICE) * 2.0
+                    x[:, ::5] = torch.round(x[:, ::5])
+                    if hazard == "nan":
+                        x[0, ::7] = math.nan
+                    elif hazard == "inf":
+                        x[0, ::3], x[arrived - 1, 1::3] = math.inf, -math.inf
+                    elif hazard == "absent":
+                        x[n - 1, ::2], x[n - 1, 1::2] = math.nan, math.inf
+                    else:
+                        x[:arrived] = x[0].clone()
+                    x = x.to(dtype)
+                    mean = kernels.imputed_mean(x, wn)
+                    gr = kernels.masked_gram(x, m, wn, mean)
+                    k = min(3, n)
+                    errs = {}
+                    for name, order in (
+                            ("multi_krum", kernels.multi_krum_order(gr, f,
+                                                                    k)),
+                            ("m_krum", kernels.iterative_order(gr, f, k)),
+                            ("ghost first", ghost_first_order(m, k))):
+                        kk = int((order < n).sum())
+                        errs[f"masked_ordered_apply {name}"] = max_abs_err(
+                            kernels.masked_ordered_apply(order, x, m, mean,
+                                                         kk, div=kk),
+                            masked_ordered_apply_plain(order, x, m, mean, kk,
+                                                       div=kk))
+                    sel = (kernels.iterative_order(gr, f, theta)
+                           < theta).float()
+                    for label, sl in (("K10", sel),
+                                      ("ghost", with_ghost(sel, m))):
+                        errs[f"masked_bulyan_coord {label}"] = max_abs_err(
+                            kernels.masked_bulyan_coord(x, m, mean, sl,
+                                                        theta, f),
+                            masked_bulyan_coord_plain(x, m, mean, sl, theta,
+                                                      f))
+                    torch.cuda.synchronize()
+                    check("masked_selection_hazards",
+                          all(v == 0.0 for v in errs.values()),
+                          hazard=hazard, n=n, arrived=arrived,
+                          dtype=str(dtype).replace("torch.", ""),
+                          shape=[n, d], max_abs_diff=errs)
+    # K14's all-inf rounds: at n = 16 (theta 12, beta 8) with 8 of the
+    # selected values infinite in every third column, the last 4 rounds
+    # find only +inf distances and take the first row, row 0: absent and
+    # unselected, so its value is the (finite) mean, never its NaN bits
+    n, theta = 16, 16 - 2 * F
+    m = torch.ones(n, device=DEVICE)
+    m[0] = 0.0
+    sel = torch.zeros(n, device=DEVICE)
+    sel[1:theta + 1] = 1.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((n, d), generator=gen, device=DEVICE)
+        x[0] = math.nan
+        x[1:5, ::3], x[5:9, ::3] = math.inf, -math.inf
+        x = x.to(dtype)
+        mean = torch.full((d,), 0.25, device=DEVICE).to(dtype)
+        out = kernels.masked_bulyan_coord(x, m, mean, sel, theta, F)
+        err = max_abs_err(out, masked_bulyan_coord_plain(x, m, mean, sel,
+                                                         theta, F))
+        torch.cuda.synchronize()
+        check("masked_selection_hazards",
+              err == 0.0 and bool(torch.isfinite(out).all()),
+              hazard="all-inf rounds", n=n, theta=theta,
+              dtype=str(dtype).replace("torch.", ""), shape=[n, d],
+              max_abs_diff={"masked_bulyan_coord": err})
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4
 
 
@@ -913,65 +1262,12 @@ def phase_train(cfg, table, steps):
     return totals
 
 
-def phase_kernel_vs_gather(cfg):
-    from repro_torch.core.aggregators import AggregatorSpec, make_spec
-    from repro_torch.core.flat import FlatPlan
-    from repro_torch.data import SyntheticLM
-    from repro_torch.device import make_generator
-    from repro_torch.models import init_params
-    from repro_torch.optim import adamw, constant
-    from repro_torch.training import ByzantineConfig, make_train_step
-
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    gen = make_generator(1, DEVICE)
-    base = init_params(cfg, gen)
-    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT)
-    batch = ds.batch(ds.draw_starts(gen))
-    plan = FlatPlan.for_proto(base)
-    aggs = {}
-
-    class Recorded(AggregatorSpec):
-        """The spec, keeping the fp32 aggregate vector it returns."""
-        def aggregate_flat(self, stack, *args, **kw):
-            aggs[self.impl] = super().aggregate_flat(stack, *args, **kw)
-            return aggs[self.impl]
-
-    for rule in RULES:
-        losses = {}
-        for impl in ("kernel", "gather"):
-            s = make_spec(rule, f=F, impl=impl, n=N)
-            spec = Recorded(name=s.name, f=s.f, hyper=s.hyper, impl=s.impl,
-                            n=s.n)
-            bz = ByzantineConfig(n_agents=N, f=F, aggregator=spec,
-                                 attack="sign_flip", remat=True)
-            opt = adamw(constant(1e-4))
-            step = make_train_step(cfg, bz, opt, device=DEVICE)
-            params = _clone(base)
-            _, _, _, met = step(params, opt.init(params), None, batch)
-            losses[impl] = float(met["loss"])
-            del params
-        torch.cuda.empty_cache()
-        err = max_abs_err(aggs["kernel"], aggs["gather"])
-        if rule == "trimmed_mean":
-            ok = bool(torch.allclose(aggs["kernel"], aggs["gather"],
-                                     rtol=TOL, atol=TOL))
-        else:
-            ok = err == 0.0
-        emit("kernel_vs_gather", rule=rule, P=plan.total, ok=ok,
-             max_abs_diff=err, loss_kernel=losses["kernel"],
-             loss_gather=losses["gather"])
-        if not ok:
-            fail(f"{rule}: kernel aggregate differs from gather by {err}")
-    torch.use_deterministic_algorithms(False)
-
-
-def kernel_selection(rule, stack, n, f, hyper):
-    """The kernel path's selection on the arena: CGE's keep-mask, else the
-    (n,) pick order (sentinel n)."""
+def kernel_selection(rule, gr, n, f, hyper):
+    """The kernel path's selection on the (n, n) Gram ``gr``: CGE's
+    keep-mask, else the (n,) pick order (sentinel n)."""
     from repro_torch import kernels
     from repro_torch.kernels.ops import mda_order
     from repro_torch.kernels.select import gram_d2
-    gr = kernels.gram(stack)
     if rule == "cge":
         return kernels.cge_select(gr, n - f)
     if rule == "multi_krum":
@@ -1016,102 +1312,50 @@ def gather_selection(rule, g, n, f, hyper):
     return order
 
 
-def phase_selection_vs_gather(cfg):
-    """One full-width step per selection rule with impl="kernel" against
-    impl="gather", from the same state and batch: the two arenas equal,
-    the losses equal, the selections (set and pick order) equal and the
-    aggregates within 3e-6."""
-    from repro_torch.core.aggregators import AggregatorSpec, make_spec
-    from repro_torch.data import SyntheticLM
-    from repro_torch.device import make_generator
-    from repro_torch.models import init_params
-    from repro_torch.optim import adamw, constant
-    from repro_torch.training import ByzantineConfig, make_train_step
-
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    gen = make_generator(3, DEVICE)
-    base = init_params(cfg, gen)
-    aggs, stacks = {}, {}
-
-    class Recorded(AggregatorSpec):
-        """The spec, keeping the arena it gets and the fp32 aggregate it
-        returns."""
-        def aggregate_flat(self, stack, *args, **kw):
-            stacks[self.impl] = stack
-            aggs[self.impl] = super().aggregate_flat(stack, *args, **kw)
-            return aggs[self.impl]
-
-    for rule, (n, hyper, _) in SEL_RULES.items():
-        ds = SyntheticLM(cfg.vocab_size, SEQ, n, PER_AGENT)
-        batch = ds.batch(ds.draw_starts(gen))
-        losses = {}
-        for impl in ("kernel", "gather"):
-            s = make_spec(rule, f=F, impl=impl, n=n, **hyper)
-            spec = Recorded(name=s.name, f=s.f, hyper=s.hyper, impl=s.impl,
-                            n=s.n)
-            bz = ByzantineConfig(n_agents=n, f=F, aggregator=spec,
-                                 attack="sign_flip", remat=True)
-            opt = adamw(constant(1e-4))
-            step = make_train_step(cfg, bz, opt, device=DEVICE)
-            params = _clone(base)
-            _, _, _, met = step(params, opt.init(params), None, batch)
-            losses[impl] = float(met["loss"])
-            del params
-        same_arena = torch.equal(stacks["kernel"], stacks["gather"])
-        sel_k = kernel_selection(rule, stacks["kernel"], n, F, hyper)
-        sel_g = gather_selection(rule, stacks["gather"].float(), n, F, hyper)
-        same_sel = torch.equal(sel_k, sel_g)
-        err = max_abs_err(aggs["kernel"], aggs["gather"])
-        close = bool(torch.allclose(aggs["kernel"], aggs["gather"],
-                                    rtol=TOL, atol=TOL))
-        ok = (same_arena and same_sel and close
-              and losses["kernel"] == losses["gather"])
-        emit("selection_vs_gather", rule=rule, n=n, hyper=hyper, ok=ok,
-             same_arena=same_arena, selection_kernel=sel_k.tolist(),
-             selection_gather=sel_g.tolist(), max_abs_diff=err,
-             loss_kernel=losses["kernel"], loss_gather=losses["gather"])
-        stacks.clear()
-        aggs.clear()
-        torch.cuda.empty_cache()
-        if not ok:
-            fail(f"{rule}: kernel path differs from gather (arena equal "
-                 f"{same_arena}, selection equal {same_sel}, aggregate "
-                 f"{err}, losses {losses})")
-    torch.use_deterministic_algorithms(False)
-    del base
-    torch.cuda.empty_cache()
-
-
-def straggler_sim():
+def straggler_sim(quorum=6):
     from repro_torch.simulator import SimConfig, Straggler
-    return SimConfig(faults=(Straggler("lognormal", 0.8),), quorum=6,
+    return SimConfig(faults=(Straggler("lognormal", 0.8),), quorum=quorum,
                      max_staleness=3, seed=0)
 
 
-def phase_async(cfg):
-    """The async path at full width: 1 warm-up + 4 timed steps per rule
-    under stragglers, then the elastic trimmed_mean under churn.  Launch
-    counts are reset just before each run and read just after."""
+# (n, quorum) -> (arrived, max staleness) of the straggler trace's rows
+STRAGGLER_TRACES = {(N, 6): ([6] * 6, [0, 1, 2, 1, 2, 1]),
+                    (11, 9): ([9] * 4, [0, 1, 1, 2])}
+
+
+def check_straggler_traces():
+    """The straggler profile's rows at n = 8 (quorum 6) and n = 11 (quorum
+    9): a fixed number of deliveries, so no row is pure."""
+    from repro_torch.simulator import plan_arrivals
+    for (n, quorum), (arrived, stale) in STRAGGLER_TRACES.items():
+        tr = plan_arrivals(straggler_sim(quorum), n, len(arrived))
+        if (tr.contrib.sum(1).tolist() != arrived
+                or tr.staleness.max(1).tolist() != stale):
+            fail(f"straggler trace (n={n}, quorum={quorum}) changed: "
+                 f"arrived {tr.contrib.sum(1)}, max staleness "
+                 f"{tr.staleness.max(1)}")
+
+
+def phase_async(cfg, table, steps):
+    """Per rule of ``table`` (rule -> (n, quorum, hyper, the kernels of
+    one step)): the straggler profile through ``train_loop(sim=...)``, 1
+    warm-up step, then ``steps`` timed steps.  The launch counts, reset
+    just before the timed run and read just after, must show each of the
+    rule's kernels once a step and no other, and one async step built."""
     from repro_torch import kernels
-    from repro_torch.core.aggregators import elastic, frac, make_spec
+    from repro_torch.core.aggregators import make_spec
     from repro_torch.data import SyntheticLM
     from repro_torch.obs.counters import counter_delta, snapshot
     from repro_torch.optim import adamw, constant
-    from repro_torch.simulator import Churn, SimConfig, plan_arrivals
     from repro_torch.training import ByzantineConfig, train_loop
 
-    sim = straggler_sim()
-    tr = plan_arrivals(sim, N, 6)
-    if (tr.contrib.sum(1).tolist() != [6] * 6
-            or tr.staleness.max(1).tolist() != [0, 1, 2, 1, 2, 1]):
-        fail(f"straggler trace changed: arrived {tr.contrib.sum(1)}, "
-             f"max staleness {tr.staleness.max(1)}")
-    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT)
     totals = {k: 0 for k in SOURCES}
     step_ms_by_rule = {}
-    for rule in RULES:
-        bz = ByzantineConfig(n_agents=N, f=F,
-                             aggregator=make_spec(rule, f=F, n=N),
+    for rule, (n, quorum, hyper, names) in table.items():
+        sim = straggler_sim(quorum)
+        ds = SyntheticLM(cfg.vocab_size, SEQ, n, PER_AGENT)
+        bz = ByzantineConfig(n_agents=n, f=F,
+                             aggregator=make_spec(rule, f=F, n=n, **hyper),
                              attack="sign_flip", remat=True)
         train_loop(cfg, bz, adamw(constant(1e-4)), ds, steps=1, seed=0,
                    device=DEVICE, sim=sim, log_fn=lambda s: None)
@@ -1120,8 +1364,8 @@ def phase_async(cfg):
         before = snapshot()
         kernels.reset_launch_counts()
         _, hist = train_loop(cfg, bz, adamw(constant(1e-4)), ds,
-                             steps=ASYNC_STEPS, seed=0, device=DEVICE,
-                             sim=sim, log_every=1, log_fn=lambda s: None)
+                             steps=steps, seed=0, device=DEVICE, sim=sim,
+                             log_every=1, log_fn=lambda s: None)
         counts = kernels.launch_counts()
         torch.cuda.synchronize()
         built = counter_delta(before)
@@ -1129,10 +1373,10 @@ def phase_async(cfg):
         wall = [h["wall_s"] for h in hist]
         step_ms = [1e3 * (b - a) for a, b in zip([0.0] + wall[:-1], wall)]
         losses = [h["loss"] for h in hist]
-        want = {k: (ASYNC_STEPS if k in ASYNC_RULE_KERNELS[rule] else 0)
-                for k in SOURCES}
+        want = {k: (steps if k in names else 0) for k in SOURCES}
         step_ms_by_rule[rule] = statistics.median(step_ms)
-        emit("async", rule=rule, impl=bz.aggregator.impl, steps=ASYNC_STEPS,
+        emit("async", rule=rule, n=n, quorum=quorum, hyper=hyper,
+             impl=bz.aggregator.impl, steps=steps,
              arrived=[h["arrived"] for h in hist],
              staleness_mean=[h["staleness_mean"] for h in hist],
              losses=losses, step_ms=step_ms,
@@ -1146,8 +1390,21 @@ def phase_async(cfg):
             fail(f"async {rule}: built {built}, expected one async step")
         for k, v in counts.items():
             totals[k] += v
+    return totals, step_ms_by_rule
 
-    # elastic membership under churn: one step build per bucket
+
+def phase_async_elastic(cfg):
+    """The elastic trimmed_mean under churn: one step build per bucket,
+    K1 on the pure step and K5 on the others."""
+    from repro_torch import kernels
+    from repro_torch.core.aggregators import elastic, frac, make_spec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.obs.counters import counter_delta, snapshot
+    from repro_torch.optim import adamw, constant
+    from repro_torch.simulator import Churn, SimConfig
+    from repro_torch.training import ByzantineConfig, train_loop
+
+    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT)
     spec = make_spec("trimmed_mean", f=frac(0.25), n=elastic(N, (4, 6, 8)))
     bz = ByzantineConfig(n_agents=N, f=F, aggregator=spec,
                          attack="sign_flip", remat=True)
@@ -1178,14 +1435,13 @@ def phase_async(cfg):
         fail(f"elastic run launches {counts}, expected {want}")
     if not all(math.isfinite(v) for v in losses):
         fail(f"elastic run: non-finite loss {losses}")
-    for k, v in counts.items():
-        totals[k] += v
-    return totals, step_ms_by_rule
+    return counts
 
 
-def async_setup(cfg, seed):
+def async_setup(cfg, seed, n=N, quorum=6):
     """Full-width parameters, a nonzero fp32 in-flight buffer, a batch and
-    row 2 of the straggler trace (max staleness 2), all from ``seed``."""
+    row 2 of the straggler trace (at n = 8, quorum 6: max staleness 2),
+    all from ``seed``, for ``n`` agents."""
     from repro_torch.core.flat import FlatPlan
     from repro_torch.data import SyntheticLM
     from repro_torch.device import make_generator
@@ -1195,19 +1451,20 @@ def async_setup(cfg, seed):
     gen = make_generator(seed, DEVICE)
     params = init_params(cfg, gen)
     total = FlatPlan.for_proto(params).total
-    buffer = torch.randn((N, total), generator=gen, device=DEVICE) * 1e-3
-    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT)
+    buffer = torch.randn((n, total), generator=gen, device=DEVICE) * 1e-3
+    ds = SyntheticLM(cfg.vocab_size, SEQ, n, PER_AGENT)
     batch = ds.batch(ds.draw_starts(gen))
-    sim = straggler_sim()
-    tr = plan_arrivals(sim, N, 3)
+    sim = straggler_sim(quorum)
+    tr = plan_arrivals(sim, n, 3)
     cw = torch.from_numpy(staleness_weights(sim, tr)[2]).to(DEVICE)
     return params, buffer, batch, tr.refresh[2], cw
 
 
-def phase_profile_async(cfg):
-    """Per rule, one async step (row 2 of the straggler trace) after a
-    warm-up step: untraced on the host clock, then traced; device busy
-    time, idle share and the top device events, as phase_profile."""
+def phase_profile_async(cfg, table):
+    """Per rule of ``table`` (rule -> (n, quorum, hyper)), one async step
+    (row 2 of the straggler trace) after a warm-up step: untraced on the
+    host clock, then traced; device busy time, idle share and the top
+    device events, as phase_profile."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.aggregators import make_spec
@@ -1215,11 +1472,16 @@ def phase_profile_async(cfg):
     from repro_torch.simulator import make_async_step
     from repro_torch.training import ByzantineConfig
 
-    params, buffer, batch, refresh, cw = async_setup(cfg, 5)
-    for rule in RULES:
+    setups = {}
+    for rule, (n, quorum, hyper) in table.items():
+        if (n, quorum) not in setups:
+            setups.clear()
+            torch.cuda.empty_cache()
+            setups[n, quorum] = async_setup(cfg, 5, n, quorum)
+        params, buffer, batch, refresh, cw = setups[n, quorum]
         opt = adamw(constant(1e-4))
-        bz = ByzantineConfig(n_agents=N, f=F,
-                             aggregator=make_spec(rule, f=F, n=N),
+        bz = ByzantineConfig(n_agents=n, f=F,
+                             aggregator=make_spec(rule, f=F, n=n, **hyper),
                              attack="sign_flip", remat=True)
         step = make_async_step(cfg, bz, opt, device=DEVICE)
         state = opt.init(params)
@@ -1241,7 +1503,7 @@ def phase_profile_async(cfg):
         ours = sum(t for k, t in by_name.items()
                    if any(name in k for name in OUR_KERNELS))
         top = sorted(by_name.items(), key=lambda r: -r[1])[:8]
-        emit("profile_async", rule=rule, step_ms=wall_ms,
+        emit("profile_async", rule=rule, n=n, step_ms=wall_ms,
              traced_step_ms=traced_ms,
              device_busy_ms=busy if seen else "not measured",
              device_span_ms=span if seen else "not measured",
@@ -1250,53 +1512,197 @@ def phase_profile_async(cfg):
              aggregation_kernels_ms=ours if seen else "not measured",
              top_device_events_ms=[[k[:60], t] for k, t in top])
         del state
-    del params, buffer
+    setups.clear()
     torch.cuda.empty_cache()
 
 
-def phase_masked_vs_gather(cfg):
-    """One full-width async step per rule with impl="kernel" and with
-    impl="gather", from the same parameters, buffer, batch and trace row,
-    then the same for the elastic trimmed_mean's bucket steps with ghost
-    rows (3 live in bucket 4, 7 live in bucket 8): the aggregates must
-    agree (median and krum exact, trimmed 3e-6)."""
-    from repro_torch.core.aggregators import (AggregatorSpec, elastic,
-                                              frac, make_spec)
+def masked_selections(rule, stack, mask, weights, n, f, hyper):
+    """(kernel selection, gather selection, whether a ghost row is
+    selected) of one masked step: the kernel path's on the card's imputed
+    Gram (K4 mean -> K6), the gather law's on the imputed fp32 stack
+    (:func:`gather_selection`), each in :func:`kernel_selection`'s form."""
+    from repro_torch import kernels
+    from repro_torch.core.aggregators import _masked_prelude
+    from repro_torch.kernels.ref import masked_impute_ref
+    mask, w, _, tot = _masked_prelude(mask, weights)
+    wn = w / tot
+    mean = kernels.imputed_mean(stack, wn)
+    sel_k = kernel_selection(rule, kernels.masked_gram(stack, mask.float(),
+                                                       wn, mean), n, f, hyper)
+    imputed = masked_impute_ref(stack, mask.float(), wn).float()
+    sel_g = gather_selection(rule, imputed, n, f, hyper)
+    picked = sel_k > 0.5 if rule == "cge" else sel_k < n
+    return sel_k, sel_g, bool((picked & ~mask).any())
+
+
+EXACT_RULES = ("coordinate_median", "krum", "sign_sgd")
+
+
+def recorded(spec, store):
+    """A copy of ``spec`` whose ``aggregate_flat`` keeps, in
+    ``store[impl]``, the arena, mask and weights it gets and the fp32
+    aggregate it returns."""
+    from repro_torch.core.aggregators import AggregatorSpec
+
+    class Recorded(AggregatorSpec):
+        def aggregate_flat(self, stack, mask=None, weights=None, *a, **kw):
+            out = super().aggregate_flat(stack, mask, weights, *a, **kw)
+            store[self.impl] = (stack, mask, weights, out)
+            return out
+
+    return Recorded(**{f.name: getattr(spec, f.name)
+                       for f in dataclasses.fields(spec)})
+
+
+def same(a, b):
+    return a is b if a is None or b is None else torch.equal(a, b)
+
+
+def compare_impls(phase, rule, n, hyper, store, losses, **kw):
+    """The kernel and gather runs of one step from the same state: the
+    arenas (and mask and weights) equal, the losses equal, for the
+    selection family the selection and pick order equal (on the imputed
+    stack for a masked step, with whether a ghost row is selected), the
+    aggregates exact for EXACT_RULES and within 3e-6 otherwise."""
+    from repro_torch import kernels
+    (xk, mk, wk, ak), (xg, mg, wg, ag) = store["kernel"], store["gather"]
+    same_arena = torch.equal(xk, xg) and same(mk, mg) and same(wk, wg)
+    if rule in SEL_RULES:
+        if mk is None:
+            sel_k = kernel_selection(rule, kernels.gram(xk), n, F, hyper)
+            sel_g = gather_selection(rule, xg.float(), n, F, hyper)
+        else:
+            sel_k, sel_g, kw["ghost_selected"] = masked_selections(
+                rule, xk, mk, wk, n, F, hyper)
+        kw.update(same_selection=torch.equal(sel_k, sel_g),
+                  selection_kernel=sel_k.tolist(),
+                  selection_gather=sel_g.tolist())
+    err = max_abs_err(ak, ag)
+    close = err == 0.0 if rule in EXACT_RULES else bool(torch.allclose(
+        ak, ag, rtol=TOL, atol=TOL))
+    ok = (same_arena and close and kw.get("same_selection", True)
+          and losses["kernel"] == losses["gather"])
+    emit(phase, rule=rule, n=n, hyper=hyper, ok=ok, same_arena=same_arena,
+         max_abs_diff=err, loss_kernel=losses["kernel"],
+         loss_gather=losses["gather"], **kw)
+    store.clear()
+    torch.cuda.empty_cache()
+    if not ok:
+        fail(f"{phase} {rule} {kw}: kernel path differs from gather (arena "
+             f"equal {same_arena}, aggregate {err}, losses {losses})")
+
+
+def sync_pair(cfg, rule, n, hyper, base, batch, store):
+    """One full-width synchronous step of ``rule`` with impl="kernel" and
+    with impl="gather" from the same parameters and batch; returns the
+    losses (the specs' arguments and aggregates land in ``store``)."""
+    from repro_torch.core.aggregators import make_spec
+    from repro_torch.optim import adamw, constant
+    from repro_torch.training import ByzantineConfig, make_train_step
+
+    losses = {}
+    for impl in ("kernel", "gather"):
+        spec = recorded(make_spec(rule, f=F, impl=impl, n=n, **hyper), store)
+        bz = ByzantineConfig(n_agents=n, f=F, aggregator=spec,
+                             attack="sign_flip", remat=True)
+        opt = adamw(constant(1e-4))
+        step = make_train_step(cfg, bz, opt, device=DEVICE)
+        params = _clone(base)
+        _, _, _, met = step(params, opt.init(params), None, batch)
+        losses[impl] = float(met["loss"])
+        del params
+    return losses
+
+
+def phase_kernel_vs_gather(cfg, rules):
+    """Phase 4: one full-width synchronous step per rule of ``rules`` (n =
+    8), all from one parameter set and batch (seed 1)
+    (:func:`compare_impls`)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.models import init_params
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    gen = make_generator(1, DEVICE)
+    base = init_params(cfg, gen)
+    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT)
+    batch = ds.batch(ds.draw_starts(gen))
+    store = {}
+    for rule in rules:
+        losses = sync_pair(cfg, rule, N, {}, base, batch, store)
+        compare_impls("kernel_vs_gather", rule, N, {}, store, losses)
+    torch.use_deterministic_algorithms(False)
+    del base
+    torch.cuda.empty_cache()
+
+
+def phase_selection_vs_gather(cfg):
+    """Phase 4c: one full-width synchronous step per selection rule (seed
+    3, a batch per rule) (:func:`compare_impls`)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.models import init_params
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    gen = make_generator(3, DEVICE)
+    base = init_params(cfg, gen)
+    store = {}
+    for rule, (n, hyper, _) in SEL_RULES.items():
+        ds = SyntheticLM(cfg.vocab_size, SEQ, n, PER_AGENT)
+        batch = ds.batch(ds.draw_starts(gen))
+        losses = sync_pair(cfg, rule, n, hyper, base, batch, store)
+        compare_impls("selection_vs_gather", rule, n, hyper, store, losses)
+    torch.use_deterministic_algorithms(False)
+    del base
+    torch.cuda.empty_cache()
+
+
+def phase_masked_vs_gather(cfg, table):
+    """One full-width async step per rule of ``table`` (rule -> (n, quorum,
+    hyper, ...)) with impl="kernel" and with impl="gather", from the same
+    parameters, buffer, batch and row 2 of the straggler trace; then the
+    elastic trimmed_mean's bucket steps with ghost rows (3 live in bucket
+    4, 7 live in bucket 8), as the churn run packs them
+    (:func:`compare_impls`)."""
+    from repro_torch.core.aggregators import elastic, frac, make_spec
     from repro_torch.optim import adamw, constant
     from repro_torch.simulator import make_async_step
     from repro_torch.training import ByzantineConfig
 
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    base, buffer, batch, refresh, cw = async_setup(cfg, 6)
-    aggs = {}
-
-    class Recorded(AggregatorSpec):
-        """The spec, keeping the fp32 aggregate vector it returns."""
-        def aggregate_flat(self, stack, *args, **kw):
-            aggs[self.impl] = super().aggregate_flat(stack, *args, **kw)
-            return aggs[self.impl]
-
-    for rule in RULES:
-        losses = {}
+    def run(spec_of, n, base, buffer, batch, refresh, cw, *bucket_args,
+            bucket=None):
+        store, losses = {}, {}
         for impl in ("kernel", "gather"):
-            s = make_spec(rule, f=F, impl=impl, n=N)
-            spec = Recorded(name=s.name, f=s.f, hyper=s.hyper, impl=s.impl,
-                            n=s.n)
-            bz = ByzantineConfig(n_agents=N, f=F, aggregator=spec,
+            bz = ByzantineConfig(n_agents=n, f=F,
+                                 aggregator=recorded(spec_of(impl), store),
                                  attack="sign_flip", remat=True)
             opt = adamw(constant(1e-4))
-            step = make_async_step(cfg, bz, opt, device=DEVICE)
+            step = make_async_step(cfg, bz, opt, device=DEVICE,
+                                   bucket=bucket)
             params = _clone(base)
             _, _, _, _, _, met = step(params, opt.init(params), None,
                                       buffer.clone(), {}, batch, None,
-                                      refresh, cw)
+                                      refresh, cw, *bucket_args)
             losses[impl] = float(met["loss"])
             del params
-        torch.cuda.empty_cache()
-        agree(rule, aggs, losses, arrived=int((cw > 0).sum()))
+        return store, losses
 
-    # the elastic trimmed_mean's bucket steps that carry ghost rows: the
-    # live roster packed into buckets 4 and 8 as the churn run packs it
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    setups = {}
+    for rule, (n, quorum, hyper, _) in table.items():
+        if (n, quorum) not in setups:
+            setups.clear()
+            torch.cuda.empty_cache()
+            setups[n, quorum] = async_setup(cfg, 6, n, quorum)
+        setup = setups[n, quorum]
+        store, losses = run(lambda impl: make_spec(rule, f=F, impl=impl, n=n,
+                                                   **hyper), n, *setup)
+        compare_impls("masked_vs_gather", rule, n, hyper, store, losses,
+                      quorum=quorum, arrived=int((setup[-1] > 0).sum()))
+
+    setups.clear()
+    torch.cuda.empty_cache()
+    base, buffer, batch, _, _ = async_setup(cfg, 6)
     for live in ((1, 3, 6), (0, 1, 2, 3, 4, 5, 7)):
         spec_e = make_spec("trimmed_mean", f=frac(0.25),
                            n=elastic(N, (4, 6, 8)))
@@ -1305,52 +1711,25 @@ def phase_masked_vs_gather(cfg):
         cw_b[list(live)] = 1.0
         refresh_b = np.zeros(N, bool)
         refresh_b[list(live)] = True
-        losses = {}
-        for impl in ("kernel", "gather"):
-            s = make_spec("trimmed_mean", f=frac(0.25), impl=impl,
-                          n=elastic(N, (4, 6, 8)))
-            spec = Recorded(**{k.name: getattr(s, k.name)
-                               for k in dataclasses.fields(s)})
-            bz = ByzantineConfig(n_agents=N, f=F, aggregator=spec,
-                                 attack="sign_flip", remat=True)
-            opt = adamw(constant(1e-4))
-            step = make_async_step(cfg, bz, opt, device=DEVICE, bucket=int(b))
-            params = _clone(base)
-            _, _, _, _, _, met = step(
-                params, opt.init(params), None, buffer.clone(), {}, batch,
-                None, refresh_b, cw_b, False,
-                torch.as_tensor(idx, dtype=torch.int64, device=DEVICE),
-                torch.as_tensor(valid, device=DEVICE))
-            losses[impl] = float(met["loss"])
-            del params
-        torch.cuda.empty_cache()
-        agree("trimmed_mean", aggs, losses, arrived=len(live),
-              bucket=int(b))
+        store, losses = run(
+            lambda impl: make_spec("trimmed_mean", f=frac(0.25), impl=impl,
+                                   n=elastic(N, (4, 6, 8))),
+            N, base, buffer, batch, refresh_b, cw_b, False,
+            torch.as_tensor(idx, dtype=torch.int64, device=DEVICE),
+            torch.as_tensor(valid, device=DEVICE), bucket=int(b))
+        compare_impls("masked_vs_gather", "trimmed_mean", int(b), {}, store,
+                      losses, arrived=len(live), bucket=int(b))
     torch.use_deterministic_algorithms(False)
     del buffer
-
-
-def agree(rule, aggs, losses, **kw):
-    """The kernel and gather aggregates of one step: median and krum
-    exact, trimmed mean within 3e-6."""
-    err = max_abs_err(aggs["kernel"], aggs["gather"])
-    if rule == "trimmed_mean":
-        ok = bool(torch.allclose(aggs["kernel"], aggs["gather"], rtol=TOL,
-                                 atol=TOL))
-    else:
-        ok = err == 0.0
-    emit("masked_vs_gather", rule=rule, ok=ok, max_abs_diff=err, **kw,
-         loss_kernel=losses["kernel"], loss_gather=losses["gather"])
-    if not ok:
-        fail(f"async {rule} {kw}: kernel aggregate differs from gather by "
-             f"{err}")
+    torch.cuda.empty_cache()
 
 
 OUR_KERNELS = ("coord_stat_kernel", "gram_reg_kernel", "gram_partial_kernel",
                "gram_finish_kernel", "krum_select_kernel", "wsum_kernel",
                "masked_wsum_kernel", "cge_select_kernel",
                "multi_krum_order_kernel", "iterative_order_kernel",
-               "ordered_apply_kernel", "bulyan_coord_kernel")
+               "ordered_apply_kernel", "bulyan_coord_kernel",
+               "sign_vote_kernel")
 
 
 def device_busy(prof):
@@ -1468,23 +1847,32 @@ def main():
     summary, _ = kernel_checks(num_params(cfg))
     summary.update(masked_kernel_checks(num_params(cfg)))
     summary.update(selection_kernel_checks(num_params(cfg)))
-    totals = phase_train(cfg, {r: (N, {}, RULE_KERNELS[r]) for r in RULES},
-                         STEPS)
-    async_totals, async_step_ms = phase_async(cfg)
+    summary.update(masked_selection_kernel_checks(num_params(cfg)))
+    sync_rules = {**{r: (N, {}, RULE_KERNELS[r]) for r in RULES},
+                  **SIGN_RULES}
+    totals = phase_train(cfg, sync_rules, STEPS)
+    check_straggler_traces()
+    async_totals, async_step_ms = phase_async(cfg, ASYNC_RULES, ASYNC_STEPS)
+    elastic_totals = phase_async_elastic(cfg)
     sel_totals = phase_train(cfg, SEL_RULES, SEL_STEPS)
+    asel_totals, asel_step_ms = phase_async(cfg, ASYNC_SEL_RULES,
+                                            ASYNC_SEL_STEPS)
     phase_profile(cfg, {"trimmed_mean": (N, {}, ()), "krum": (N, {}, ()),
                         **SEL_RULES})
-    phase_profile_async(cfg)
-    phase_kernel_vs_gather(cfg)
-    phase_masked_vs_gather(cfg)
+    phase_profile_async(cfg, {**{r: (N, 6, {}) for r in RULES},
+                              "multi_krum": (N, 6, {"m": 3}),
+                              "bulyan": (11, 9, {})})
+    phase_kernel_vs_gather(cfg, sync_rules)
     phase_selection_vs_gather(cfg)
+    phase_masked_vs_gather(cfg, {**ASYNC_RULES, **ASYNC_SEL_RULES})
     kern = []
     for name, (src, replaces) in SOURCES.items():
         s = summary[name]
         kern.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": (totals[name] + async_totals[name]
-                                  + sel_totals[name]),
+                                  + elastic_totals[name] + sel_totals[name]
+                                  + asel_totals[name]),
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": s["bound_by"],
@@ -1493,7 +1881,8 @@ def main():
     emit("done", seconds=round(time.time() - t0, 1),
          kernel_build_s=round(build.BUILD_INFO.get("seconds", 0.0), 1),
          imputed_mean=summary["imputed_mean"],
-         async_median_step_ms=async_step_ms)
+         async_median_step_ms=async_step_ms,
+         async_selection_median_step_ms=asel_step_ms)
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,6 @@
 """Robust-aggregation registry: typed, validated specs (registry core).
 
-Counterpart of ``repro.core.aggregators`` for the rules of the port's
-first three slices:
+Counterpart of ``repro.core.aggregators`` for the rules ported so far:
 
 * :class:`AggregatorCaps` / :class:`AggregatorDef` / :func:`register_aggregator`
   — the single extension point;
@@ -12,8 +11,8 @@ first three slices:
   pytree or a pre-raveled (n, P) arena, synchronous or masked.
 
 Registered so far: ``mean``, ``coordinate_median``, ``trimmed_mean``,
-``krum`` and the selection family ``cge``, ``multi_krum``, ``m_krum``,
-``mda`` and ``bulyan``.  Impls:
+``krum``, the selection family ``cge``, ``multi_krum``, ``m_krum``,
+``mda`` and ``bulyan``, and the 1-bit vote ``sign_sgd``.  Impls:
 
 * ``kernel`` — the hand-written CUDA kernels (:mod:`repro_torch.kernels`),
   the JAX package's ``pallas``.  On a CPU tensor each kernel wrapper runs
@@ -28,12 +27,12 @@ Registered so far: ``mean``, ``coordinate_median``, ``trimmed_mean``,
 Masked / staleness-weighted aggregation (``mask=``, ``weights=``): the
 coordinate-wise rules take the order statistic over the ARRIVED rows only
 (absent rows are +inf sort sentinels, the rank window follows the
-arrived count), krum runs on the mean-imputed stack, mean is the exact
+arrived count) and sign_sgd the vote of the arrived rows; krum and the
+selection family run on the mean-imputed stack; mean is the exact
 weighted mean of the arrived rows; each but mean is then scaled by the
 mean arrived weight.  ``impl="kernel"`` runs the fused masked kernels
-(K5-K7); the selection family's masked kernels come with ROADMAP.md
-slice 3b, and until then a masked call on its kernel path raises (its
-gather path runs the mean-imputed law).  Elastic membership:
+(K5-K7, K12, K14, K16), which never build the masked (n, P) copy.
+Elastic membership:
 ``make_spec(..., f=frac(r), n=elastic(n_max, buckets))`` and
 ``spec.respecialize(n_live)``.
 
@@ -387,15 +386,19 @@ def _masked_prelude(mask, weights):
 # the coordinate-wise rules whose masked law is the order statistic over
 # the ARRIVED rows only (absent rows are +inf sort sentinels).  Imputing
 # them at the delivered mean is not robust: the mean is attack-
-# contaminated, so ghost rows land inside the trim window.  The JAX
-# package's sign_sgd, phocas and mean_around_median join with slices 3-4.
-_ARRIVED_STAT_RULES = ("coordinate_median", "trimmed_mean")
+# contaminated, so ghost rows land inside the trim window.  sign_sgd's
+# vote counts the arrived rows only.  The JAX package's phocas and
+# mean_around_median join with ROADMAP.md item 15.
+_ARRIVED_STAT_RULES = ("coordinate_median", "trimmed_mean", "sign_sgd")
 
 
 def _arrived_coord_vec(spec, xf, mask):
     """(n, P) fp32 -> (P,) fp32: the statistic over the arrived rows
-    (the gather oracle :func:`repro_torch.kernels.ref.masked_stat_ref`)."""
+    (the gather oracles :func:`repro_torch.kernels.ref.masked_stat_ref`
+    and :func:`~repro_torch.kernels.ref.masked_sign_vote_ref`)."""
     from repro_torch.kernels import ref
+    if spec.name == "sign_sgd":
+        return ref.masked_sign_vote_ref(xf, mask)
     if spec.name == "coordinate_median":
         return ref.masked_stat_ref(xf, mask, None, "median")
     b = trim_count(xf.shape[0], spec.f, spec.hp("beta"))
@@ -509,6 +512,10 @@ def make_spec(name: str, f: "int | FracF" = 0, impl: str = "auto",
         raise ValueError(f"f must be an int >= 0 or frac(...), got {f!r}")
     if n_int is not None and not isinstance(n_int, int):
         raise ValueError(f"n must be an int or elastic(...), got {n!r}")
+    if "native_dtype" in hyper:
+        raise NotImplementedError(
+            f"{name}: native_dtype (aggregation in the exchange dtype) "
+            "comes with ROADMAP.md slice 4")
     for k in hyper:
         if k not in d.hyper_keys:
             raise ValueError(f"{name}: unknown hyper-parameter {k!r} "
@@ -571,3 +578,7 @@ register_aggregator(
     "trimmed_mean",
     caps=AggregatorCaps(coordwise=True),
     hyper=("beta",), gather=("beta",), dense_fn=D.trimmed_mean)
+register_aggregator(
+    "sign_sgd",
+    caps=AggregatorCaps(coordwise=True),
+    dense_fn=D.sign_sgd)

@@ -1,8 +1,8 @@
 """Gradient filters on dense stacks ``g: (n, d)`` — the gather path.
 
-Counterpart of ``repro.core.filters.dense`` for the rules of the first
-three slices (mean, coordinate_median, trimmed_mean, krum, multi_krum,
-m_krum, mda, cge, bulyan) and their helpers.
+Counterpart of ``repro.core.filters.dense`` for the rules ported so far
+(mean, coordinate_median, trimmed_mean, krum, multi_krum, m_krum, mda,
+cge, bulyan, sign_sgd) and their helpers.
 Uniform signature ``filter(g, f, **hyper) -> (d,)``.  These are the
 paper-faithful dense laws, ``impl="gather"`` of the spec engine, and the
 oracle the kernel path is held against.
@@ -90,6 +90,13 @@ def argmin_tiebreak(primary, secondary):
     tied = primary == torch.min(primary)
     return torch.argmin(torch.where(tied, secondary,
                                     torch.full_like(secondary, math.inf)))
+
+
+def nan_sign(x):
+    """``jnp.sign``'s law: -1, 0 or +1, and NaN for a NaN (``torch.sign``
+    gives 0 for a NaN, which would let a NaN row vote 0 instead of
+    poisoning its column)."""
+    return torch.where(torch.isnan(x), x, torch.sign(x))
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +222,16 @@ def bulyan(g, f, base: str = "krum"):
                        torch.full((), math.inf, device=g.device))
     idx = torch.sort(dist, dim=0, stable=True)[1][:beta]   # (beta, d)
     return torch.mean(torch.gather(g, 0, idx), dim=0)
+
+
+@register("sign_sgd")
+def sign_sgd(g, f=0):
+    """signSGD with majority vote: each agent sends sign(g_i), the server
+    returns the per-coordinate sign of the vote.  The fp32 sum of +-1 / 0
+    is exact (n < 2^24), so every impl gives the same bits; the output is
+    bounded to [-1, 1] per coordinate; a NaN value makes its column NaN,
+    as in the JAX law."""
+    return nan_sign(torch.sum(nan_sign(g).float(), dim=0))
 
 
 def _masked_median(g, mask):

@@ -11,15 +11,22 @@ from repro_torch.kernels.dispatch import (KERNEL_MASKED_RULES, KERNEL_RULES,
                                           kernel_masked_aggregate,
                                           kernel_masked_supported,
                                           kernel_supported)
-from repro_torch.kernels.masked import masked_coord_stat
-from repro_torch.kernels.ops import (kernel_bulyan, kernel_cge, kernel_krum,
-                                     kernel_krum_masked, kernel_m_krum,
-                                     kernel_mda, kernel_multi_krum)
+from repro_torch.kernels.masked import (masked_coord_stat, masked_sign_vote,
+                                        sign_vote)
+from repro_torch.kernels.ops import (kernel_bulyan, kernel_bulyan_masked,
+                                     kernel_cge, kernel_cge_masked,
+                                     kernel_krum, kernel_krum_masked,
+                                     kernel_m_krum, kernel_m_krum_masked,
+                                     kernel_mda, kernel_mda_masked,
+                                     kernel_multi_krum,
+                                     kernel_multi_krum_masked)
 from repro_torch.kernels.pairwise import gram, imputed_mean, masked_gram
 from repro_torch.kernels.select import (bulyan_coord, cge_select,
                                         iterative_order, krum_select,
+                                        masked_bulyan_coord,
                                         multi_krum_order)
-from repro_torch.kernels.wsum import (masked_weighted_sum, ordered_apply,
+from repro_torch.kernels.wsum import (masked_ordered_apply,
+                                      masked_weighted_sum, ordered_apply,
                                       weighted_sum)
 
 WRAPPERS = {"coord_stat": coord_stat, "gram": gram,
@@ -29,7 +36,11 @@ WRAPPERS = {"coord_stat": coord_stat, "gram": gram,
             "masked_weighted_sum": masked_weighted_sum,
             "cge_select": cge_select, "multi_krum_order": multi_krum_order,
             "iterative_order": iterative_order,
-            "ordered_apply": ordered_apply, "bulyan_coord": bulyan_coord}
+            "ordered_apply": ordered_apply,
+            "masked_ordered_apply": masked_ordered_apply,
+            "bulyan_coord": bulyan_coord,
+            "masked_bulyan_coord": masked_bulyan_coord,
+            "sign_vote": sign_vote, "masked_sign_vote": masked_sign_vote}
 
 
 def launch_counts() -> dict:
@@ -41,12 +52,11 @@ def reset_launch_counts():
         fn.launches = 0
 
 
-__all__ = ["coord_stat", "gram", "krum_select", "weighted_sum",
-           "masked_coord_stat", "masked_gram", "masked_weighted_sum",
-           "cge_select", "multi_krum_order", "iterative_order",
-           "ordered_apply", "bulyan_coord", "imputed_mean", "kernel_krum",
-           "kernel_krum_masked", "kernel_cge", "kernel_multi_krum",
-           "kernel_m_krum", "kernel_mda", "kernel_bulyan", "KERNEL_RULES",
+__all__ = [*WRAPPERS, "imputed_mean", "kernel_krum", "kernel_krum_masked",
+           "kernel_cge", "kernel_cge_masked", "kernel_multi_krum",
+           "kernel_multi_krum_masked", "kernel_m_krum",
+           "kernel_m_krum_masked", "kernel_mda", "kernel_mda_masked",
+           "kernel_bulyan", "kernel_bulyan_masked", "KERNEL_RULES",
            "KERNEL_MASKED_RULES", "kernel_aggregate",
            "kernel_masked_aggregate", "kernel_masked_supported",
            "kernel_supported", "WRAPPERS", "launch_counts",

@@ -128,12 +128,22 @@ def lib():
                                        ctypes.c_float, vp]
         L.rt_bulyan_coord.argtypes = [vp, i32, vp, vp, i32, i64, i64, i32,
                                       i32, vp]
+        L.rt_masked_ordered_apply.argtypes = [vp, vp, i32, vp, vp, vp, i32,
+                                              i64, i64, i32, ctypes.c_float,
+                                              vp]
+        L.rt_masked_bulyan_coord.argtypes = [vp, i32, vp, vp, vp, vp, i32,
+                                             i64, i64, i32, i32, vp]
+        L.rt_sign_vote.argtypes = [vp, i32, vp, i32, i64, i64, vp]
+        L.rt_masked_sign_vote.argtypes = [vp, i32, vp, vp, i32, i64, i64,
+                                          vp]
         for fn in ("rt_coord_stat", "rt_gram", "rt_krum_select",
                    "rt_weighted_sum", "rt_masked_coord_stat",
                    "rt_masked_gram", "rt_masked_weighted_sum",
                    "rt_cge_select", "rt_multi_krum_order",
                    "rt_iterative_order", "rt_ordered_apply",
-                   "rt_bulyan_coord"):
+                   "rt_bulyan_coord", "rt_masked_ordered_apply",
+                   "rt_masked_bulyan_coord", "rt_sign_vote",
+                   "rt_masked_sign_vote"):
             getattr(L, fn).restype = i32
         _LIB = L
     return _LIB

@@ -28,37 +28,9 @@
 // too).
 #include "bulyan_coord.cuh"
 
-// Runs the instance whose register capacity holds n rows.
-template <typename T>
-int bulyan_coord_dispatch(const void* x, const float* sel, float* out,
-                          int n, long long d, long long ld, int theta,
-                          int beta, cudaStream_t s) {
-  if (n <= 8)
-    bulyan_coord_launch<8, T>(x, sel, out, n, d, ld, theta, beta, s);
-  else if (n <= 16)
-    bulyan_coord_launch<16, T>(x, sel, out, n, d, ld, theta, beta, s);
-  else if (n <= 32)
-    bulyan_coord_launch<32, T>(x, sel, out, n, d, ld, theta, beta, s);
-  else if (n <= 64)
-    bulyan_coord_launch<64, T>(x, sel, out, n, d, ld, theta, beta, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return rt_status();
-}
-
 RT_EXPORT int rt_bulyan_coord(const void* x, int dtype, const float* sel,
                               float* out, int n, long long d, long long ld,
                               int theta, int beta, void* stream) {
-  if (n < 1 || n > kCoordStatMaxN || theta < 1 || theta > n || beta < 1 ||
-      beta > theta)
-    return (int)cudaErrorInvalidValue;
-  if (d <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == RT_F32)
-    return bulyan_coord_dispatch<float>(x, sel, out, n, d, ld, theta, beta,
-                                        s);
-  if (dtype == RT_BF16)
-    return bulyan_coord_dispatch<__nv_bfloat16>(x, sel, out, n, d, ld, theta,
-                                                beta, s);
-  return (int)cudaErrorInvalidValue;
+  return bulyan_coord_entry<false>(x, dtype, sel, nullptr, nullptr, out, n,
+                                   d, ld, theta, beta, stream);
 }

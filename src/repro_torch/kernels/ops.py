@@ -1,7 +1,9 @@
 """Filter-level compositions of the kernels (counterpart of
 ``repro.kernels.ops``): the Krum pipeline Gram -> selection -> weighted
-sum, plain and masked, and the selection family (CGE, multi-Krum, m-Krum,
-MDA, Bulyan) off the same Gram.  The JAX package pads d to its TPU tile
+sum, and the selection family (CGE, multi-Krum, m-Krum, MDA, Bulyan) off
+the same Gram, each plain and masked (over the mean-imputed stack, which
+is never built: the mean is computed once and every stage imputes in its
+own load).  The JAX package pads d to its TPU tile
 (``_pad_d``); the CUDA kernels mask their own ragged edge, so nothing is
 padded here.  Its ``_drop_unselected`` where-copy is fused into the
 weighted-sum and ordered-application kernels (and their plain versions)
@@ -16,8 +18,9 @@ import torch
 from repro_torch.kernels.pairwise import gram, imputed_mean, masked_gram
 from repro_torch.kernels.select import (bulyan_coord, cge_select, gram_d2,
                                         iterative_order, krum_select,
-                                        multi_krum_order)
-from repro_torch.kernels.wsum import (masked_weighted_sum, ordered_apply,
+                                        masked_bulyan_coord, multi_krum_order)
+from repro_torch.kernels.wsum import (masked_ordered_apply,
+                                      masked_weighted_sum, ordered_apply,
                                       weighted_sum)
 
 
@@ -28,15 +31,21 @@ def kernel_krum(g, f: int):
     return weighted_sum(w, g)
 
 
+def _imputed_gram(g, mask, wn):
+    """(mean, Gram) of the mean-imputed stack: the (d,) mean computed ONCE
+    (through K4) and shared by K6 and the masked stage that follows."""
+    mean = imputed_mean(g, wn)
+    return mean, masked_gram(g, mask, wn, mean)
+
+
 def kernel_krum_masked(g, mask, wn, f: int):
     """Masked Krum = Krum over the mean-imputed stack (the gather law),
-    without building it: the mean is computed ONCE (through K4) and shared
-    by K6 and K7, and the one-hot application returns exactly the
-    selected imputed row (the live row, or the mean upcast for a ghost).
-    K3's output is {0,1} by construction: K7's precondition w >= 0."""
-    mean = imputed_mean(g, wn)
-    w = krum_select(masked_gram(g, mask, wn, mean), f)
-    return masked_weighted_sum(w, g, mask, mean)
+    without building it: K4 (mean) -> K6 -> K3 -> K7, and the one-hot
+    application returns exactly the selected imputed row (the live row,
+    or the mean upcast for a ghost).  K3's output is {0,1} by
+    construction: K7's precondition w >= 0."""
+    mean, gr = _imputed_gram(g, mask, wn)
+    return masked_weighted_sum(krum_select(gr, f), g, mask, mean)
 
 
 def kernel_cge(g, f: int, normalize: bool = True):
@@ -99,14 +108,58 @@ def kernel_mda(g, f: int):
     return ordered_apply(order, g, n - f, div=n - f)
 
 
-def kernel_bulyan(g, f: int):
-    """Bulyan: theta = n - 2f shrinking-k iterative Krum picks (K2 ->
-    K10), then the fused per-coordinate stage (K13); no (n, d) sorted or
-    distance copy is made."""
-    n = g.shape[0]
+def _bulyan_theta(n: int, f: int) -> int:
     theta = n - 2 * f
     if theta < 1:
         raise ValueError("Bulyan needs n > 2f (and n >= 4f+3 for its "
                          "guarantees)")
+    return theta
+
+
+def kernel_bulyan(g, f: int):
+    """Bulyan: theta = n - 2f shrinking-k iterative Krum picks (K2 ->
+    K10), then the fused per-coordinate stage (K13); no (n, d) sorted or
+    distance copy is made."""
+    theta = _bulyan_theta(g.shape[0], f)
     order = iterative_order(gram(g), f, theta)
     return bulyan_coord(g, (order < theta).float(), theta, f)
+
+
+def kernel_cge_masked(g, mask, wn, f: int, normalize: bool = True):
+    """Masked CGE: K4 (mean) -> K6 -> K8, the kept rows of the imputed
+    stack summed by K7 (a kept ghost adds the mean), then divided."""
+    n = g.shape[0]
+    mean, gr = _imputed_gram(g, mask, wn)
+    out = masked_weighted_sum(cge_select(gr, n - f), g, mask, mean)
+    return out / (n - f) if normalize else out
+
+
+def kernel_multi_krum_masked(g, mask, wn, f: int, m: int = 2):
+    """Masked multi-Krum: K4 (mean) -> K6 -> K9 -> K12."""
+    mean, gr = _imputed_gram(g, mask, wn)
+    return masked_ordered_apply(multi_krum_order(gr, f, m), g, mask, mean,
+                                m, div=m)
+
+
+def kernel_m_krum_masked(g, mask, wn, f: int, m: int = 2):
+    """Masked m-Krum: K4 (mean) -> K6 -> K10 -> K12."""
+    mean, gr = _imputed_gram(g, mask, wn)
+    return masked_ordered_apply(iterative_order(gr, f, m), g, mask, mean, m,
+                                div=m)
+
+
+def kernel_mda_masked(g, mask, wn, f: int):
+    """Masked MDA: K4 (mean) -> K6 -> :func:`mda_order` on the (n, n)
+    distances -> K12."""
+    n = g.shape[0]
+    mean, gr = _imputed_gram(g, mask, wn)
+    return masked_ordered_apply(mda_order(gram_d2(gr), n, f), g, mask, mean,
+                                n - f, div=n - f)
+
+
+def kernel_bulyan_masked(g, mask, wn, f: int):
+    """Masked Bulyan: K4 (mean) -> K6 -> K10 (theta picks) -> K14."""
+    theta = _bulyan_theta(g.shape[0], f)
+    mean, gr = _imputed_gram(g, mask, wn)
+    sel = (iterative_order(gr, f, theta) < theta).float()
+    return masked_bulyan_coord(g, mask, mean, sel, theta, f)

@@ -9,13 +9,17 @@ plain versions are held to.
   the stack's dtype, selected into the absent rows;
 * :func:`arrived_stat_from_sorted` / :func:`masked_stat_ref` — the
   coordinate-wise rules' law: the order statistic over the ARRIVED rows
-  only, absent rows being +inf sort sentinels.
+  only, absent rows being +inf sort sentinels;
+* :func:`masked_sign_vote_ref` — the sign family's law: the majority vote
+  of the arrived rows only.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.core.filters.dense import nan_sign
 
 
 def fma_weighted_sum(w, g):
@@ -111,3 +115,14 @@ def masked_stat_ref(g, mask, wn, stat: str, b: int = 0):
                        torch.full((), math.inf, device=g.device))
     s, _ = torch.sort(sent, dim=0)
     return arrived_stat_from_sorted(s, mask, stat, b)
+
+
+def masked_sign_vote_ref(g, mask):
+    """(d,) fp32: sign(sum of sign(g_i) over the ARRIVED rows); an absent
+    row casts no vote.  Its signs are selected away, not multiplied by 0
+    as the JAX oracle does, so a NaN in an absent row cannot leak into
+    the vote (ROADMAP.md P10); zero arrivals give 0."""
+    live = (mask.float() > 0.5)[:, None]
+    votes = torch.where(live, nan_sign(g.float()),
+                        torch.zeros((), device=g.device))
+    return nan_sign(torch.sum(votes, dim=0))

@@ -9,7 +9,11 @@
   ``csrc/order.cu``: (n,) int32 pick orders (sentinel n = not picked);
 * K13 :func:`bulyan_coord` replaces ``select.py:bulyan_coord`` with
   ``csrc/bulyan_coord.cu``: per coordinate, the mean of the beta selected
-  values closest to the selected set's median.
+  values closest to the selected set's median;
+* K14 :func:`masked_bulyan_coord` replaces ``select.py:masked_bulyan_coord``
+  with K13's kernel under its ``IMPUTE`` switch (``csrc/
+  masked_bulyan_coord.cu``): the same stage over the mean-imputed stack,
+  an absent row read as the (d,) imputed mean.
 
 K3, K8, K9 and K10 run one block, one thread per candidate, and share
 ``csrc/select.cuh`` (distances, row sums, rank).  Each wrapper launches
@@ -165,6 +169,15 @@ def bulyan_coord_plain(g, sel, theta: int, f: int):
     return acc / torch.tensor(float(beta), device=g.device)
 
 
+def masked_bulyan_coord_plain(g, mask, mean, sel, theta: int, f: int):
+    """The plain version of K14: :func:`bulyan_coord_plain` on the
+    mean-imputed stack where(mask > 0.5, g, mean), imputed in g's dtype
+    (as the reference's ``_impute_tile``)."""
+    live = (mask.float() > 0.5)[:, None]
+    return bulyan_coord_plain(torch.where(live, g, mean.to(g.dtype)[None]),
+                              sel, theta, f)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 
@@ -252,39 +265,79 @@ def iterative_order(gr, f: int, k_total: int):
     return out
 
 
+def _check_bulyan(name, g, sel, theta, f):
+    if g.dim() != 2 or sel.shape != (g.shape[0],):
+        raise ValueError(f"{name}: shapes g {tuple(g.shape)}, sel "
+                         f"{tuple(sel.shape)}")
+    n = g.shape[0]
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"{name}: n={n} outside [1, {MAX_N}]")
+    if not 1 <= theta <= n or f < 0:
+        raise ValueError(f"{name}: theta={theta}, f={f} outside theta in "
+                         f"[1, {n}], f >= 0")
+
+
+def _check_bulyan_cuda(name, g, tensors):
+    if g.device.type != "cuda" or any(t.device != g.device
+                                      for t in tensors.values()):
+        raise ValueError(f"{name}: g on {g.device}, " + ", ".join(
+            f"{k} on {t.device}" for k, t in tensors.items()))
+    if g.stride(1) != 1:
+        raise ValueError(f"{name}: rows must be contiguous")
+    for k, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
+        if k != "mean" and t.dtype != torch.float32:
+            raise ValueError(f"{name}: {k} must be float32")
+
+
 def bulyan_coord(g, sel, theta: int, f: int):
     """g: (n, d) fp32 or bf16, sel: (n,) {0,1} fp32 with theta rows
     selected -> (d,) fp32 Bulyan coordinate stage (beta = max(theta - 2f,
     1))."""
-    if g.dim() != 2 or sel.shape != (g.shape[0],):
-        raise ValueError(f"bulyan_coord: shapes g {tuple(g.shape)}, sel "
-                         f"{tuple(sel.shape)}")
-    n, d = g.shape
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"bulyan_coord: n={n} outside [1, {MAX_N}]")
-    if not 1 <= theta <= n or f < 0:
-        raise ValueError(f"bulyan_coord: theta={theta}, f={f} outside "
-                         f"theta in [1, {n}], f >= 0")
+    _check_bulyan("bulyan_coord", g, sel, theta, f)
     if g.device.type == "cpu":
         return bulyan_coord_plain(g, sel, theta, f)
-    if g.device.type != "cuda" or sel.device != g.device:
-        raise ValueError(f"bulyan_coord: g on {g.device}, sel on "
-                         f"{sel.device}")
-    if g.stride(1) != 1:
-        raise ValueError("bulyan_coord: rows must be contiguous")
-    if sel.dtype != torch.float32 or not sel.is_contiguous():
-        raise ValueError("bulyan_coord: sel must be contiguous float32")
-    code = build.dtype_code(g)
+    _check_bulyan_cuda("bulyan_coord", g, {"sel": sel})
+    n, d = g.shape
     out = torch.empty((d,), dtype=torch.float32, device=g.device)
-    rc = build.lib().rt_bulyan_coord(g.data_ptr(), code, sel.data_ptr(),
-                                     out.data_ptr(), n, d, g.stride(0),
-                                     int(theta), bulyan_beta(theta, f),
+    rc = build.lib().rt_bulyan_coord(g.data_ptr(), build.dtype_code(g),
+                                     sel.data_ptr(), out.data_ptr(), n, d,
+                                     g.stride(0), int(theta),
+                                     bulyan_beta(theta, f),
                                      build.stream_ptr(g))
     build.check(rc, "bulyan_coord")
     bulyan_coord.launches += 1
     return out
 
 
+def masked_bulyan_coord(g, mask, mean, sel, theta: int, f: int):
+    """:func:`bulyan_coord` over the mean-imputed stack.  mask: (n,) {0,1}
+    fp32 (1 = arrived), mean: the (d,) imputed mean in g's dtype; an
+    absent row is read as the mean, never from g."""
+    _check_bulyan("masked_bulyan_coord", g, sel, theta, f)
+    if mask.shape != sel.shape:
+        raise ValueError(f"masked_bulyan_coord: mask {tuple(mask.shape)} "
+                         f"for {g.shape[0]} rows")
+    if mean.shape != (g.shape[1],) or mean.dtype != g.dtype:
+        raise ValueError(f"masked_bulyan_coord: mean {tuple(mean.shape)} "
+                         f"{mean.dtype} for a stack {tuple(g.shape)} "
+                         f"{g.dtype}")
+    if g.device.type == "cpu":
+        return masked_bulyan_coord_plain(g, mask, mean, sel, theta, f)
+    _check_bulyan_cuda("masked_bulyan_coord", g,
+                       {"mask": mask, "mean": mean, "sel": sel})
+    n, d = g.shape
+    out = torch.empty((d,), dtype=torch.float32, device=g.device)
+    rc = build.lib().rt_masked_bulyan_coord(
+        g.data_ptr(), build.dtype_code(g), mask.data_ptr(), mean.data_ptr(),
+        sel.data_ptr(), out.data_ptr(), n, d, g.stride(0), int(theta),
+        bulyan_beta(theta, f), build.stream_ptr(g))
+    build.check(rc, "masked_bulyan_coord")
+    masked_bulyan_coord.launches += 1
+    return out
+
+
 for _fn in (krum_select, cge_select, multi_krum_order, iterative_order,
-            bulyan_coord):
+            bulyan_coord, masked_bulyan_coord):
     _fn.launches = 0

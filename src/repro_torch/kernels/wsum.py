@@ -1,5 +1,6 @@
-"""K4, K7 and K11: the weighted sum w^T G over the agent axis, plain and
-over the mean-imputed stack, and the ordered application of a selection.
+"""K4, K7, K11 and K12: the weighted sum w^T G over the agent axis, and
+the ordered application of a selection, each plain and over the
+mean-imputed stack.
 
 * K4 :func:`weighted_sum` replaces the Pallas TPU kernel
   ``repro/kernels/wsum.py:weighted_sum`` with the CUDA kernel
@@ -15,6 +16,10 @@ over the mean-imputed stack, and the ordered application of a selection.
   with ``csrc/ordered_apply.cu``: the k rows a selection order picked,
   summed in pick order and divided (multi-Krum, m-Krum, MDA); the other
   rows are never read.
+* K12 :func:`masked_ordered_apply` replaces
+  ``repro/kernels/wsum.py:masked_ordered_apply`` with K11's kernel under
+  its ``IMPUTE`` switch: a picked absent (ghost) row adds the (d,) imputed
+  mean instead (masked multi-Krum, m-Krum, MDA); no absent row is read.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version for a CPU tensor; ``<wrapper>.launches`` counts kernel launches.
@@ -141,14 +146,46 @@ def ordered_apply_plain(order, g, k: int, div: float | None = None):
     order from 0, then divided by ``div`` (by a tensor, so that the card
     divides too: a Python-scalar divisor becomes a reciprocal multiply
     there)."""
+    return masked_ordered_apply_plain(order, g, None, None, k, div)
+
+
+def masked_ordered_apply_plain(order, g, mask, mean, k: int,
+                               div: float | None = None):
+    """:func:`ordered_apply_plain` over the mean-imputed stack: a picked
+    row with mask <= 0.5 adds ``mean`` (upcast) in place of its own
+    values, which are selected away, never added (``mask=None``: every
+    row arrived)."""
     acc = torch.zeros((g.shape[1],), dtype=torch.float32, device=g.device)
     for r in range(k):
         hit = order == r
-        row = g.index_select(0, torch.argmax(hit.int()).reshape(1))[0]
-        acc = acc + torch.where(hit.any(), row.float(), 0.0)
+        i = torch.argmax(hit.int()).reshape(1)
+        row = g.index_select(0, i)[0].float()
+        if mask is not None:
+            live = mask.float().index_select(0, i)[0] > 0.5
+            row = torch.where(live, row, mean.float())
+        acc = acc + torch.where(hit.any(), row, 0.0)
     if div is not None:
         acc = acc / torch.tensor(float(div), device=g.device)
     return acc
+
+
+def _check_ordered(name, order, g, k, div):
+    if g.dim() != 2 or order.shape != (g.shape[0],):
+        raise ValueError(f"{name}: shapes order {tuple(order.shape)}, g "
+                         f"{tuple(g.shape)}")
+    n = g.shape[0]
+    if not 1 <= n <= MAX_N or not 0 <= k <= n:
+        raise ValueError(f"{name}: n={n}, k={k} outside n in [1, {MAX_N}], "
+                         "k in [0, n]")
+    if div is not None and not div > 0:
+        raise ValueError(f"{name}: div={div} must be > 0")
+
+
+def _check_ordered_cuda(name, order, g):
+    if g.stride(1) != 1:
+        raise ValueError(f"{name}: rows must be contiguous")
+    if order.dtype != torch.int32 or not order.is_contiguous():
+        raise ValueError(f"{name}: order must be contiguous int32")
 
 
 def ordered_apply(order, g, k: int, div: float | None = None):
@@ -156,32 +193,62 @@ def ordered_apply(order, g, k: int, div: float | None = None):
     position at most once), g: (n, d) fp32 or bf16 -> (d,) fp32: the k
     picked rows summed in pick order, divided by ``div`` (None = no
     division)."""
-    if g.dim() != 2 or order.shape != (g.shape[0],):
-        raise ValueError(f"ordered_apply: shapes order {tuple(order.shape)},"
-                         f" g {tuple(g.shape)}")
-    n, d = g.shape
-    if not 1 <= n <= MAX_N or not 0 <= k <= n:
-        raise ValueError(f"ordered_apply: n={n}, k={k} outside n in [1, "
-                         f"{MAX_N}], k in [0, n]")
-    if div is not None and not div > 0:
-        raise ValueError(f"ordered_apply: div={div} must be > 0")
+    _check_ordered("ordered_apply", order, g, k, div)
     if g.device.type == "cpu":
         return ordered_apply_plain(order, g, k, div)
     if g.device.type != "cuda" or order.device != g.device:
         raise ValueError(f"ordered_apply: order on {order.device}, g on "
                          f"{g.device}")
-    if g.stride(1) != 1:
-        raise ValueError("ordered_apply: rows must be contiguous")
-    if order.dtype != torch.int32 or not order.is_contiguous():
-        raise ValueError("ordered_apply: order must be contiguous int32")
-    code = build.dtype_code(g)
+    _check_ordered_cuda("ordered_apply", order, g)
+    n, d = g.shape
     out = torch.empty((d,), dtype=torch.float32, device=g.device)
     rc = build.lib().rt_ordered_apply(
-        order.data_ptr(), g.data_ptr(), code, out.data_ptr(), n, d,
-        g.stride(0), int(k), float(div or 0.0), build.stream_ptr(g))
+        order.data_ptr(), g.data_ptr(), build.dtype_code(g), out.data_ptr(),
+        n, d, g.stride(0), int(k), float(div or 0.0), build.stream_ptr(g))
     build.check(rc, "ordered_apply")
     ordered_apply.launches += 1
     return out
 
 
 ordered_apply.launches = 0
+
+
+def masked_ordered_apply(order, g, mask, mean, k: int,
+                         div: float | None = None):
+    """:func:`ordered_apply` over the mean-imputed stack.  mask: (n,)
+    {0,1} fp32 (1 = arrived), mean: the (d,) imputed mean in g's dtype;
+    a picked absent row contributes exactly the mean (upcast) and is
+    never read."""
+    _check_ordered("masked_ordered_apply", order, g, k, div)
+    if mask.shape != order.shape:
+        raise ValueError(f"masked_ordered_apply: mask {tuple(mask.shape)} "
+                         f"for {g.shape[0]} rows")
+    if mean.shape != (g.shape[1],) or mean.dtype != g.dtype:
+        raise ValueError(f"masked_ordered_apply: mean {tuple(mean.shape)} "
+                         f"{mean.dtype} for a stack {tuple(g.shape)} "
+                         f"{g.dtype}")
+    if g.device.type == "cpu":
+        return masked_ordered_apply_plain(order, g, mask, mean, k, div)
+    if g.device.type != "cuda" or {order.device, mask.device,
+                                   mean.device} != {g.device}:
+        raise ValueError(f"masked_ordered_apply: order on {order.device}, g "
+                         f"on {g.device}, mask on {mask.device}, mean on "
+                         f"{mean.device}")
+    _check_ordered_cuda("masked_ordered_apply", order, g)
+    if mask.dtype != torch.float32 or not mask.is_contiguous():
+        raise ValueError("masked_ordered_apply: mask must be contiguous "
+                         "float32")
+    if not mean.is_contiguous():
+        raise ValueError("masked_ordered_apply: mean must be contiguous")
+    n, d = g.shape
+    out = torch.empty((d,), dtype=torch.float32, device=g.device)
+    rc = build.lib().rt_masked_ordered_apply(
+        order.data_ptr(), g.data_ptr(), build.dtype_code(g), mask.data_ptr(),
+        mean.data_ptr(), out.data_ptr(), n, d, g.stride(0), int(k),
+        float(div or 0.0), build.stream_ptr(g))
+    build.check(rc, "masked_ordered_apply")
+    masked_ordered_apply.launches += 1
+    return out
+
+
+masked_ordered_apply.launches = 0

@@ -8,8 +8,9 @@ with the card (no JAX needed):
 Bars: median values (plain and masked), Krum's one-hot and the one-hot
 weighted sums (plain and masked, live row or ghost) exact; trimmed means,
 Grams (plain and masked), the imputed mean and general weighted sums
-within rtol = atol = 3e-6.  The selection family (K8-K11, K13) exact:
-its plain versions order, sum and divide as the kernels do.
+within rtol = atol = 3e-6.  The selection family (K8-K14) and the sign
+votes (K15, K16) exact: their plain versions order, sum and divide as the
+kernels do.
 """
 import math
 
@@ -18,15 +19,19 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.coord_stats import coord_stat_plain
-from repro_torch.kernels.masked import masked_coord_stat_plain
+from repro_torch.kernels.masked import (masked_coord_stat_plain,
+                                        masked_sign_vote_plain,
+                                        sign_vote_plain)
 from repro_torch.kernels.pairwise import gram_plain, masked_gram_plain
 from repro_torch.kernels.ref import imputed_mean_ref
 from repro_torch.kernels.select import (bulyan_coord_plain,
                                         cge_select_plain,
                                         iterative_order_plain,
                                         krum_select_plain,
+                                        masked_bulyan_coord_plain,
                                         multi_krum_order_plain)
-from repro_torch.kernels.wsum import (masked_weighted_sum_plain,
+from repro_torch.kernels.wsum import (masked_ordered_apply_plain,
+                                      masked_weighted_sum_plain,
                                       ordered_apply_plain,
                                       weighted_sum_plain)
 
@@ -104,7 +109,8 @@ def test_cuda_launch_counters_count_launches(cuda_device):
         "coord_stat": 1, "gram": 1, "krum_select": 2, "weighted_sum": 2,
         "masked_coord_stat": 1, "masked_gram": 1, "masked_weighted_sum": 1,
         "cge_select": 0, "multi_krum_order": 0, "iterative_order": 0,
-        "ordered_apply": 0, "bulyan_coord": 0}
+        "ordered_apply": 0, "masked_ordered_apply": 0, "bulyan_coord": 0,
+        "masked_bulyan_coord": 0, "sign_vote": 0, "masked_sign_vote": 0}
     coord_stat_plain(g, "median")                  # the plain versions
     masked_coord_stat_plain(g, m, m, "median")
     assert kernels.launch_counts()["coord_stat"] == 1
@@ -298,3 +304,97 @@ def test_cuda_selection_wrappers_raise_on_bad_input(cuda_device):
     with pytest.raises(ValueError):
         kernels.bulyan_coord(g, torch.ones(8, device=cuda_device).bool(),
                              4, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hazard", [None, "nan", "absent", "inf", "ties"])
+@pytest.mark.parametrize("n", [3, 8, 11, 16, 33])
+def test_cuda_masked_selection_kernels_match_plain(cuda_device, n, hazard,
+                                                   dtype):
+    """K12 with the selection kernels' orders on the imputed Gram (a ghost
+    pick included), K14 at each theta a Bulyan step can give, a selected
+    ghost included; masks of n - 2, one and no arrived rows."""
+    f = 1 if n < 8 else 2
+    for case in ("most", "one", "none"):
+        m = mask_of(n, case, cuda_device)
+        g = masked_hazard(stack(max(n, 8), 4099, 7, None, cuda_device,
+                                torch.float32)[:n].contiguous(), m, hazard)
+        g[:, ::5] = torch.round(g[:, ::5])
+        g = g.to(dtype)
+        wn = m / torch.clamp_min(m.sum(), 1.0)
+        mean = kernels.imputed_mean(g, wn)
+        gr = kernels.masked_gram(g, m, wn, mean)
+        ghost = torch.nonzero(m <= 0.5).flatten()[:1]
+        hand = torch.full((n,), n, dtype=torch.int32, device=cuda_device)
+        hand[ghost] = 0
+        hand[torch.nonzero(m > 0.5).flatten()[:2]] = torch.tensor(
+            [1, 2], dtype=torch.int32, device=cuda_device)[:int((m > 0.5)
+                                                              .sum())]
+        for order in (kernels.multi_krum_order(gr, f, min(3, n)),
+                      kernels.iterative_order(gr, f, min(3, n)), hand):
+            k = int((order < n).sum())
+            for div in (None, k or None):
+                assert_same(
+                    kernels.masked_ordered_apply(order, g, m, mean, k,
+                                                 div=div),
+                    masked_ordered_apply_plain(order, g, m, mean, k, div))
+        for theta in sorted({max(n - 2 * f, 1), n}):
+            sel = (kernels.iterative_order(gr, f, theta) < theta).float()
+            sel[ghost] = 1.0
+            theta_s = int(sel.sum())
+            assert_same(
+                kernels.masked_bulyan_coord(g, m, mean, sel, theta_s, f),
+                masked_bulyan_coord_plain(g, m, mean, sel, theta_s, f))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hazard", HAZARDS + ["zeros", "absent"])
+@pytest.mark.parametrize("n", [3, 8, 11, 33])
+def test_cuda_sign_votes_match_plain(cuda_device, n, hazard, dtype):
+    """K15 and K16 exact (NaN where the plain version has NaN); an absent
+    row's NaN never shows in K16 (ROADMAP.md P10)."""
+    g = stack(max(n, 8), 4099, 8, None if hazard in ("zeros", "absent")
+              else hazard, cuda_device, torch.float32)[:n].contiguous()
+    if hazard == "zeros":
+        g[:, ::2] = 0.0
+        g[: n // 2, ::4] = -0.0
+    g = g.to(dtype)
+    assert_same(kernels.sign_vote(g), sign_vote_plain(g))
+    for case in MASKS:
+        m = mask_of(n, case, cuda_device)
+        gm = masked_hazard(g.clone(), m, hazard)
+        out = kernels.masked_sign_vote(gm, m, m)
+        assert_same(out, masked_sign_vote_plain(gm, m, m))
+        if hazard == "absent":
+            assert torch.isfinite(out).all()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_masked_compositions_count_their_launches(cuda_device):
+    """Each masked composition launches its kernels once: the imputed mean
+    (K4) and K6, then cge K8 K7, multi_krum K9 K12, m_krum K10 K12, mda
+    K12, bulyan K10 K14; sign_sgd K16 (and K15 unmasked)."""
+    g = torch.randn(11, 5000, device=cuda_device)
+    m = torch.ones(11, device=cuda_device)
+    m[[2, 7]] = 0.0
+    wn = m / m.sum()
+    imputed = ("weighted_sum", "masked_gram")
+    want = {"cge": imputed + ("cge_select", "masked_weighted_sum"),
+            "multi_krum": imputed + ("multi_krum_order",
+                                     "masked_ordered_apply"),
+            "m_krum": imputed + ("iterative_order", "masked_ordered_apply"),
+            "mda": imputed + ("masked_ordered_apply",),
+            "bulyan": imputed + ("iterative_order", "masked_bulyan_coord"),
+            "sign_sgd": ("masked_sign_vote",)}
+    for rule, names in want.items():
+        kernels.reset_launch_counts()
+        kernels.kernel_masked_aggregate(rule, g, m, wn, 2)
+        counts = kernels.launch_counts()
+        assert counts == {k: int(k in names) for k in counts}, rule
+    kernels.reset_launch_counts()
+    kernels.kernel_aggregate("sign_sgd", g, 2)
+    assert kernels.launch_counts()["sign_vote"] == 1

@@ -8,10 +8,11 @@ the registry and the loops.
 * the permutation invariance of tests/test_membership_conformance.py
   (same N, D, f, hyper and bar), for the five rules on the kernel path;
 * ``bulyan(base != "krum")`` resolves ``auto`` to gather and refuses
-  ``kernel``; a masked call on the kernel path raises, naming ROADMAP.md
-  slice 3b, while the gather path runs the mean-imputed law (held to
-  JAX's gather); ``train_loop`` refuses, before any step, a trace with
-  masked rows for such a spec, and runs a fault-free one.
+  ``kernel``; a masked call runs the mean-imputed law on the kernel path
+  (K12, K14; held to JAX's pallas) and on the gather path (held to JAX's
+  gather); ``train_loop`` runs a straggler trace with a kernel spec of
+  each rule, and still refuses, before any step, a trace with masked rows
+  for a kernel rule that has no masked kernel.
 """
 import math
 
@@ -96,24 +97,26 @@ def test_bulyan_generic_base_is_gather_only():
 
 @pytest.mark.parametrize("rule", FAMILY)
 def test_masked_kernel_call_raises_and_gather_runs_the_masked_law(rule):
+    """(The kernel path's masked call raised until the masked kernels
+    came; it now runs the same law.)  Both impls against JAX's."""
     n, f = 8, 2
     g = normal(n, 64, 5)
     mask = torch.tensor([1, 1, 0, 1, 1, 1, 0, 1], dtype=torch.bool)
     w = torch.tensor([1.0, 0.5, 0.0, 1.0, 1 / 3, 1.0, 0.0, 0.5])
     assert make_spec(rule, f=f, n=n).impl == "kernel"
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        make_spec(rule, f=f, n=n).aggregate_flat(g, mask=mask, weights=w)
-    ours = make_spec(rule, f=f, n=n, impl="gather").aggregate_flat(
-        g, mask=mask, weights=w)
     # jitted, as the JAX step runs it: its imputed mean is then the
     # fused multiply-add chain the port computes (ROADMAP.md P5); bulyan's
     # beta = 1 pick between the two middle values turns on that last bit
-    spec_j = jax_make_spec(rule, f=f, n=n, impl="gather")
-    ref = jax.jit(lambda x, m, wt: spec_j.aggregate(x, mask=m, weights=wt))(
-        jnp.asarray(g.numpy()), jnp.asarray(mask.numpy()),
-        jnp.asarray(w.numpy()))
-    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=3e-6,
-                               atol=3e-6)
+    for impl, ref_impl in (("gather", "gather"), ("kernel", "pallas")):
+        ours = make_spec(rule, f=f, n=n, impl=impl).aggregate_flat(
+            g, mask=mask, weights=w)
+        spec_j = jax_make_spec(rule, f=f, n=n, impl=ref_impl)
+        ref = jax.jit(lambda x, m, wt: spec_j.aggregate(x, mask=m,
+                                                        weights=wt))(
+            jnp.asarray(g.numpy()), jnp.asarray(mask.numpy()),
+            jnp.asarray(w.numpy()))
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=3e-6,
+                                   atol=3e-6, err_msg=impl)
 
 
 def _loop_setup(rule, impl="auto"):
@@ -130,12 +133,18 @@ STRAGGLERS = SimConfig(faults=(Straggler("lognormal", 0.8),), quorum=3,
                        max_staleness=3, seed=0)
 
 
-def test_train_loop_refuses_masked_rows_before_any_step():
+def test_train_loop_refuses_masked_rows_before_any_step(monkeypatch):
+    """The refusal guards a kernel rule without a masked kernel (every
+    rule of KERNEL_RULES has one now: the guard is driven here by taking
+    m_krum's entry out of the table)."""
+    from repro_torch.kernels import dispatch
     cfg, ds, bz, opt = _loop_setup("m_krum")
     logs = []
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        train_loop(cfg, bz, opt, ds, steps=3, device="cpu", sim=STRAGGLERS,
-                   log_fn=logs.append)
+    with monkeypatch.context() as mp:
+        mp.delitem(dispatch.KERNEL_MASKED_RULES, "m_krum")
+        with pytest.raises(NotImplementedError, match="no masked kernel"):
+            train_loop(cfg, bz, opt, ds, steps=3, device="cpu",
+                       sim=STRAGGLERS, log_fn=logs.append)
     assert logs == []
     # a fault-free run is all pure rows: the synchronous kernel step
     _, hist = train_loop(cfg, bz, opt, ds, steps=1, device="cpu",
@@ -147,3 +156,17 @@ def test_train_loop_refuses_masked_rows_before_any_step():
                          sim=STRAGGLERS, log_every=1, log_fn=lambda *_: None)
     assert [h["arrived"] for h in hist] == [3, 3]
     assert all(math.isfinite(h["loss"]) for h in hist)
+
+
+@pytest.mark.parametrize("rule", FAMILY)
+def test_train_loop_runs_stragglers_on_the_masked_kernels(rule):
+    """A kernel spec of each rule runs the straggler trace (no step pure:
+    every step takes the masked kernels) instead of raising."""
+    cfg, ds, bz, opt = _loop_setup(rule)
+    assert bz.aggregator.impl == "kernel"
+    kernels.reset_launch_counts()
+    _, hist = train_loop(cfg, bz, opt, ds, steps=2, device="cpu",
+                         sim=STRAGGLERS, log_every=1, log_fn=lambda *_: None)
+    assert [h["arrived"] for h in hist] == [3, 3]
+    assert all(math.isfinite(h["loss"]) for h in hist)
+    assert not any(kernels.launch_counts().values())   # plain on the CPU
