@@ -111,6 +111,44 @@ The masked selection family and sign_sgd (ROADMAP.md slice 3b) add:
                imputed stack (and whether a ghost row is selected), the
                aggregates within 3e-6, sign_sgd exact.
 
+4c. (also) the bulyan step at n = 11 on the seed-1 parameters and batch
+               (ROADMAP.md P12): the two equal sign_flip rows' gather
+               distances bitwise equal, and the same pick order on the
+               kernel and gather paths; then what the repair costs: the
+               gather distances and the gather aggregation of krum (n =
+               8) and bulyan (n = 11) timed with the pair dots and with
+               the library product they replaced.
+
+The compressed exchange, agg_dtype int8 / float8_e4m3fn (ROADMAP.md
+slice 4a), adds:
+
+2e. scaled kernels — K18 scaled_coord_stat (median and trimmed), K19
+               scaled_masked_coord_stat, K20 scaled_masked_sign_vote and
+               K15 on the codes against their plain versions at n = 8, P =
+               124,668,672, int8 and fp8 codes of a seeded fp32 arena
+               (quantize_rows on the card, timed with its peak memory
+               rise on lines of its own, from the fp32 arena and from the
+               bf16 arena of the synchronous step),
+               masks of 6, 1 and 0 of 8 arrived; the dequant-copy gate
+               (aggregate_flat(codes, mask=, weights=, scale=) of each
+               scaled rule raises the peak device memory by at most 3 * P
+               * 4 bytes on impl="kernel", by at least n * P * 4 on
+               impl="gather"); the NaN / inf / zero-row / inf-scale
+               hazards at a small width; times, yardsticks and bounds;
+3x. compressed train — the phase-3 configuration with agg_dtype int8 and
+               fp8, and the phase-3b stragglers with int8, for
+               coordinate_median, trimmed_mean, sign_sgd and krum: 1
+               warm-up step, then 2 timed steps per rule; the launch
+               counts must show K18 (sync median, trimmed), K15 (sync
+               sign), K19 (async median, trimmed), K20 (async sign) once a
+               step, and krum its usual kernels and one engine-level
+               dequantization a step (none for the other rules);
+4x. compressed kernel vs gather — one full-width synchronous step per
+               rule in int8 and fp8 and one async step per rule in int8,
+               impl="kernel" against impl="gather" from the same state:
+               codes and scales bitwise equal, equal losses, median, sign
+               and krum exact, trimmed mean within 3e-6.
+
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
 not available.
@@ -181,6 +219,13 @@ SOURCES = {
                   "src/repro/kernels/masked.py:62"),
     "masked_sign_vote": ("src/repro_torch/kernels/csrc/sign_vote.cu",
                          "src/repro/kernels/masked.py:90"),
+    "scaled_coord_stat": ("src/repro_torch/kernels/csrc/scaled_coord_stat.cu",
+                          "src/repro/kernels/masked.py:133"),
+    "scaled_masked_coord_stat": (
+        "src/repro_torch/kernels/csrc/scaled_masked_coord_stat.cu",
+        "src/repro/kernels/masked.py:171"),
+    "scaled_masked_sign_vote": ("src/repro_torch/kernels/csrc/sign_vote.cu",
+                                "src/repro/kernels/masked.py:207"),
 }
 SYNC_KERNELS = ("coord_stat", "gram", "krum_select", "weighted_sum",
                 "sign_vote")
@@ -210,6 +255,27 @@ ASYNC_SEL_RULES = {
                                      "masked_bulyan_coord")),
 }
 ASYNC_SEL_STEPS = 2
+# the compressed exchange (agg_dtype): the quantized dtypes, and rule -> (n,
+# hyper, the kernels of one step) of the synchronous step and (n, quorum,
+# hyper, the kernels of one masked step) of the async one; krum takes the
+# engine-level dequantization, then its own kernels
+QUANT = ("int8", "float8_e4m3fn")
+QUANT_RULES = {
+    "coordinate_median": (N, {}, ("scaled_coord_stat",)),
+    "trimmed_mean": (N, {}, ("scaled_coord_stat",)),
+    "sign_sgd": (N, {}, ("sign_vote",)),
+    "krum": (N, {}, ("gram", "krum_select", "weighted_sum")),
+}
+ASYNC_QUANT_RULES = {
+    "coordinate_median": (N, 6, {}, ("scaled_masked_coord_stat",)),
+    "trimmed_mean": (N, 6, {}, ("scaled_masked_coord_stat",)),
+    "sign_sgd": (N, 6, {}, ("scaled_masked_sign_vote",)),
+    "krum": ASYNC_RULES["krum"],
+}
+QUANT_STEPS = 2
+# the rules whose quantized arena is dequantized at engine level (a count
+# per step, read in phase 3x)
+DEQUANT_RULES = ("krum",)
 
 
 def emit(phase, **kw):
@@ -1212,15 +1278,268 @@ def masked_selection_hazard_checks():
 
 
 # ---------------------------------------------------------------------------
+# phase 2e
+
+
+def scaled_kernel_checks(num_params):
+    """K18, K19, K20 and K15 on codes at the main path's shapes (n = 8, P
+    = 124,668,672), int8 and fp8 codes of a seeded fp32 arena quantized on
+    the card, masks of 6, 1 and 0 of 8 arrived; the quantize time; the
+    dequant-copy gate; the hazards at a small width.  The summary takes
+    the int8 numbers (6 of 8 arrived for K19 and K20)."""
+    from repro_torch import kernels
+    from repro_torch.core.flat import quantize_rows
+    from repro_torch.kernels.masked import (scaled_coord_stat_plain,
+                                            scaled_masked_coord_stat_plain,
+                                            scaled_masked_sign_vote_plain,
+                                            sign_vote_plain)
+
+    P = num_params
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    names = ("scaled_coord_stat", "scaled_masked_coord_stat",
+             "scaled_masked_sign_vote")
+    summary = {k: {"max_abs_err": 0.0} for k in names}
+    x = torch.randn((N, P), generator=gen, device=DEVICE) * 1e-3
+    xb = x.bfloat16()                 # the synchronous step's arena dtype
+    for qdt in QUANT:
+        main = qdt == "int8"
+        for arena in (x, xb):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            codes, qs = quantize_rows(arena, qdt)
+            torch.cuda.synchronize()
+            rise = torch.cuda.max_memory_allocated() - base
+            del codes, qs
+            q_ms = time_ms(lambda: quantize_rows(arena, qdt), 3)
+            emit("kernels", quantize_ms=q_ms, dtype=qdt, shape=[N, P],
+                 arena=str(arena.dtype).replace("torch.", ""),
+                 peak_rise_gb=rise / 1e9,
+                 bound_ms=bound(arena.numel() * arena.element_size()
+                                + N * P + 4 * N, 4 * N * P)[0])
+        codes, qs = quantize_rows(x, qdt)
+        # K18 scaled_coord_stat
+        for stat, b in (("median", 0), ("trimmed_mean", 2)):
+            out = kernels.scaled_coord_stat(codes, qs, stat, b)
+            ref = scaled_coord_stat_plain(codes, qs, stat, b)
+            err = max_abs_err(out, ref)
+            ok = err == 0.0 if stat == "median" else bool(
+                torch.allclose(out, ref, rtol=TOL, atol=TOL))
+            del out, ref
+            kw = timing(lambda: kernels.scaled_coord_stat(codes, qs, stat, b),
+                        lambda: scaled_coord_stat_plain(codes, qs, stat, b),
+                        10, 2, N * P + 4 * N + 4 * P,
+                        N * (N - 1) // 2 * 2 * P + N * P)
+            check("scaled_coord_stat", ok, stat=stat, dtype=qdt,
+                  shape=[N, P], max_abs_diff=err, exact=err == 0.0, **kw)
+            note(summary, "scaled_coord_stat", err,
+                 main and stat == "median" and kw)
+        for arrived in (6, 1, 0):
+            m = arrival_mask(arrived)
+            _, wn = discount_weights(m)
+            timed = arrived == 6
+            # K19 scaled_masked_coord_stat
+            for stat, b in (("median", 0), ("trimmed_mean", 2)):
+                out = kernels.scaled_masked_coord_stat(codes, qs, m, wn,
+                                                       stat, b)
+                ref = scaled_masked_coord_stat_plain(codes, qs, m, wn, stat,
+                                                     b)
+                err = max_abs_err(out, ref)
+                ok = err == 0.0 if stat == "median" else bool(
+                    torch.allclose(out, ref, rtol=TOL, atol=TOL))
+                if arrived == 0:
+                    ok = ok and not bool(out.any())
+                del out, ref
+                kw = timing(
+                    lambda: kernels.scaled_masked_coord_stat(
+                        codes, qs, m, wn, stat, b),
+                    lambda: scaled_masked_coord_stat_plain(
+                        codes, qs, m, wn, stat, b),
+                    10, 2, arrived * P + 8 * N + 4 * P,
+                    N * (N - 1) // 2 * 2 * P + arrived * P) if timed else {}
+                check("scaled_masked_coord_stat", ok, stat=stat, dtype=qdt,
+                      shape=[N, P], arrived=arrived, max_abs_diff=err,
+                      exact=err == 0.0, **kw)
+                note(summary, "scaled_masked_coord_stat", err,
+                     main and stat == "trimmed_mean" and kw)
+            # K20 scaled_masked_sign_vote
+            out = kernels.scaled_masked_sign_vote(codes, qs, m, wn)
+            err = max_abs_err(out, scaled_masked_sign_vote_plain(codes, qs,
+                                                                 m, wn))
+            ok = err == 0.0 and (arrived > 0 or not bool(out.any()))
+            del out
+            kw = timing(
+                lambda: kernels.scaled_masked_sign_vote(codes, qs, m, wn),
+                lambda: scaled_masked_sign_vote_plain(codes, qs, m, wn),
+                10, 2, arrived * P + 8 * N + 4 * P,
+                3 * arrived * P) if timed else {}
+            check("scaled_masked_sign_vote", ok, dtype=qdt, shape=[N, P],
+                  arrived=arrived, max_abs_diff=err, exact=err == 0.0, **kw)
+            note(summary, "scaled_masked_sign_vote", err, main and kw)
+        # K15 on the codes (the synchronous compressed sign_sgd)
+        out = kernels.sign_vote(codes)
+        err = max_abs_err(out, sign_vote_plain(codes))
+        del out
+        kw = timing(lambda: kernels.sign_vote(codes),
+                    lambda: sign_vote_plain(codes), 10, 2,
+                    N * P + 4 * P, 2 * N * P,
+                    library=lambda: torch.sign(torch.sign(codes.float())
+                                               .sum(0)),
+                    label="torch.sign(torch.sign(codes.float()).sum(0)), a "
+                          "partial yardstick (four calls)")
+        check("sign_vote", err == 0.0, dtype=qdt, shape=[N, P],
+              max_abs_diff=err, exact=err == 0.0, **kw)
+        summary.setdefault("sign_vote_codes", {})[qdt] = kw
+        dequant_copy_gate(codes, qs, P)
+        del codes, qs
+        torch.cuda.empty_cache()
+    del x, xb
+    torch.cuda.empty_cache()
+    scaled_hazard_checks()
+    return summary
+
+
+def dequant_copy_gate(codes, qs, P):
+    """``aggregate_flat(codes, mask=, weights=, scale=qs)`` of each scaled
+    rule: on impl="kernel" the peak device memory may rise by at most 3 *
+    P * 4 bytes over the call (a few (P,) fp32 vectors: no dequantized
+    (n, P) copy); on impl="gather" (the engine-level dequantization) it
+    must rise by at least n * P * 4."""
+    from repro_torch.core.aggregators import make_spec
+    n = codes.shape[0]
+    m = arrival_mask(6).bool()
+    w, _ = discount_weights(m.float())
+    for rule in ("coordinate_median", "trimmed_mean", "sign_sgd"):
+        rise = {}
+        for impl in ("kernel", "gather"):
+            spec = make_spec(rule, f=F, impl=impl, n=n)
+            for mode, kw in (("sync", {}), ("masked", dict(mask=m,
+                                                           weights=w))):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = spec.aggregate_flat(codes, scale=qs, **kw)
+                torch.cuda.synchronize()
+                rise[impl, mode] = torch.cuda.max_memory_allocated() - base
+                del out
+        ok = (all(rise["kernel", md] <= 3 * P * 4 for md in ("sync",
+                                                              "masked"))
+              and all(rise["gather", md] >= n * P * 4 for md in ("sync",
+                                                                  "masked")))
+        emit("dequant_copy_gate", rule=rule, dtype=str(codes.dtype).replace(
+            "torch.", ""), ok=ok, kernel_rise_bytes=[rise["kernel", "sync"],
+                                                    rise["kernel", "masked"]],
+             gather_rise_bytes=[rise["gather", "sync"],
+                                rise["gather", "masked"]],
+             kernel_limit=3 * P * 4, gather_floor=n * P * 4)
+        if not ok:
+            fail(f"dequant-copy gate {rule}: peak rises {rise}")
+
+
+def scaled_hazard_checks():
+    """K18, K19, K20 and K15 on codes at a small width, n = 3, 8, 12:
+    NaN rows (fp8 NaN codes, int8 0 codes of scale 1), inf rows (scale
+    inf: K18 / K19 see NaN, K20 NaN columns where the row votes, K15 0
+    votes on its 0 codes), zero rows (scale 1), live and absent: exact
+    against the plain versions (trimmed within 3e-6)."""
+    from repro_torch import kernels
+    from repro_torch.core.flat import quantize_rows
+    from repro_torch.kernels.masked import (scaled_coord_stat_plain,
+                                            scaled_masked_coord_stat_plain,
+                                            scaled_masked_sign_vote_plain,
+                                            sign_vote_plain)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    d = 4099
+    for n in (3, 8, 12):
+        for hazard in ("nan", "inf", "zero"):
+            for qdt in QUANT:
+                x = torch.randn((n, d), generator=gen, device=DEVICE)
+                if hazard == "nan":
+                    x[1, ::3] = math.nan
+                elif hazard == "inf":
+                    x[0, ::4], x[0, 1::4] = math.inf, -math.inf
+                else:
+                    x[n - 1] = 0.0
+                codes, qs = quantize_rows(x, qdt)
+                errs, close = {}, True
+                for stat, b in (("median", 0), ("trimmed_mean", 1)):
+                    out = kernels.scaled_coord_stat(codes, qs, stat, b)
+                    ref = scaled_coord_stat_plain(codes, qs, stat, b)
+                    errs["k18_" + stat] = max_abs_err(out, ref)
+                    close &= bool(torch.allclose(out, ref, rtol=TOL,
+                                                 atol=TOL, equal_nan=True))
+                    for live in (n - 1, 1, 0):
+                        # the hazard row live (first rows), then absent
+                        for m in (arrival_mask(live, n),
+                                  arrival_mask(live, n).flip(0)):
+                            out = kernels.scaled_masked_coord_stat(
+                                codes, qs, m, m, stat, b)
+                            ref = scaled_masked_coord_stat_plain(
+                                codes, qs, m, m, stat, b)
+                            key = "k19_" + stat
+                            errs[key] = max(errs.get(key, 0.0),
+                                            max_abs_err(out, ref))
+                            close &= bool(torch.allclose(
+                                out, ref, rtol=TOL, atol=TOL,
+                                equal_nan=True))
+                errs["k20"] = 0.0
+                for live in (n - 1, 1, 0):
+                    for m in (arrival_mask(live, n),
+                              arrival_mask(live, n).flip(0)):
+                        out = kernels.scaled_masked_sign_vote(codes, qs, m, m)
+                        errs["k20"] = max(errs["k20"], max_abs_err(
+                            out, scaled_masked_sign_vote_plain(codes, qs, m,
+                                                               m)))
+                        if hazard == "inf" and m[0] > 0.5:
+                            close &= bool(torch.isnan(out).all())
+                k15 = kernels.sign_vote(codes)
+                errs["k15"] = max_abs_err(k15, sign_vote_plain(codes))
+                if hazard == "inf":
+                    close &= not bool(torch.isnan(k15).all())
+                torch.cuda.synchronize()
+                ok = close and all(v == 0.0 for k, v in errs.items()
+                                   if "trimmed" not in k)
+                check("scaled_hazards", ok, hazard=hazard, n=n, dtype=qdt,
+                      shape=[n, d], max_abs_diff=errs)
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4
 
 
-def phase_train(cfg, table, steps):
+class DequantCount:
+    """Counts the engine-level dequantizations of a quantized arena
+    (``aggregators._flat_dequant``) while entered."""
+
+    def __enter__(self):
+        from repro_torch.core import aggregators
+        self.mod, self.real, self.n = aggregators, aggregators._flat_dequant, 0
+
+        def counted(*a):
+            self.n += 1
+            return self.real(*a)
+
+        aggregators._flat_dequant = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._flat_dequant = self.real
+
+
+def want_dequant(rule, agg_dtype, steps):
+    return steps if agg_dtype in QUANT and rule in DEQUANT_RULES else 0
+
+
+def phase_train(cfg, table, steps, agg_dtype=""):
     """Per rule of ``table`` (rule -> (n, hyper, kernels of one step)):
     one untimed warm-up step, then ``steps`` timed steps through
-    ``train_loop``; the launch counts, reset just before the timed run
-    and read just after, must show each of the rule's kernels once per
-    step and no other."""
+    ``train_loop`` (with exchange dtype ``agg_dtype``); the launch counts,
+    reset just before the timed run and read just after, must show each
+    of the rule's kernels once per step and no other, and a quantized
+    exchange one engine-level dequantization per step for krum and none
+    for the rules with a scaled kernel."""
     from repro_torch import kernels
     from repro_torch.core.aggregators import make_spec
     from repro_torch.data import SyntheticLM
@@ -1232,16 +1551,18 @@ def phase_train(cfg, table, steps):
         ds = SyntheticLM(cfg.vocab_size, SEQ, n, PER_AGENT)
         bz = ByzantineConfig(n_agents=n, f=F,
                              aggregator=make_spec(rule, f=F, n=n, **hyper),
-                             attack="sign_flip", remat=True)
+                             attack="sign_flip", remat=True,
+                             agg_dtype=agg_dtype)
         # one untimed warm-up step, so that every timed step is warm
         train_loop(cfg, bz, adamw(constant(1e-4)), ds, steps=1, seed=0,
                    device=DEVICE, log_fn=lambda s: None)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        _, hist = train_loop(cfg, bz, adamw(constant(1e-4)), ds,
-                             steps=steps, seed=0, device=DEVICE,
-                             log_every=1, log_fn=lambda s: None)
+        with DequantCount() as dq:
+            _, hist = train_loop(cfg, bz, adamw(constant(1e-4)), ds,
+                                 steps=steps, seed=0, device=DEVICE,
+                                 log_every=1, log_fn=lambda s: None)
         counts = kernels.launch_counts()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
@@ -1250,13 +1571,16 @@ def phase_train(cfg, table, steps):
         losses = [h["loss"] for h in hist]
         want = {k: (steps if k in names else 0) for k in SOURCES}
         emit("train", rule=rule, n=n, hyper=hyper, impl=bz.aggregator.impl,
-             steps=steps, losses=losses, step_ms=step_ms,
-             median_step_ms=statistics.median(step_ms),
-             peak_mem_gb=peak / 1e9, launches=counts)
+             agg_dtype=agg_dtype or None, steps=steps, losses=losses,
+             step_ms=step_ms, median_step_ms=statistics.median(step_ms),
+             peak_mem_gb=peak / 1e9, launches=counts,
+             engine_dequant=dq.n)
         if not all(math.isfinite(v) for v in losses):
             fail(f"{rule}: non-finite loss {losses}")
         if counts != want:
             fail(f"{rule}: kernel launches {counts}, expected {want}")
+        if dq.n != want_dequant(rule, agg_dtype, steps):
+            fail(f"{rule} {agg_dtype}: {dq.n} engine dequantizations")
         for k, v in counts.items():
             totals[k] += v
     return totals
@@ -1336,12 +1660,14 @@ def check_straggler_traces():
                  f"{tr.staleness.max(1)}")
 
 
-def phase_async(cfg, table, steps):
+def phase_async(cfg, table, steps, agg_dtype=""):
     """Per rule of ``table`` (rule -> (n, quorum, hyper, the kernels of
-    one step)): the straggler profile through ``train_loop(sim=...)``, 1
-    warm-up step, then ``steps`` timed steps.  The launch counts, reset
-    just before the timed run and read just after, must show each of the
-    rule's kernels once a step and no other, and one async step built."""
+    one step)): the straggler profile through ``train_loop(sim=...)``
+    (with exchange dtype ``agg_dtype``), 1 warm-up step, then ``steps``
+    timed steps.  The launch counts, reset just before the timed run and
+    read just after, must show each of the rule's kernels once a step and
+    no other, one async step built, and the engine-level dequantizations
+    as in :func:`phase_train`."""
     from repro_torch import kernels
     from repro_torch.core.aggregators import make_spec
     from repro_torch.data import SyntheticLM
@@ -1356,16 +1682,18 @@ def phase_async(cfg, table, steps):
         ds = SyntheticLM(cfg.vocab_size, SEQ, n, PER_AGENT)
         bz = ByzantineConfig(n_agents=n, f=F,
                              aggregator=make_spec(rule, f=F, n=n, **hyper),
-                             attack="sign_flip", remat=True)
+                             attack="sign_flip", remat=True,
+                             agg_dtype=agg_dtype)
         train_loop(cfg, bz, adamw(constant(1e-4)), ds, steps=1, seed=0,
                    device=DEVICE, sim=sim, log_fn=lambda s: None)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = snapshot()
         kernels.reset_launch_counts()
-        _, hist = train_loop(cfg, bz, adamw(constant(1e-4)), ds,
-                             steps=steps, seed=0, device=DEVICE, sim=sim,
-                             log_every=1, log_fn=lambda s: None)
+        with DequantCount() as dq:
+            _, hist = train_loop(cfg, bz, adamw(constant(1e-4)), ds,
+                                 steps=steps, seed=0, device=DEVICE, sim=sim,
+                                 log_every=1, log_fn=lambda s: None)
         counts = kernels.launch_counts()
         torch.cuda.synchronize()
         built = counter_delta(before)
@@ -1376,7 +1704,8 @@ def phase_async(cfg, table, steps):
         want = {k: (steps if k in names else 0) for k in SOURCES}
         step_ms_by_rule[rule] = statistics.median(step_ms)
         emit("async", rule=rule, n=n, quorum=quorum, hyper=hyper,
-             impl=bz.aggregator.impl, steps=steps,
+             impl=bz.aggregator.impl, agg_dtype=agg_dtype or None,
+             steps=steps, engine_dequant=dq.n,
              arrived=[h["arrived"] for h in hist],
              staleness_mean=[h["staleness_mean"] for h in hist],
              losses=losses, step_ms=step_ms,
@@ -1388,6 +1717,9 @@ def phase_async(cfg, table, steps):
             fail(f"async {rule}: kernel launches {counts}, expected {want}")
         if built != {"async_step": 1}:
             fail(f"async {rule}: built {built}, expected one async step")
+        if dq.n != want_dequant(rule, agg_dtype, steps):
+            fail(f"async {rule} {agg_dtype}: {dq.n} engine "
+                 "dequantizations")
         for k, v in counts.items():
             totals[k] += v
     return totals, step_ms_by_rule
@@ -1540,14 +1872,15 @@ EXACT_RULES = ("coordinate_median", "krum", "sign_sgd")
 
 def recorded(spec, store):
     """A copy of ``spec`` whose ``aggregate_flat`` keeps, in
-    ``store[impl]``, the arena, mask and weights it gets and the fp32
-    aggregate it returns."""
+    ``store[impl]``, the arena, mask and weights it gets, the fp32
+    aggregate it returns and the row scales of a quantized arena."""
     from repro_torch.core.aggregators import AggregatorSpec
 
     class Recorded(AggregatorSpec):
-        def aggregate_flat(self, stack, mask=None, weights=None, *a, **kw):
-            out = super().aggregate_flat(stack, mask, weights, *a, **kw)
-            store[self.impl] = (stack, mask, weights, out)
+        def aggregate_flat(self, stack, mask=None, weights=None, state=None,
+                           scale=None):
+            out = super().aggregate_flat(stack, mask, weights, state, scale)
+            store[self.impl] = (stack, mask, weights, out, scale)
             return out
 
     return Recorded(**{f.name: getattr(spec, f.name)
@@ -1555,7 +1888,14 @@ def recorded(spec, store):
 
 
 def same(a, b):
-    return a is b if a is None or b is None else torch.equal(a, b)
+    """Bitwise equality (int8 / fp8 codes compared as bytes)."""
+    if a is None or b is None:
+        return a is b
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.element_size() == 1:
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return torch.equal(a, b)
 
 
 def compare_impls(phase, rule, n, hyper, store, losses, **kw):
@@ -1565,8 +1905,10 @@ def compare_impls(phase, rule, n, hyper, store, losses, **kw):
     stack for a masked step, with whether a ghost row is selected), the
     aggregates exact for EXACT_RULES and within 3e-6 otherwise."""
     from repro_torch import kernels
-    (xk, mk, wk, ak), (xg, mg, wg, ag) = store["kernel"], store["gather"]
-    same_arena = torch.equal(xk, xg) and same(mk, mg) and same(wk, wg)
+    (xk, mk, wk, ak, sk), (xg, mg, wg, ag, sg) = (store["kernel"],
+                                                  store["gather"])
+    same_arena = (same(xk, xg) and same(mk, mg) and same(wk, wg)
+                  and same(sk, sg))
     if rule in SEL_RULES:
         if mk is None:
             sel_k = kernel_selection(rule, kernels.gram(xk), n, F, hyper)
@@ -1592,10 +1934,11 @@ def compare_impls(phase, rule, n, hyper, store, losses, **kw):
              f"equal {same_arena}, aggregate {err}, losses {losses})")
 
 
-def sync_pair(cfg, rule, n, hyper, base, batch, store):
+def sync_pair(cfg, rule, n, hyper, base, batch, store, agg_dtype=""):
     """One full-width synchronous step of ``rule`` with impl="kernel" and
-    with impl="gather" from the same parameters and batch; returns the
-    losses (the specs' arguments and aggregates land in ``store``)."""
+    with impl="gather" from the same parameters and batch (exchange dtype
+    ``agg_dtype``); returns the losses (the specs' arguments and
+    aggregates land in ``store``)."""
     from repro_torch.core.aggregators import make_spec
     from repro_torch.optim import adamw, constant
     from repro_torch.training import ByzantineConfig, make_train_step
@@ -1604,7 +1947,8 @@ def sync_pair(cfg, rule, n, hyper, base, batch, store):
     for impl in ("kernel", "gather"):
         spec = recorded(make_spec(rule, f=F, impl=impl, n=n, **hyper), store)
         bz = ByzantineConfig(n_agents=n, f=F, aggregator=spec,
-                             attack="sign_flip", remat=True)
+                             attack="sign_flip", remat=True,
+                             agg_dtype=agg_dtype)
         opt = adamw(constant(1e-4))
         step = make_train_step(cfg, bz, opt, device=DEVICE)
         params = _clone(base)
@@ -1657,6 +2001,144 @@ def phase_selection_vs_gather(cfg):
     torch.cuda.empty_cache()
 
 
+def async_pair(cfg, spec_of, n, base, buffer, batch, refresh, cw,
+               *bucket_args, bucket=None, agg_dtype=""):
+    """One full-width async step with ``spec_of("kernel")`` and with
+    ``spec_of("gather")`` from the same parameters, buffer, batch and
+    trace row (exchange dtype ``agg_dtype``); returns (store, losses) as
+    :func:`sync_pair`."""
+    from repro_torch.optim import adamw, constant
+    from repro_torch.simulator import make_async_step
+    from repro_torch.training import ByzantineConfig
+
+    store, losses = {}, {}
+    for impl in ("kernel", "gather"):
+        bz = ByzantineConfig(n_agents=n, f=F,
+                             aggregator=recorded(spec_of(impl), store),
+                             attack="sign_flip", remat=True,
+                             agg_dtype=agg_dtype)
+        opt = adamw(constant(1e-4))
+        step = make_async_step(cfg, bz, opt, device=DEVICE, bucket=bucket)
+        params = _clone(base)
+        _, _, _, _, _, met = step(params, opt.init(params), None,
+                                  buffer.clone(), {}, batch, None, refresh,
+                                  cw, *bucket_args)
+        losses[impl] = float(met["loss"])
+        del params
+    return store, losses
+
+
+def phase_tie_check(cfg):
+    """Phase 4c, ROADMAP.md P12: the synchronous bulyan step at n = 11 on
+    the seed-1 parameters and batch, where the gather law once broke the
+    exact Krum tie of the two equal sign_flip rows the other way.  The
+    gather law's distances must be bitwise equal for the equal rows, and
+    the kernel and gather paths must pick in the same order
+    (:func:`compare_impls`)."""
+    from repro_torch.core.filters.dense import pairwise_sq_dists
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.models import init_params
+
+    n = SEL_RULES["bulyan"][0]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    gen = make_generator(1, DEVICE)
+    base = init_params(cfg, gen)
+    ds = SyntheticLM(cfg.vocab_size, SEQ, n, PER_AGENT)
+    batch = ds.batch(ds.draw_starts(gen))
+    store = {}
+    losses = sync_pair(cfg, "bulyan", n, {}, base, batch, store)
+    x = store["gather"][0].float()
+    d2 = pairwise_sq_dists(x)
+    equal_rows = same(x[0], x[1])
+    tie = equal_rows and same(d2[0, F:], d2[1, F:]) and float(d2[0, 1]) == 0
+    emit("tie_check", rule="bulyan", n=n, seed=1, equal_rows=equal_rows,
+         equal_distances=tie)
+    del d2
+    if not tie:
+        fail("P12: the equal sign_flip rows' gather distances differ")
+    gram_cost(x)
+    del x
+    compare_impls("selection_vs_gather", "bulyan", n, {}, store, losses,
+                  seed=1, tie_check=True)
+    torch.use_deterministic_algorithms(False)
+    del base
+    torch.cuda.empty_cache()
+
+
+def matmul_sq_dists(g):
+    """The gather law's distances before P12's repair: the Gram as one
+    library product ``g @ g.T``, which breaks an exact tie by rounding."""
+    sq = torch.sum(torch.square(g), dim=-1)
+    gram = g @ g.T
+    d2 = torch.triu(torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * gram,
+                                    0.0), 1)
+    return d2 + d2.T
+
+
+def gram_cost(x):
+    """What P12's repair costs the gather law at full width: the distances
+    of one fixed-order dot per pair against the library product, alone
+    and inside the gather aggregation of krum (n = 8) and bulyan (n = 11),
+    on the rows ``x`` of the tie check's step."""
+    from unittest import mock
+
+    from repro_torch.core.aggregators import make_spec
+    from repro_torch.core.filters import dense
+
+    for rule, n in (("krum", N), ("bulyan", x.shape[0])):
+        g = x[:n]
+        spec = make_spec(rule, f=F, impl="gather", n=n)
+        row = {"pair_dists_ms": time_ms(lambda: dense.pairwise_sq_dists(g),
+                                        2),
+               "matmul_dists_ms": time_ms(lambda: matmul_sq_dists(g), 2),
+               "gather_ms": time_ms(lambda: spec.aggregate_flat(g), 2)}
+        with mock.patch.object(dense, "pairwise_sq_dists", matmul_sq_dists):
+            row["gather_matmul_ms"] = time_ms(lambda: spec.aggregate_flat(g),
+                                              2)
+        emit("gather_gram", rule=rule, n=n, shape=list(g.shape), **row)
+
+
+def phase_quant_vs_gather(cfg):
+    """Phase 4x: the compressed exchange, impl="kernel" against
+    impl="gather" from the same state: one full-width synchronous step per
+    rule of QUANT_RULES in int8 and fp8 (seed 4), one async step per rule
+    of ASYNC_QUANT_RULES in int8 (seed 6, row 2 of the straggler trace).
+    The codes and scales (and mask and weights) bitwise equal, equal
+    losses, median, sign and krum exact, trimmed mean within 3e-6
+    (:func:`compare_impls`; krum's exact aggregate is its selected row)."""
+    from repro_torch.core.aggregators import make_spec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.models import init_params
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    gen = make_generator(4, DEVICE)
+    base = init_params(cfg, gen)
+    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT)
+    batch = ds.batch(ds.draw_starts(gen))
+    store = {}
+    for qdt in QUANT:
+        for rule in QUANT_RULES:
+            losses = sync_pair(cfg, rule, N, {}, base, batch, store,
+                               agg_dtype=qdt)
+            compare_impls("quant_vs_gather", rule, N, {}, store, losses,
+                          agg_dtype=qdt, loop="sync")
+    del base, batch
+    torch.cuda.empty_cache()
+    setup = async_setup(cfg, 6)
+    for rule, (n, quorum, hyper, _) in ASYNC_QUANT_RULES.items():
+        store, losses = async_pair(
+            cfg, lambda impl: make_spec(rule, f=F, impl=impl, n=n, **hyper),
+            n, *setup, agg_dtype="int8")
+        compare_impls("quant_vs_gather", rule, n, hyper, store, losses,
+                      agg_dtype="int8", loop="async", quorum=quorum,
+                      arrived=int((setup[-1] > 0).sum()))
+    torch.use_deterministic_algorithms(False)
+    del setup
+    torch.cuda.empty_cache()
+
+
 def phase_masked_vs_gather(cfg, table):
     """One full-width async step per rule of ``table`` (rule -> (n, quorum,
     hyper, ...)) with impl="kernel" and with impl="gather", from the same
@@ -1665,27 +2147,9 @@ def phase_masked_vs_gather(cfg, table):
     4, 7 live in bucket 8), as the churn run packs them
     (:func:`compare_impls`)."""
     from repro_torch.core.aggregators import elastic, frac, make_spec
-    from repro_torch.optim import adamw, constant
-    from repro_torch.simulator import make_async_step
-    from repro_torch.training import ByzantineConfig
 
-    def run(spec_of, n, base, buffer, batch, refresh, cw, *bucket_args,
-            bucket=None):
-        store, losses = {}, {}
-        for impl in ("kernel", "gather"):
-            bz = ByzantineConfig(n_agents=n, f=F,
-                                 aggregator=recorded(spec_of(impl), store),
-                                 attack="sign_flip", remat=True)
-            opt = adamw(constant(1e-4))
-            step = make_async_step(cfg, bz, opt, device=DEVICE,
-                                   bucket=bucket)
-            params = _clone(base)
-            _, _, _, _, _, met = step(params, opt.init(params), None,
-                                      buffer.clone(), {}, batch, None,
-                                      refresh, cw, *bucket_args)
-            losses[impl] = float(met["loss"])
-            del params
-        return store, losses
+    def run(*a, **kw):
+        return async_pair(cfg, *a, **kw)
 
     torch.use_deterministic_algorithms(True, warn_only=True)
     setups = {}
@@ -1848,6 +2312,7 @@ def main():
     summary.update(masked_kernel_checks(num_params(cfg)))
     summary.update(selection_kernel_checks(num_params(cfg)))
     summary.update(masked_selection_kernel_checks(num_params(cfg)))
+    summary.update(scaled_kernel_checks(num_params(cfg)))
     sync_rules = {**{r: (N, {}, RULE_KERNELS[r]) for r in RULES},
                   **SIGN_RULES}
     totals = phase_train(cfg, sync_rules, STEPS)
@@ -1857,6 +2322,10 @@ def main():
     sel_totals = phase_train(cfg, SEL_RULES, SEL_STEPS)
     asel_totals, asel_step_ms = phase_async(cfg, ASYNC_SEL_RULES,
                                             ASYNC_SEL_STEPS)
+    quant_totals = [phase_train(cfg, QUANT_RULES, QUANT_STEPS, agg_dtype=q)
+                    for q in QUANT]
+    aquant_totals, aquant_step_ms = phase_async(
+        cfg, ASYNC_QUANT_RULES, QUANT_STEPS, agg_dtype="int8")
     phase_profile(cfg, {"trimmed_mean": (N, {}, ()), "krum": (N, {}, ()),
                         **SEL_RULES})
     phase_profile_async(cfg, {**{r: (N, 6, {}) for r in RULES},
@@ -1864,7 +2333,9 @@ def main():
                               "bulyan": (11, 9, {})})
     phase_kernel_vs_gather(cfg, sync_rules)
     phase_selection_vs_gather(cfg)
+    phase_tie_check(cfg)
     phase_masked_vs_gather(cfg, {**ASYNC_RULES, **ASYNC_SEL_RULES})
+    phase_quant_vs_gather(cfg)
     kern = []
     for name, (src, replaces) in SOURCES.items():
         s = summary[name]
@@ -1872,7 +2343,9 @@ def main():
                      "replaces": replaces,
                      "launches": (totals[name] + async_totals[name]
                                   + elastic_totals[name] + sel_totals[name]
-                                  + asel_totals[name]),
+                                  + asel_totals[name]
+                                  + sum(t[name] for t in quant_totals)
+                                  + aquant_totals[name]),
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": s["bound_by"],
@@ -1882,7 +2355,9 @@ def main():
          kernel_build_s=round(build.BUILD_INFO.get("seconds", 0.0), 1),
          imputed_mean=summary["imputed_mean"],
          async_median_step_ms=async_step_ms,
-         async_selection_median_step_ms=asel_step_ms)
+         async_selection_median_step_ms=asel_step_ms,
+         async_quant_median_step_ms=aquant_step_ms,
+         sign_vote_on_codes=summary["sign_vote_codes"])
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

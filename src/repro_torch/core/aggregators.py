@@ -24,6 +24,12 @@ Registered so far: ``mean``, ``coordinate_median``, ``trimmed_mean``,
 * ``fused`` — the JAX package's leaf-wise, sharding-aware impl: not
   ported yet (ROADMAP.md slice 11, distribution); asking for it raises.
 
+Impl-only keys (``impl_keys`` of a rule): ``native_dtype`` on the
+coordinate-wise rules.  ``make_spec`` accepts it for those rules and
+refuses it for the others, then drops it: only the JAX package's
+leaf-wise ``fused`` impl reads it (ROADMAP.md slice 11), and the flat
+path ignores it there too.
+
 Masked / staleness-weighted aggregation (``mask=``, ``weights=``): the
 coordinate-wise rules take the order statistic over the ARRIVED rows only
 (absent rows are +inf sort sentinels, the rank window follows the
@@ -36,6 +42,13 @@ Elastic membership:
 ``make_spec(..., f=frac(r), n=elastic(n_max, buckets))`` and
 ``spec.respecialize(n_live)``.
 
+Quantized arenas (``aggregate_flat(codes, scale=qs)``, the compressed
+exchange of ``agg_dtype`` int8 / float8_e4m3fn): with ``impl="kernel"``
+coordinate_median, trimmed_mean and sign_sgd dequantize inside their
+kernels (K18-K20, K15 on the codes); every other rule, and the gather
+impl, dequantizes the (n, P) arena first (``core.flat.dequantize_rows``,
+with a one-time warning on the kernel impl), as the JAX engine does.
+
 Wrappers, state and telemetry come with ROADMAP.md slices 3, 6 and 7.
 """
 from __future__ import annotations
@@ -44,6 +57,7 @@ import dataclasses
 import functools
 import itertools
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
@@ -51,9 +65,20 @@ import numpy as np
 import torch
 
 from repro_torch.core.filters import dense as D
-from repro_torch.core.flat import FlatPlan
+from repro_torch.core.flat import QUANT_DTYPES, FlatPlan, dtype_name
 
 IMPLS = ("auto", "kernel", "gather", "fused")
+
+_WARNED_ONCE: set = set()
+
+
+def warn_once(key, message):
+    """Warn exactly once per ``key`` across the process (a warning inside
+    a training loop would otherwise fire every step)."""
+    if key in _WARNED_ONCE:
+        return
+    _WARNED_ONCE.add(key)
+    warnings.warn(message, UserWarning, stacklevel=3)
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,6 +220,7 @@ class AggregatorDef:
     caps: AggregatorCaps
     hyper_keys: frozenset          # allowed hyper-parameter names
     gather_keys: frozenset         # hyper forwarded to the dense gather fn
+    impl_keys: frozenset           # impl-only keys (accepted, not stored)
     dense_fn: Optional[Callable] = None    # (stack, f, **hyper) -> (P,)
     # masked-law override (stack, wn) -> (P,) fp32, wn = w / tot: rules
     # whose masked law is not impute-then-scale (mean's exact weighted
@@ -207,14 +233,15 @@ REGISTRY: dict[str, AggregatorDef] = {}
 
 def register_aggregator(name: str, *, caps: AggregatorCaps,
                         hyper: tuple = (), gather: tuple = (),
-                        dense_fn=None, masked_fn=None):
+                        impl_keys: tuple = (), dense_fn=None,
+                        masked_fn=None):
     """Register an aggregation rule (raises on a duplicate name)."""
     if name in REGISTRY:
         raise ValueError(f"aggregator {name!r} already registered")
     REGISTRY[name] = AggregatorDef(
         name=name, caps=caps, hyper_keys=frozenset(hyper),
-        gather_keys=frozenset(gather), dense_fn=dense_fn,
-        masked_fn=masked_fn)
+        gather_keys=frozenset(gather), impl_keys=frozenset(impl_keys),
+        dense_fn=dense_fn, masked_fn=masked_fn)
     return REGISTRY[name]
 
 
@@ -299,7 +326,7 @@ class AggregatorSpec:
                 plan.ravel(grads), mask, weights, state))
         raise NotImplementedError(
             "masked aggregation of a tree with mixed leaf dtypes comes "
-            "with ROADMAP.md slice 4 (the per-dtype arenas)")
+            "with ROADMAP.md slice 4b (the per-dtype arenas)")
 
     def aggregate_flat(self, stack, mask=None, weights=None, state=None,
                        scale=None):
@@ -307,10 +334,19 @@ class AggregatorSpec:
         fp32.  The kernel impl reads the arena in its own dtype; the
         gather impl takes an fp32 view or copy, as the JAX engine does.
         With ``mask``/``weights`` the masked law of the rule applies (see
-        the module docstring)."""
-        if scale is not None:
-            raise NotImplementedError(
-                "quantized arenas come with ROADMAP.md slice 4")
+        the module docstring).
+
+        ``scale``: the (n,) fp32 row scales of a QUANTIZED arena
+        (``stack`` then holds the int8 / float8_e4m3fn codes of
+        :func:`repro_torch.core.flat.quantize_rows`; row i decodes as
+        ``stack[i].float() * scale[i]``).  The rule runs on the decoded
+        rows: inside the kernels for the rules of the scaled kernel table,
+        on an engine-level dequantized copy otherwise."""
+        if scale is not None and dtype_name(stack.dtype) not in QUANT_DTYPES:
+            raise ValueError(
+                f"scale= goes with a quantized arena "
+                f"({' or '.join(sorted(QUANT_DTYPES))} codes), got "
+                f"{stack.dtype}")
         if state is not None:
             raise NotImplementedError(
                 "stateful rules come with ROADMAP.md slice 6")
@@ -319,11 +355,11 @@ class AggregatorSpec:
                              f"got a stack of {stack.shape[0]} rows")
         d = get_aggregator_def(self.name)
         if mask is None and weights is None:
-            return _flat_sync_vec(self, d, stack)
+            return _flat_sync_vec(self, d, stack, scale)
         if mask is None:
             mask = torch.ones((stack.shape[0],), dtype=torch.bool,
                               device=stack.device)
-        return _flat_masked_vec(self, d, stack, mask, weights)
+        return _flat_masked_vec(self, d, stack, mask, weights, scale)
 
 
 @functools.lru_cache(maxsize=None)
@@ -361,8 +397,39 @@ def _warm_plan(spec: AggregatorSpec, n: int):
 # engine
 
 
-def _flat_sync_vec(spec, d, stack):
-    """(n, P) arena -> (P,) fp32, synchronous."""
+def _scaled_kernel(spec) -> bool:
+    """True iff ``spec`` dequantizes a quantized arena inside its kernels."""
+    if spec.impl != "kernel":
+        return False
+    from repro_torch.kernels import kernel_scaled_supported
+    return kernel_scaled_supported(spec.name)
+
+
+def _flat_dequant(spec, stack, qscale):
+    """The engine-level dequantization of the rules without a scaled
+    kernel: the (n, P) fp32 copy, with a one-time notice on the kernel
+    impl (the JAX engine pays the same copy for these rules)."""
+    from repro_torch.core.flat import dequantize_rows
+    if spec.impl == "kernel":
+        warn_once(
+            ("flat-scaled-dequant", spec.name),
+            f"{spec.name}: no scaled (quantized-arena) kernel — "
+            "dequantizing the (n, P) arena at engine level before "
+            "aggregation.  Only the kernelized coordinate rules "
+            "(coordinate_median, trimmed_mean, sign_sgd) dequantize inside "
+            "the kernel.")
+    return dequantize_rows(stack, qscale)
+
+
+def _flat_sync_vec(spec, d, stack, qscale=None):
+    """(n, P) arena -> (P,) fp32, synchronous.  ``qscale``: the row scales
+    of a quantized arena."""
+    if qscale is not None:
+        if _scaled_kernel(spec):
+            from repro_torch.kernels import kernel_scaled_aggregate
+            return kernel_scaled_aggregate(spec.name, stack, qscale, spec.f,
+                                           spec.hyper)
+        stack = _flat_dequant(spec, stack, qscale)
     if spec.impl == "kernel":
         from repro_torch.kernels import kernel_aggregate
         return kernel_aggregate(spec.name, stack, spec.f, spec.hyper)
@@ -405,14 +472,20 @@ def _arrived_coord_vec(spec, xf, mask):
     return ref.masked_stat_ref(xf, mask, None, "trimmed_mean", b=b)
 
 
-def _flat_masked_vec(spec, d, stack, mask, weights):
+def _flat_masked_vec(spec, d, stack, mask, weights, qscale=None):
     """Masked/weighted flat path: the arrived-window law for the
     coordinate-wise rules, the impute-at-delivered-mean law for krum,
     each scaled by tot/cnt (an explicit 0 when no weight was delivered);
     mean's exact weighted mean.  ``impl="kernel"`` fuses the law into the
     masked kernels: no masked (n, P) copy is made, and the mask, the
-    weights and the counts stay on the device."""
+    weights and the counts stay on the device.  ``qscale``: the row
+    scales of a quantized arena (the law runs on the dequantized rows)."""
     mask, w, cnt, tot = _masked_prelude(mask, weights)
+    # a quantized arena's aggregate is fp32: no round trip through the
+    # codes' dtype
+    out_dtype = torch.float32 if qscale is not None else stack.dtype
+    if qscale is not None and not _scaled_kernel(spec):
+        stack, qscale = _flat_dequant(spec, stack, qscale), None
     if d.masked_fn is not None:
         return d.masked_fn(stack, w / tot)
     # the zero-total guard: tot == sum(w) whenever sum(w) > 0
@@ -423,8 +496,13 @@ def _flat_masked_vec(spec, d, stack, mask, weights):
         # the tree engine rounds the aggregate to the leaf dtype before
         # it scales; the round trip through the arena dtype keeps bf16
         # arenas bit-for-bit with it (a no-op for fp32)
-        return vec.to(stack.dtype).float() * scale
+        return vec.to(out_dtype).float() * scale
 
+    if qscale is not None:
+        from repro_torch.kernels import kernel_scaled_masked_aggregate
+        return scaled(kernel_scaled_masked_aggregate(
+            spec.name, stack, qscale, mask.float(), w / tot, spec.f,
+            spec.hyper))
     if spec.impl == "kernel":
         from repro_torch.kernels import kernel_masked_aggregate
         return scaled(kernel_masked_aggregate(
@@ -512,16 +590,16 @@ def make_spec(name: str, f: "int | FracF" = 0, impl: str = "auto",
         raise ValueError(f"f must be an int >= 0 or frac(...), got {f!r}")
     if n_int is not None and not isinstance(n_int, int):
         raise ValueError(f"n must be an int or elastic(...), got {n!r}")
-    if "native_dtype" in hyper:
-        raise NotImplementedError(
-            f"{name}: native_dtype (aggregation in the exchange dtype) "
-            "comes with ROADMAP.md slice 4")
-    for k in hyper:
-        if k not in d.hyper_keys:
-            raise ValueError(f"{name}: unknown hyper-parameter {k!r} "
-                             f"(allowed: {sorted(d.hyper_keys)})")
-    spec = AggregatorSpec(name=name, f=f, hyper=tuple(sorted(hyper.items())),
-                          impl=_resolve_impl(name, impl, hyper), n=n_int,
+    plain = {}
+    for k, v in hyper.items():
+        if k in d.hyper_keys:
+            plain[k] = v
+        elif k not in d.impl_keys:
+            raise ValueError(
+                f"{name}: unknown hyper-parameter {k!r} "
+                f"(allowed: {sorted(d.hyper_keys | d.impl_keys)})")
+    spec = AggregatorSpec(name=name, f=f, hyper=tuple(sorted(plain.items())),
+                          impl=_resolve_impl(name, impl, plain), n=n_int,
                           elastic=el, f_policy=f_policy)
     if el is not None:
         for b in el.buckets:          # prebuild every bucket's spec NOW
@@ -573,12 +651,13 @@ register_aggregator(
 register_aggregator(
     "coordinate_median",
     caps=AggregatorCaps(coordwise=True),
-    dense_fn=D.coordinate_median)
+    impl_keys=("native_dtype",), dense_fn=D.coordinate_median)
 register_aggregator(
     "trimmed_mean",
     caps=AggregatorCaps(coordwise=True),
-    hyper=("beta",), gather=("beta",), dense_fn=D.trimmed_mean)
+    hyper=("beta",), gather=("beta",), impl_keys=("native_dtype",),
+    dense_fn=D.trimmed_mean)
 register_aggregator(
     "sign_sgd",
     caps=AggregatorCaps(coordwise=True),
-    dense_fn=D.sign_sgd)
+    impl_keys=("native_dtype",), dense_fn=D.sign_sgd)

@@ -27,14 +27,30 @@ def register(name):
 # helpers
 
 
+def _pair_dot(a, b):
+    """<a, b> of two (d,) rows, rounded to fp32: the elementwise fp32
+    product (a fresh contiguous tensor) summed in fp64.  The result
+    depends only on the two rows' values, never on where they sit in the
+    stack, so bitwise-equal rows get bitwise-equal entries on any device
+    (a library matrix product need not: ROADMAP.md P12)."""
+    return torch.sum(a * b, dtype=torch.float64).float()
+
+
 def pairwise_sq_dists(g):
-    """(n, d) -> (n, n) squared euclidean distances (Gram form).  The
-    diagonal is exactly zero, and the matrix is bitwise symmetric (the
-    upper triangle mirrored: a library product need not give G_ij ==
-    G_ji, and the iterative selections' pair tie needs d2(i, j) ==
-    d2(j, i))."""
-    sq = torch.sum(torch.square(g), dim=-1)
-    gram = g @ g.T
+    """(n, d) -> (n, n) squared euclidean distances (Gram form),
+    d2_ij = G_ii + G_jj - 2 G_ij with each Gram entry one fixed-order dot
+    per pair (:func:`_pair_dot`).  The diagonal is exactly zero, the
+    matrix is bitwise symmetric (the iterative selections' pair tie needs
+    d2(i, j) == d2(j, i)), and bitwise-equal rows (the f identical rows
+    of sign_flip) have bitwise-equal distances to every other row, so an
+    exact Krum tie between them is broken by index, as the kernel path
+    breaks it."""
+    n = g.shape[0]
+    gram = torch.empty((n, n), dtype=torch.float32, device=g.device)
+    for i in range(n):
+        for j in range(i, n):
+            gram[i, j] = gram[j, i] = _pair_dot(g[i], g[j])
+    sq = torch.diagonal(gram)
     d2 = torch.triu(torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * gram,
                                     0.0), 1)
     return d2 + d2.T

@@ -8,8 +8,15 @@ arena coordinate for coordinate.
 The training step does not build the arena with a concatenate: it
 preallocates the (n, P) arena and copies each agent's gradient straight
 into its row (:meth:`FlatPlan.write_row`) — that copy is the one ravel.
-The aggregate is unraveled once, at optimizer-apply.  Quantization of the
-arena (``quantize_rows`` and friends) comes with ROADMAP.md slice 4.
+The aggregate is unraveled once, at optimizer-apply.
+
+Wire quantization (the compressed exchange, ``ByzantineConfig.agg_dtype``
+int8 or float8_e4m3fn): :func:`quantize_rows` turns the fp32 arena into
+per-row symmetric codes and an fp32 scale per row, and the scaled kernels
+dequantize inside the tile with :func:`dequantize_rows`' arithmetic.
+The arithmetic is the JAX package's, operation for operation; where the
+two packages' CPUs part (subnormal rows, ROADMAP.md P13) the port keeps
+IEEE arithmetic, as the card does.
 """
 from __future__ import annotations
 
@@ -117,4 +124,66 @@ def _plan(paths, shapes, dtypes) -> FlatPlan:
                     uniform_dtype=uniform)
 
 
-__all__ = ["FlatPlan", "dtype_name"]
+# ---------------------------------------------------------------------------
+# wire quantization: per-row symmetric codes + an fp32 scale per row
+#
+# qmax is the symmetric code range: 127 for int8, 448 for float8_e4m3fn
+# (its largest finite value).  Each agent row gets its own scale, so one
+# outlier agent does not crush the others' resolution.
+
+QUANT_DTYPES = {"int8": 127.0, "float8_e4m3fn": 448.0}
+
+
+def quantize_rows(x, dtype):
+    """fp32 (n, P) -> (codes (n, P) ``dtype``, scale (n,) fp32), per-row
+    symmetric: ``scale_i = amax_i / qmax`` (1.0 for a row whose amax is
+    not > 0: an all-zero row, or a NaN row), ``codes = x / scale`` rounded
+    half to even and clipped to [-qmax, qmax] (int8), or clipped and cast
+    (fp8, rounding to nearest even).
+
+    Both divisions divide by a tensor: PyTorch on the card turns a
+    division by a Python scalar into a multiply by its reciprocal, which
+    rounds differently.  A NaN code (a NaN value, or inf / inf in an inf
+    row) is 0 in int8, pinned here before the cast (``nan_to_num_``): a
+    float-to-int8 cast of NaN is no defined value.  fp8 keeps the NaN.
+    ``amax`` is ``max(max x, -min x)`` per row, equal to ``max |x|`` (NaN
+    included) without an (n, P) ``|x|`` temporary; the division runs in
+    place when ``x.float()`` is already a copy (a bf16 arena), and round,
+    clip and the pin in place on the quotient, so the call holds at most
+    one fp32 (n, P) temporary."""
+    name = dtype_name(dtype) if isinstance(dtype, torch.dtype) else dtype
+    qmax = QUANT_DTYPES[name]
+    xf = x.float()
+    lo, hi = torch.aminmax(xf, dim=1)
+    amax = torch.maximum(hi, -lo)
+    q = torch.full((), qmax, dtype=torch.float32, device=xf.device)
+    one = torch.ones((), dtype=torch.float32, device=xf.device)
+    scale = torch.where(amax > 0.0, amax / q, one)
+    codes = (xf.div_(scale[:, None]) if xf is not x
+             else xf / scale[:, None])
+    if name == "int8":
+        codes.round_().clamp_(-qmax, qmax).nan_to_num_(nan=0.0)
+    else:
+        # |x / scale| passes qmax by more than an ulp only when the scale
+        # is subnormal (ROADMAP.md P13); clipping first keeps the fp8 cast
+        # off its overflow, where casts disagree (NaN or saturation)
+        codes.clamp_(-qmax, qmax)
+    return codes.to(getattr(torch, name)), scale
+
+
+def dequantize_rows(codes, scale):
+    """(codes (n, P), scale (n,) fp32) -> fp32 (n, P): one fp32 multiply,
+    ``codes.float() * scale[:, None]``.  The scaled kernels compute
+    exactly this per value, so it is their parity oracle."""
+    return codes.float() * scale[:, None]
+
+
+def fake_quantize(x, dtype):
+    """The quantize-dequantize round trip: the fp32 stack that a path
+    without a scale-aware entry sees, so the compressed exchange means
+    the same on every path."""
+    return dequantize_rows(*quantize_rows(x, dtype))
+
+
+__all__ = ["FlatPlan", "dtype_name", "QUANT_DTYPES", "quantize_rows",
+           "dequantize_rows", "fake_quantize"]

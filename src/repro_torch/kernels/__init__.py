@@ -7,12 +7,19 @@ kernel (or raises) for a CUDA tensor, and counts its launches in
 :func:`reset_launch_counts` sets them to 0."""
 from repro_torch.kernels.coord_stats import coord_stat
 from repro_torch.kernels.dispatch import (KERNEL_MASKED_RULES, KERNEL_RULES,
+                                          KERNEL_SCALED_MASKED_RULES,
+                                          KERNEL_SCALED_RULES,
                                           kernel_aggregate,
                                           kernel_masked_aggregate,
                                           kernel_masked_supported,
+                                          kernel_scaled_aggregate,
+                                          kernel_scaled_masked_aggregate,
+                                          kernel_scaled_supported,
                                           kernel_supported)
 from repro_torch.kernels.masked import (masked_coord_stat, masked_sign_vote,
-                                        sign_vote)
+                                        scaled_coord_stat,
+                                        scaled_masked_coord_stat,
+                                        scaled_masked_sign_vote, sign_vote)
 from repro_torch.kernels.ops import (kernel_bulyan, kernel_bulyan_masked,
                                      kernel_cge, kernel_cge_masked,
                                      kernel_krum, kernel_krum_masked,
@@ -40,7 +47,10 @@ WRAPPERS = {"coord_stat": coord_stat, "gram": gram,
             "masked_ordered_apply": masked_ordered_apply,
             "bulyan_coord": bulyan_coord,
             "masked_bulyan_coord": masked_bulyan_coord,
-            "sign_vote": sign_vote, "masked_sign_vote": masked_sign_vote}
+            "sign_vote": sign_vote, "masked_sign_vote": masked_sign_vote,
+            "scaled_coord_stat": scaled_coord_stat,
+            "scaled_masked_coord_stat": scaled_masked_coord_stat,
+            "scaled_masked_sign_vote": scaled_masked_sign_vote}
 
 
 def launch_counts() -> dict:
@@ -57,7 +67,10 @@ __all__ = [*WRAPPERS, "imputed_mean", "kernel_krum", "kernel_krum_masked",
            "kernel_multi_krum_masked", "kernel_m_krum",
            "kernel_m_krum_masked", "kernel_mda", "kernel_mda_masked",
            "kernel_bulyan", "kernel_bulyan_masked", "KERNEL_RULES",
-           "KERNEL_MASKED_RULES", "kernel_aggregate",
+           "KERNEL_MASKED_RULES", "KERNEL_SCALED_RULES",
+           "KERNEL_SCALED_MASKED_RULES", "kernel_aggregate",
            "kernel_masked_aggregate", "kernel_masked_supported",
-           "kernel_supported", "WRAPPERS", "launch_counts",
+           "kernel_scaled_aggregate", "kernel_scaled_masked_aggregate",
+           "kernel_scaled_supported", "kernel_supported", "WRAPPERS",
+           "launch_counts",
            "reset_launch_counts"]

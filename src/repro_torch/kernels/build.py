@@ -27,7 +27,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-F32, BF16 = 0, 1          # dtype codes of csrc/common.cuh
+F32, BF16, I8, F8 = 0, 1, 2, 3      # dtype codes of csrc/common.cuh
+FLOAT_CODES = {torch.float32: F32, torch.bfloat16: BF16}
+# the codes of a quantized arena (core.flat.quantize_rows)
+QUANT_CODES = {torch.int8: I8, torch.float8_e4m3fn: F8}
 
 _LIB = None
 BUILD_INFO: dict = {}
@@ -136,6 +139,12 @@ def lib():
         L.rt_sign_vote.argtypes = [vp, i32, vp, i32, i64, i64, vp]
         L.rt_masked_sign_vote.argtypes = [vp, i32, vp, vp, i32, i64, i64,
                                           vp]
+        L.rt_scaled_coord_stat.argtypes = [vp, i32, vp, vp, i32, i64, i64,
+                                           i32, i32, vp]
+        L.rt_scaled_masked_coord_stat.argtypes = [vp, i32, vp, vp, vp, i32,
+                                                  i64, i64, i32, i32, vp]
+        L.rt_scaled_masked_sign_vote.argtypes = [vp, i32, vp, vp, vp, i32,
+                                                 i64, i64, vp]
         for fn in ("rt_coord_stat", "rt_gram", "rt_krum_select",
                    "rt_weighted_sum", "rt_masked_coord_stat",
                    "rt_masked_gram", "rt_masked_weighted_sum",
@@ -143,7 +152,9 @@ def lib():
                    "rt_iterative_order", "rt_ordered_apply",
                    "rt_bulyan_coord", "rt_masked_ordered_apply",
                    "rt_masked_bulyan_coord", "rt_sign_vote",
-                   "rt_masked_sign_vote"):
+                   "rt_masked_sign_vote", "rt_scaled_coord_stat",
+                   "rt_scaled_masked_coord_stat",
+                   "rt_scaled_masked_sign_vote"):
             getattr(L, fn).restype = i32
         _LIB = L
     return _LIB
@@ -155,13 +166,16 @@ def check(rc: int, name: str):
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def dtype_code(t) -> int:
-    if t.dtype == torch.float32:
-        return F32
-    if t.dtype == torch.bfloat16:
-        return BF16
-    raise TypeError(f"kernel input must be float32 or bfloat16, got "
-                    f"{t.dtype}")
+def dtype_code(t, codes=FLOAT_CODES) -> int:
+    """The csrc dtype code of ``t``, one of ``codes`` (the float arenas by
+    default; :data:`QUANT_CODES` for a kernel that takes int8 / fp8
+    codes); raises on any other dtype."""
+    try:
+        return codes[t.dtype]
+    except KeyError:
+        names = " or ".join(str(d).replace("torch.", "") for d in codes)
+        raise TypeError(f"kernel input must be {names}, got "
+                        f"{t.dtype}") from None
 
 
 def stream_ptr(t) -> int:

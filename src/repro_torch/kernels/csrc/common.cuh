@@ -7,16 +7,25 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define RT_EXPORT extern "C" __attribute__((visibility("default")))
 
-// dtype codes shared with repro_torch/kernels/build.py
-enum { RT_F32 = 0, RT_BF16 = 1 };
+// dtype codes shared with repro_torch/kernels/build.py: the float arenas,
+// and the int8 / fp8 (e4m3) codes of a quantized arena
+enum { RT_F32 = 0, RT_BF16 = 1, RT_I8 = 2, RT_F8 = 3 };
 
+// Exact upcasts to fp32 (every bf16, int8 and e4m3 value is an fp32 value;
+// an e4m3 NaN code, 0x7F / 0xFF, stays NaN).
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) {
+  return static_cast<float>(v);
 }
 
 // min / max that PROPAGATE NaN, like jnp.minimum / jnp.maximum (fminf and

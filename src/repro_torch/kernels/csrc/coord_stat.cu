@@ -30,10 +30,10 @@ RT_EXPORT int rt_coord_stat(const void* x, int dtype, float* out, int n,
   if (d <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == RT_F32)
-    return coord_stat_dispatch<float, false>(x, nullptr, out, n, d, ld, stat,
-                                             b, s);
+    return coord_stat_dispatch<float, false, false>(x, nullptr, nullptr, out,
+                                                    n, d, ld, stat, b, s);
   if (dtype == RT_BF16)
-    return coord_stat_dispatch<__nv_bfloat16, false>(x, nullptr, out, n, d,
-                                                     ld, stat, b, s);
+    return coord_stat_dispatch<__nv_bfloat16, false, false>(
+        x, nullptr, nullptr, out, n, d, ld, stat, b, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,17 @@
 // The coord_stat kernel template and its launcher, shared by K1
-// (coord_stat.cu) and K5 (masked_coord_stat.cu); see those files for the
-// design notes.  MASKED = false is K1: every one of the n rows is read and
-// the window is fixed by n.  MASKED = true is K5: each block reads the (n,)
-// mask once, an absent row becomes a +inf sentinel (and is never read),
-// and the kept rank window follows the arrived count.  The load, the
-// network and the window sum are shared.  Each register capacity MAXN is
-// instantiated in its own translation unit (coord_stat*.cu), so nvcc
-// compiles them in parallel.
+// (coord_stat.cu), K5 (masked_coord_stat.cu), K18 (scaled_coord_stat.cu)
+// and K19 (scaled_masked_coord_stat.cu); see those files for the design
+// notes.  MASKED = false: every one of the n rows is read and the window
+// is fixed by n.  MASKED = true: each block reads the (n,) mask once, an
+// absent row becomes a +inf sentinel (and is never read), and the kept
+// rank window follows the arrived count.  SCALED = true: the stack holds
+// int8 / fp8 codes, each block reads the (n,) fp32 row scales once into
+// shared memory, and the load dequantizes, to_f32(code) * scale[row] with
+// one rounded multiply (never contracted into an add), exactly
+// core.flat.dequantize_rows.  The load, the network and the window sum are
+// shared.  Each register capacity MAXN above 16 is instantiated in its own
+// translation unit (coord_stat_{32,64}_*.cu), so nvcc compiles them in
+// parallel.
 #pragma once
 
 #include <math.h>
@@ -35,11 +40,17 @@ __device__ __forceinline__ void sort_network(float (&v)[MAXN], int n) {
   }
 }
 
-template <int MAXN, typename T, bool MASKED>
+template <int MAXN, typename T, bool MASKED, bool SCALED>
 __global__ void __launch_bounds__(256)
 coord_stat_kernel(const T* __restrict__ x, const float* __restrict__ mask,
-                  float* __restrict__ out, int n, long long d, long long ld,
-                  int stat, int b) {
+                  const float* __restrict__ scale, float* __restrict__ out,
+                  int n, long long d, long long ld, int stat, int b) {
+  // the per-row dequantization scales, read once per block
+  __shared__ float scale_s[kCoordStatMaxN];
+  if (SCALED) {
+    if (threadIdx.x < n) scale_s[threadIdx.x] = scale[threadIdx.x];
+    __syncthreads();
+  }
   // live flags and the arrived count: all n rows for K1; for K5 the (n,)
   // mask, read once per block
   __shared__ int live_s[kCoordStatMaxN];
@@ -75,9 +86,14 @@ coord_stat_kernel(const T* __restrict__ x, const float* __restrict__ mask,
        j += stride) {
     float v[MAXN];
 #pragma unroll
-    for (int i = 0; i < MAXN; ++i)
-      v[i] = live[i] ? to_f32(x[(long long)i * ld + j])
-                     : (MASKED ? INFINITY : 0.f);
+    for (int i = 0; i < MAXN; ++i) {
+      if (live[i]) {
+        v[i] = to_f32(x[(long long)i * ld + j]);
+        if (SCALED) v[i] = __fmul_rn(v[i], scale_s[i]);
+      } else {
+        v[i] = MASKED ? INFINITY : 0.f;
+      }
+    }
     sort_network<MAXN>(v, n);
     float r;
     if (!MASKED && stat == 0) {  // median: 0.5 * (s[(n-1)//2] + s[n//2])
@@ -101,47 +117,61 @@ coord_stat_kernel(const T* __restrict__ x, const float* __restrict__ mask,
   }
 }
 
-template <int MAXN, typename T, bool MASKED>
-void coord_stat_launch(const void* x, const float* mask, float* out, int n,
-                       long long d, long long ld, int stat, int b,
-                       cudaStream_t s) {
+template <int MAXN, typename T, bool MASKED, bool SCALED>
+void coord_stat_launch(const void* x, const float* mask, const float* scale,
+                       float* out, int n, long long d, long long ld, int stat,
+                       int b, cudaStream_t s) {
   const int threads = 256;
   const unsigned blocks = grid_blocks(d, threads);
-  coord_stat_kernel<MAXN, T, MASKED><<<blocks, threads, 0, s>>>(
-      (const T*)x, mask, out, n, d, ld, stat, b);
+  coord_stat_kernel<MAXN, T, MASKED, SCALED><<<blocks, threads, 0, s>>>(
+      (const T*)x, mask, scale, out, n, d, ld, stat, b);
 }
 
 // Runs the instance whose register capacity holds n rows.
-template <typename T, bool MASKED>
-int coord_stat_dispatch(const void* x, const float* mask, float* out, int n,
-                        long long d, long long ld, int stat, int b,
-                        cudaStream_t s) {
+template <typename T, bool MASKED, bool SCALED>
+int coord_stat_dispatch(const void* x, const float* mask, const float* scale,
+                        float* out, int n, long long d, long long ld,
+                        int stat, int b, cudaStream_t s) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
   if (n <= 4)
-    coord_stat_launch<4, T, MASKED>(x, mask, out, n, d, ld, stat, b, s);
+    coord_stat_launch<4, T, MASKED, SCALED>(x, mask, scale, out, n, d, ld,
+                                            stat, b, s);
   else if (n <= 8)
-    coord_stat_launch<8, T, MASKED>(x, mask, out, n, d, ld, stat, b, s);
+    coord_stat_launch<8, T, MASKED, SCALED>(x, mask, scale, out, n, d, ld,
+                                            stat, b, s);
   else if (n <= 16)
-    coord_stat_launch<16, T, MASKED>(x, mask, out, n, d, ld, stat, b, s);
+    coord_stat_launch<16, T, MASKED, SCALED>(x, mask, scale, out, n, d, ld,
+                                             stat, b, s);
   else if (n <= 32)
-    coord_stat_launch<32, T, MASKED>(x, mask, out, n, d, ld, stat, b, s);
+    coord_stat_launch<32, T, MASKED, SCALED>(x, mask, scale, out, n, d, ld,
+                                             stat, b, s);
   else if (n <= 64)
-    coord_stat_launch<64, T, MASKED>(x, mask, out, n, d, ld, stat, b, s);
+    coord_stat_launch<64, T, MASKED, SCALED>(x, mask, scale, out, n, d, ld,
+                                             stat, b, s);
   else
     return (int)cudaErrorInvalidValue;
   return rt_status();
 }
 
-// instantiated in coord_stat_{32,64}_{f32,bf16}.cu
-#define RT_CS_EXTERN(N, T, M)                                              \
-  extern template void coord_stat_launch<N, T, M>(                         \
-      const void*, const float*, float*, int, long long, long long, int,   \
-      int, cudaStream_t);
-RT_CS_EXTERN(32, float, false)
-RT_CS_EXTERN(32, float, true)
-RT_CS_EXTERN(32, __nv_bfloat16, false)
-RT_CS_EXTERN(32, __nv_bfloat16, true)
-RT_CS_EXTERN(64, float, false)
-RT_CS_EXTERN(64, float, true)
-RT_CS_EXTERN(64, __nv_bfloat16, false)
-RT_CS_EXTERN(64, __nv_bfloat16, true)
-#undef RT_CS_EXTERN
+// The signature of one instance, for the explicit instantiations in
+// coord_stat_{32,64}_{f32,bf16,i8,f8}.cu and the extern declarations here.
+#define RT_CS_LAUNCH(N, T, M, S)                                           \
+  void coord_stat_launch<N, T, M, S>(                                      \
+      const void*, const float*, const float*, float*, int, long long,     \
+      long long, int, int, cudaStream_t)
+extern template RT_CS_LAUNCH(32, float, false, false);
+extern template RT_CS_LAUNCH(32, float, true, false);
+extern template RT_CS_LAUNCH(32, __nv_bfloat16, false, false);
+extern template RT_CS_LAUNCH(32, __nv_bfloat16, true, false);
+extern template RT_CS_LAUNCH(64, float, false, false);
+extern template RT_CS_LAUNCH(64, float, true, false);
+extern template RT_CS_LAUNCH(64, __nv_bfloat16, false, false);
+extern template RT_CS_LAUNCH(64, __nv_bfloat16, true, false);
+extern template RT_CS_LAUNCH(32, int8_t, false, true);
+extern template RT_CS_LAUNCH(32, int8_t, true, true);
+extern template RT_CS_LAUNCH(32, __nv_fp8_e4m3, false, true);
+extern template RT_CS_LAUNCH(32, __nv_fp8_e4m3, true, true);
+extern template RT_CS_LAUNCH(64, int8_t, false, true);
+extern template RT_CS_LAUNCH(64, int8_t, true, true);
+extern template RT_CS_LAUNCH(64, __nv_fp8_e4m3, false, true);
+extern template RT_CS_LAUNCH(64, __nv_fp8_e4m3, true, true);

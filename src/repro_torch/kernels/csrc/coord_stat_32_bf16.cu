@@ -3,9 +3,5 @@
 // and dtype: they compile in parallel).
 #include "coord_stat.cuh"
 
-template void coord_stat_launch<32, __nv_bfloat16, false>(
-    const void*, const float*, float*, int, long long, long long, int, int,
-    cudaStream_t);
-template void coord_stat_launch<32, __nv_bfloat16, true>(
-    const void*, const float*, float*, int, long long, long long, int, int,
-    cudaStream_t);
+template RT_CS_LAUNCH(32, __nv_bfloat16, false, false);
+template RT_CS_LAUNCH(32, __nv_bfloat16, true, false);

@@ -3,9 +3,5 @@
 // and dtype: they compile in parallel).
 #include "coord_stat.cuh"
 
-template void coord_stat_launch<64, float, false>(
-    const void*, const float*, float*, int, long long, long long, int, int,
-    cudaStream_t);
-template void coord_stat_launch<64, float, true>(
-    const void*, const float*, float*, int, long long, long long, int, int,
-    cudaStream_t);
+template RT_CS_LAUNCH(64, float, false, false);
+template RT_CS_LAUNCH(64, float, true, false);

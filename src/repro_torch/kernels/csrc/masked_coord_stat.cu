@@ -32,10 +32,10 @@ RT_EXPORT int rt_masked_coord_stat(const void* x, int dtype,
   if (d <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == RT_F32)
-    return coord_stat_dispatch<float, true>(x, mask, out, n, d, ld, stat, b,
-                                            s);
+    return coord_stat_dispatch<float, true, false>(x, mask, nullptr, out, n,
+                                                   d, ld, stat, b, s);
   if (dtype == RT_BF16)
-    return coord_stat_dispatch<__nv_bfloat16, true>(x, mask, out, n, d, ld,
-                                                    stat, b, s);
+    return coord_stat_dispatch<__nv_bfloat16, true, false>(
+        x, mask, nullptr, out, n, d, ld, stat, b, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,14 +8,23 @@ upcast in registers, so no fp32 (n, P) copy is made) and returns the (P,)
 fp32 aggregate; the masked entries also take the (n,) fp32 mask and the
 normalized weights wn = w / tot, on the arena's device.  Both tables
 hold the same rules: the coordinate statistics, Krum and the selection
-family, and sign_sgd.  The scaled (int8/fp8 arena) table, with
-sparse_mean, comes with ROADMAP.md slice 4.
+family, and sign_sgd.
+
+The scaled tables (``PALLAS_SCALED_RULES`` / ``PALLAS_SCALED_MASKED_RULES``
+there, ``KERNEL_SCALED_RULES`` / ``KERNEL_SCALED_MASKED_RULES`` here) take
+a QUANTIZED arena, int8 / float8_e4m3fn codes and an (n,) fp32 scale per
+row, and dequantize inside the kernel (K18-K20; synchronous sign_sgd votes
+on the codes with K15), so no dequantized (n, P) copy is made.  The other
+rules dequantize at engine level (``aggregators._flat_dequant``).  The
+JAX tables also hold sparse_mean: it comes with ROADMAP.md slice 4b.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.coord_stats import coord_stat
 from repro_torch.kernels.masked import (masked_coord_stat, masked_sign_vote,
-                                        sign_vote)
+                                        scaled_coord_stat,
+                                        scaled_masked_coord_stat,
+                                        scaled_masked_sign_vote, sign_vote)
 from repro_torch.kernels.ops import (kernel_bulyan, kernel_bulyan_masked,
                                      kernel_cge, kernel_cge_masked,
                                      kernel_krum, kernel_krum_masked,
@@ -176,3 +185,70 @@ def kernel_masked_aggregate(name: str, stack, mask, wn, f: int,
     if name not in KERNEL_MASKED_RULES:
         raise NotImplementedError(masked_kernel_missing(name))
     return KERNEL_MASKED_RULES[name](stack, mask, wn, f, dict(hyper))
+
+
+# scaled rules: the arena holds int8 / fp8 codes and an (n,) fp32 scale per
+# row (core.flat.quantize_rows); the kernels dequantize in registers
+
+
+def _scaled_median(stack, qs, f, hyper):
+    return scaled_coord_stat(stack, qs, "median")
+
+
+def _scaled_trimmed_mean(stack, qs, f, hyper):
+    return scaled_coord_stat(stack, qs, "trimmed_mean",
+                             b=_trim_b(stack.shape[0], f, hyper))
+
+
+def _scaled_sign_sgd(stack, qs, f, hyper):
+    # sign(code * scale) == sign(code) for a finite scale > 0: the plain
+    # vote reads the codes directly, as the JAX table does (an inf row's
+    # 0 codes cast a 0 vote here, where the dequantized law reads NaN)
+    return sign_vote(stack)
+
+
+KERNEL_SCALED_RULES = {
+    "coordinate_median": _scaled_median,
+    "trimmed_mean": _scaled_trimmed_mean,
+    "sign_sgd": _scaled_sign_sgd,
+}
+
+
+def _scaled_masked_median(stack, qs, mask, wn, f, hyper):
+    return scaled_masked_coord_stat(stack, qs, mask, wn, "median")
+
+
+def _scaled_masked_trimmed_mean(stack, qs, mask, wn, f, hyper):
+    return scaled_masked_coord_stat(stack, qs, mask, wn, "trimmed_mean",
+                                    b=_trim_b(stack.shape[0], f, hyper))
+
+
+def _scaled_masked_sign_sgd(stack, qs, mask, wn, f, hyper):
+    return scaled_masked_sign_vote(stack, qs, mask, wn)
+
+
+KERNEL_SCALED_MASKED_RULES = {
+    "coordinate_median": _scaled_masked_median,
+    "trimmed_mean": _scaled_masked_trimmed_mean,
+    "sign_sgd": _scaled_masked_sign_sgd,
+}
+
+
+def kernel_scaled_supported(name: str) -> bool:
+    """True iff ``name`` dequantizes a quantized arena inside its kernels
+    (both the synchronous and the masked entry)."""
+    return name in KERNEL_SCALED_RULES and name in KERNEL_SCALED_MASKED_RULES
+
+
+def kernel_scaled_aggregate(name: str, stack, qscale, f: int,
+                            hyper: tuple = ()):
+    """stack: (n, P) int8 / fp8 codes, qscale: (n,) fp32 -> (P,) fp32."""
+    return KERNEL_SCALED_RULES[name](stack, qscale, f, dict(hyper))
+
+
+def kernel_scaled_masked_aggregate(name: str, stack, qscale, mask, wn,
+                                   f: int, hyper: tuple = ()):
+    """The masked entry of :func:`kernel_scaled_aggregate` (mask: (n,)
+    {0,1} fp32, wn: (n,) fp32; the engine applies the tot/cnt scale)."""
+    return KERNEL_SCALED_MASKED_RULES[name](stack, qscale, mask, wn, f,
+                                            dict(hyper))

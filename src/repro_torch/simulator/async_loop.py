@@ -19,6 +19,12 @@ Per server step t (one parameter version):
      -> K7 (krum);
   4. one unravel (fp32: the buffer's dtype) and the server optimizer.
 
+``agg_dtype`` (the compressed exchange) acts at delivery, after the
+attack, as in the synchronous step: int8 / float8_e4m3fn quantize the
+delivered fp32 rows per row (the buffer itself stays fp32) and the masked
+engine aggregates codes and scales (K19 / K20 dequantize in registers);
+a float dtype casts them, and the aggregate unravels to that dtype.
+
 The synchronous loop is the degenerate case: a "pure" row (the full
 roster dispatches and delivers with zero staleness) runs the exact
 synchronous step of :mod:`repro_torch.training.step`, so ``train_loop``
@@ -45,7 +51,7 @@ import torch
 
 from repro_torch.core.aggregators import staleness_discount_table
 from repro_torch.core.attacks import get_attack, make_byzantine_mask
-from repro_torch.core.flat import FlatPlan
+from repro_torch.core.flat import FlatPlan, dtype_name, quantize_rows
 from repro_torch.core.momentum import init_momentum, worker_momentum
 from repro_torch.data import label_flip
 from repro_torch.device import make_generator, resolve_device
@@ -121,7 +127,8 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
     ``params`` and ``opt_state`` are updated in place, as in the
     synchronous step.  ``device`` defaults to ``cuda`` and raises when
     CUDA is missing."""
-    from repro_torch.training.step import attack_arena, unsupported
+    from repro_torch.training.step import (attack_arena, exchange_dtype,
+                                           unsupported)
     dev = resolve_device(device)
     if fallback_r:
         raise NotImplementedError(
@@ -130,6 +137,11 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
     why = unsupported(bz, telemetry)
     if why:
         raise NotImplementedError(why)
+    quant, xdt = exchange_dtype(bz)
+    # the aggregate of the fp32 buffer unravels to fp32 leaves, that of a
+    # cast exchange to leaves of its dtype
+    agg_dtype = dtype_name(xdt) if xdt is not None and not quant else (
+        "float32")
     spec = bz.resolve_spec()
     if spec.stateful:
         raise NotImplementedError(
@@ -203,6 +215,12 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
                 sent = torch.empty_like(buffer)
                 attack_arena(attack_fn, gen, plan, buffer, byz_mask,
                              out=sent)
+            # the exchange: per-row codes and scales, or a cast
+            qs = None
+            if quant:
+                sent, qs = quantize_rows(sent, xdt)
+            elif xdt is not None:
+                sent = sent.to(xdt)
             cw = contrib_w.to(device=dev, dtype=torch.float32)
             if bucket is not None:
                 # the live roster packed into the bucket's stack; pad
@@ -210,12 +228,13 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
                 w_b = torch.where(roster_valid, cw[roster_idx],
                                   torch.zeros((), device=dev))
                 rows, rmask, rw = sent[roster_idx], w_b > 0, w_b
+                rqs = None if qs is None else qs[roster_idx]
             else:
-                rows, rmask, rw = sent, cw > 0, cw
-            vec = spec.aggregate_flat(rows, mask=rmask, weights=rw)
-            del rows, sent
-            # the aggregate of the fp32 buffer unravels to fp32 leaves
-            agg = plan.as_dtype("float32").unravel(vec)
+                rows, rmask, rw, rqs = sent, cw > 0, cw, qs
+            vec = spec.aggregate_flat(rows, mask=rmask, weights=rw,
+                                      scale=rqs)
+            del rows, sent, qs, rqs
+            agg = plan.as_dtype(agg_dtype).unravel(vec)
 
             # (4) server-side optimizer
             updates, opt_state = optimizer.update(agg, opt_state, params)

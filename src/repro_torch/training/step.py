@@ -13,6 +13,15 @@ The survey's server-based BGD framework (Algorithm 2), on one card:
      hand-written CUDA kernels;
   5. one unravel, then the server-side optimizer applies the update.
 
+``agg_dtype`` (the compressed exchange): ``"int8"`` or
+``"float8_e4m3fn"`` quantizes the fp32 arena per row after the attack
+(:func:`repro_torch.core.flat.quantize_rows`) and aggregates the codes
+with their row scales, ``spec.aggregate_flat(codes, scale=qs)`` (the
+scaled kernels K18 / K15 dequantize in registers; other rules dequantize
+at engine level).  A float dtype (``"bfloat16"``, ``"float16"``) casts
+the arena to it and runs the rule's usual kernels on that arena; the
+aggregate then unravels to leaves of that dtype, as in the JAX step.
+
 ``bucket`` (elastic membership): gradients are still computed for all n
 agents, but the rule runs over the LIVE roster packed into a (bucket,)
 stack (``roster_idx``, padded by repeating a live slot, and
@@ -20,9 +29,9 @@ stack (``roster_idx``, padded by repeating a live slot, and
 spec.  Each build counts once as ``"train_step"``
 (:mod:`repro_torch.obs.counters`).
 
-Restricted to ``draco_r=0``, no ``agg_dtype``, ``group_size=1``,
-``reshard=False``, stateless specs and static attacks.  Everything else
-raises ``NotImplementedError`` naming the ROADMAP.md slice that brings it.
+Restricted to ``draco_r=0``, ``group_size=1``, ``reshard=False``,
+stateless specs and static attacks.  Everything else raises
+``NotImplementedError`` naming the ROADMAP.md slice that brings it.
 """
 from __future__ import annotations
 
@@ -31,7 +40,8 @@ import torch
 
 from repro_torch.core.aggregators import AggregatorSpec
 from repro_torch.core.attacks import ATTACKS, get_attack, make_byzantine_mask
-from repro_torch.core.flat import FlatPlan
+from repro_torch.core.flat import (QUANT_DTYPES, FlatPlan, dtype_name,
+                                   quantize_rows)
 from repro_torch.core.momentum import worker_momentum
 from repro_torch.device import resolve_device
 from repro_torch.models import loss_fn
@@ -73,8 +83,6 @@ def unsupported(bz: ByzantineConfig, telemetry=False):
     or None."""
     if bz.draco_r:
         return "coded aggregation (draco_r) comes with ROADMAP.md slice 5"
-    if bz.agg_dtype:
-        return "agg_dtype exchange compression comes with ROADMAP.md slice 4"
     if bz.group_size > 1 or bz.reshard:
         return ("group_size / reshard come with ROADMAP.md slice 11 "
                 "(distribution)")
@@ -84,6 +92,24 @@ def unsupported(bz: ByzantineConfig, telemetry=False):
         return (f"attack {bz.attack!r} is not a static attack; the "
                 "defense-aware attacks come with ROADMAP.md slice 6")
     return None
+
+
+def exchange_dtype(bz: ByzantineConfig):
+    """``(quantized, dtype)`` of the config's ``agg_dtype``: a quantized
+    exchange (int8 / float8_e4m3fn codes with a scale per row), a float
+    dtype the arena is cast to, or ``(False, None)`` for none."""
+    if not bz.agg_dtype:
+        return False, None
+    dt = getattr(torch, bz.agg_dtype, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"agg_dtype {bz.agg_dtype!r} is not a torch dtype")
+    if bz.agg_dtype in QUANT_DTYPES:
+        return True, dt
+    if not dt.is_floating_point:
+        raise ValueError(f"agg_dtype {bz.agg_dtype!r}: a cast exchange "
+                         "takes a float dtype (int8 and float8_e4m3fn are "
+                         "quantized per row)")
+    return False, dt
 
 
 def attack_arena(attack_fn, gen, plan: FlatPlan, arena, byz_mask,
@@ -114,6 +140,7 @@ def make_train_step(cfg, bz: ByzantineConfig, optimizer, device=None,
     why = unsupported(bz, telemetry)
     if why:
         raise NotImplementedError(why)
+    quant, xdt = exchange_dtype(bz)
     spec = bz.resolve_spec()
     if bucket is not None or spec.elastic is not None:
         # an elastic master runs as its n_max bucket
@@ -168,13 +195,24 @@ def make_train_step(cfg, bz: ByzantineConfig, optimizer, device=None,
                 attack_arena(attack_fn, gen, plan, arena, byz_mask)
 
             # (4) robust aggregation on the arena (the live roster packed
-            # into its bucket under elastic membership), one unravel
+            # into its bucket under elastic membership), one unravel.  A
+            # quantized exchange sends per-row codes and an fp32 scale
+            # per row, quantized from the fp32 arena; a cast exchange
+            # sends the arena in agg_dtype, and its aggregate unravels to
+            # leaves of that dtype
+            qs = None
+            if quant:
+                arena, qs = quantize_rows(arena, xdt)
+            elif xdt is not None:
+                arena = arena.to(xdt)
+                plan = plan.as_dtype(dtype_name(xdt))
             if bucket is not None:
-                vec = spec.aggregate_flat(arena[roster_idx],
-                                          mask=roster_valid)
+                vec = spec.aggregate_flat(
+                    arena[roster_idx], mask=roster_valid,
+                    scale=None if qs is None else qs[roster_idx])
             else:
-                vec = spec.aggregate_flat(arena)
-            del arena
+                vec = spec.aggregate_flat(arena, scale=qs)
+            del arena, qs
             agg = plan.unravel(vec)
 
             # (5) server-side optimizer

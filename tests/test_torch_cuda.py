@@ -10,7 +10,9 @@ weighted sums (plain and masked, live row or ghost) exact; trimmed means,
 Grams (plain and masked), the imputed mean and general weighted sums
 within rtol = atol = 3e-6.  The selection family (K8-K14) and the sign
 votes (K15, K16) exact: their plain versions order, sum and divide as the
-kernels do.
+kernels do.  The scaled kernels of the compressed exchange (K18-K20, and
+K15 on int8 / fp8 codes) exact, trimmed means within 3e-6: the kernels
+dequantize with the plain versions' one fp32 multiply.
 """
 import math
 
@@ -18,9 +20,13 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.core.flat import quantize_rows
 from repro_torch.kernels.coord_stats import coord_stat_plain
 from repro_torch.kernels.masked import (masked_coord_stat_plain,
                                         masked_sign_vote_plain,
+                                        scaled_coord_stat_plain,
+                                        scaled_masked_coord_stat_plain,
+                                        scaled_masked_sign_vote_plain,
                                         sign_vote_plain)
 from repro_torch.kernels.pairwise import gram_plain, masked_gram_plain
 from repro_torch.kernels.ref import imputed_mean_ref
@@ -110,7 +116,9 @@ def test_cuda_launch_counters_count_launches(cuda_device):
         "masked_coord_stat": 1, "masked_gram": 1, "masked_weighted_sum": 1,
         "cge_select": 0, "multi_krum_order": 0, "iterative_order": 0,
         "ordered_apply": 0, "masked_ordered_apply": 0, "bulyan_coord": 0,
-        "masked_bulyan_coord": 0, "sign_vote": 0, "masked_sign_vote": 0}
+        "masked_bulyan_coord": 0, "sign_vote": 0, "masked_sign_vote": 0,
+        "scaled_coord_stat": 0, "scaled_masked_coord_stat": 0,
+        "scaled_masked_sign_vote": 0}
     coord_stat_plain(g, "median")                  # the plain versions
     masked_coord_stat_plain(g, m, m, "median")
     assert kernels.launch_counts()["coord_stat"] == 1
@@ -398,3 +406,70 @@ def test_cuda_masked_compositions_count_their_launches(cuda_device):
     kernels.reset_launch_counts()
     kernels.kernel_aggregate("sign_sgd", g, 2)
     assert kernels.launch_counts()["sign_vote"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt", ["int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("hazard", [None, "nan", "inf", "zeros"])
+@pytest.mark.parametrize("n", [3, 8, 12, 33])
+def test_cuda_scaled_kernels_match_plain(cuda_device, n, hazard, qdt):
+    """K18, K19 (masks of n - 2, 1, 0 and all arrived), K20 and K15 on the
+    codes against their plain versions, on codes and scales from
+    quantize_rows on the card (an inf row has scale inf; a zero row scale
+    1)."""
+    g = torch.randn((n, 4099), generator=torch.Generator().manual_seed(n))
+    if hazard == "nan":
+        g[1, ::3] = math.nan
+    elif hazard == "inf":
+        g[0, ::4], g[0, 1::4] = math.inf, -math.inf
+    elif hazard == "zeros":
+        g[n - 1] = 0.0
+    codes, qs = quantize_rows(g.to(cuda_device), qdt)
+    b = min(2, (n - 1) // 2)
+    for stat, bb in (("median", 0), ("trimmed_mean", b)):
+        tol = 0 if stat == "median" else TOL
+        torch.testing.assert_close(
+            kernels.scaled_coord_stat(codes, qs, stat, bb),
+            scaled_coord_stat_plain(codes, qs, stat, bb), rtol=tol,
+            atol=tol, equal_nan=True)
+        for case in MASKS:
+            m = mask_of(n, case, cuda_device)
+            torch.testing.assert_close(
+                kernels.scaled_masked_coord_stat(codes, qs, m, m, stat, bb),
+                scaled_masked_coord_stat_plain(codes, qs, m, m, stat, bb),
+                rtol=tol, atol=tol, equal_nan=True)
+    for case in MASKS:
+        m = mask_of(n, case, cuda_device)
+        assert_same(kernels.scaled_masked_sign_vote(codes, qs, m, m),
+                    scaled_masked_sign_vote_plain(codes, qs, m, m))
+    assert_same(kernels.sign_vote(codes), sign_vote_plain(codes))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_scaled_rules_count_their_launches(cuda_device):
+    """A quantized arena through the engine: K18 (median, trimmed), K15
+    (sign_sgd) synchronous, K19 / K20 masked, once each; krum dequantizes
+    and runs its own kernels."""
+    from repro_torch.core.aggregators import make_spec
+    codes, qs = quantize_rows(torch.randn(8, 5000, device=cuda_device),
+                              "int8")
+    m = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    m[[2, 7]] = False
+    want = {"coordinate_median": ("scaled_coord_stat",
+                                  "scaled_masked_coord_stat"),
+            "trimmed_mean": ("scaled_coord_stat",
+                             "scaled_masked_coord_stat"),
+            "sign_sgd": ("sign_vote", "scaled_masked_sign_vote")}
+    for rule, (sync_k, masked_k) in want.items():
+        spec = make_spec(rule, f=F, n=8)
+        for mask, name in ((None, sync_k), (m, masked_k)):
+            kernels.reset_launch_counts()
+            spec.aggregate_flat(codes, mask=mask, scale=qs)
+            counts = kernels.launch_counts()
+            assert counts == {k: int(k == name) for k in counts}, rule
+    kernels.reset_launch_counts()
+    make_spec("krum", f=F, n=8).aggregate_flat(codes, scale=qs)
+    counts = kernels.launch_counts()
+    assert counts["gram"] == counts["krum_select"] == 1
+    assert counts["scaled_coord_stat"] == 0

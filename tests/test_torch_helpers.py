@@ -5,6 +5,7 @@ JAX package runs on the CPU as its own tests run it (Pallas kernels in
 interpret mode).  Weights come from ``repro.models.init_params`` and cross
 through ``repro_torch.convert``.
 """
+import dataclasses
 import functools
 
 import jax
@@ -17,6 +18,7 @@ import repro.simulator as JS
 import repro_torch.optim as topt
 import repro_torch.simulator as TS
 from repro.configs import get_config as jax_get_config
+from repro.core.aggregators import AggregatorSpec as JaxSpec
 from repro.core.aggregators import elastic as jax_elastic
 from repro.core.aggregators import frac as jax_frac
 from repro.core.aggregators import make_spec as jax_make_spec
@@ -26,7 +28,8 @@ from repro.training.step import make_train_step as jax_make_train_step
 from repro_torch.configs import get_config
 from repro_torch.convert import (arena_from_numpy, params_from_numpy,
                                  params_to_numpy)
-from repro_torch.core.aggregators import elastic, frac, make_spec
+from repro_torch.core.aggregators import (AggregatorSpec, elastic, frac,
+                                          make_spec)
 from repro_torch.core.momentum import init_momentum
 from repro_torch.data import SyntheticLM
 from repro_torch.training import ByzantineConfig, make_train_step
@@ -107,25 +110,81 @@ def _torch_recording(opt):
     return topt.Optimizer(opt.init, update)
 
 
-def run_slice(rule, alpha, steps=3, attack="sign_flip", n=N):
+def recording_specs(jspec, tspec, record):
+    """Copies of the two specs whose ``aggregate_flat`` appends, to
+    ``record["jax"]`` / ``record["torch"]``, the numpy (arena, row scales
+    or None, aggregate) of each call: the JAX side through a debug
+    callback out of the jitted step (call ``jax.effects_barrier()`` before
+    reading it)."""
+    record.setdefault("jax", [])
+    record.setdefault("torch", [])
+
+    def raw(a):
+        # int8 / fp8 codes as their bytes (numpy has no fp8 of its own)
+        return a.view(np.uint8) if a.dtype.itemsize == 1 else a
+
+    class JaxRec(JaxSpec):
+        def aggregate_flat(self, stack, mask=None, weights=None, state=None,
+                           scale=None):
+            out = super().aggregate_flat(stack, mask, weights, state, scale)
+            qs = scale if scale is not None else jnp.zeros((0,))
+            jax.debug.callback(
+                lambda a, q, o: record["jax"].append(
+                    (raw(np.asarray(a)), np.asarray(q) if q.size else None,
+                     np.asarray(o))), stack, qs, out)
+            return out
+
+    class TorchRec(AggregatorSpec):
+        def aggregate_flat(self, stack, mask=None, weights=None, state=None,
+                           scale=None):
+            out = super().aggregate_flat(stack, mask, weights, state, scale)
+            record["torch"].append(
+                ((stack.view(torch.uint8) if stack.element_size() == 1
+                  else stack).numpy().copy(),
+                 None if scale is None else scale.numpy().copy(),
+                 out.numpy().copy()))
+            return out
+
+    return (JaxRec(**{f.name: getattr(jspec, f.name)
+                      for f in dataclasses.fields(jspec)}),
+            TorchRec(**{f.name: getattr(tspec, f.name)
+                        for f in dataclasses.fields(tspec)}))
+
+
+def resync_state(jp, js):
+    """The torch parameters and AdamW state of the JAX side's."""
+    return (params_from_numpy(jax.tree.map(np.asarray, jp)),
+            {"step": int(js["step"]),
+             **{k: params_from_numpy(jax.tree.map(np.asarray, js[k]))
+                for k in ("m", "v")}})
+
+
+def run_slice(rule, alpha, steps=3, attack="sign_flip", n=N, agg_dtype="",
+              resync=False, record=None):
     """Run the JAX step (impl="pallas") and the torch step (impl="auto")
-    side by side from the same weights and batches, with ``n`` agents;
-    returns per step (jax loss, torch loss, jax agg, torch agg, jax
-    params, torch params) as numpy."""
+    side by side from the same weights and batches, with ``n`` agents
+    and exchange dtype ``agg_dtype``; returns per step (jax loss, torch
+    loss, jax agg, torch agg, jax params, torch params) as numpy.
+    ``resync``: the torch side starts every step from the JAX side's
+    parameters and optimizer state (for the laws that are discontinuous
+    in the gradients).  ``record``: a dict that collects both specs'
+    ``aggregate_flat`` calls (:func:`recording_specs`)."""
     cfg, jcfg = configs()
     jp = jax.tree.map(jnp.asarray, jax_params_numpy())
     tp = params_from_numpy(jax_params_numpy())
     jo = _jax_recording(jopt.adamw(jopt.constant(LR), eps=EPS))
     to = _torch_recording(topt.adamw(topt.constant(LR), eps=EPS))
-    jstep = jax.jit(jax_make_train_step(jcfg, JaxBz(
-        n_agents=n, f=F, aggregator=jax_make_spec(rule, f=F, impl="pallas",
-                                                  n=n),
-        attack=attack, momentum_alpha=alpha), jo))
+    jspec = jax_make_spec(rule, f=F, impl="pallas", n=n)
     spec = make_spec(rule, f=F, n=n)
     assert spec.impl == "kernel"
+    if record is not None:
+        jspec, spec = recording_specs(jspec, spec, record)
+    jstep = jax.jit(jax_make_train_step(jcfg, JaxBz(
+        n_agents=n, f=F, aggregator=jspec, attack=attack,
+        momentum_alpha=alpha, agg_dtype=agg_dtype), jo))
     tstep = make_train_step(cfg, ByzantineConfig(
         n_agents=n, f=F, aggregator=spec, attack=attack,
-        momentum_alpha=alpha), to, device="cpu")
+        momentum_alpha=alpha, agg_dtype=agg_dtype), to, device="cpu")
     js, ts = jo.init(jp), to.init(tp)
     jm = tm = None
     if alpha:
@@ -137,9 +196,14 @@ def run_slice(rule, alpha, steps=3, attack="sign_flip", n=N):
         tb, jb = batch_np(100 + step, n)
         jp, js, jm, jmet = jstep(jp, js, jm, jb, jax.random.PRNGKey(7))
         tp, ts, tm, tmet = tstep(tp, ts, tm, tb)
+        jax.effects_barrier()
         out.append((float(jmet["loss"]), float(tmet["loss"]),
                     flat_np(js["agg"]), flat_np(params_to_numpy(ts["agg"])),
                     flat_np(jp), flat_np(params_to_numpy(tp))))
+        if resync:
+            tp, ts = resync_state(jp, js)
+            if alpha:
+                tm = arena_from_numpy(jax.tree.map(np.asarray, jm))
     return out
 
 
@@ -188,7 +252,8 @@ def in_flight_np(seed, n=N):
 
 
 def run_async(rule, alpha, trace="stragglers", steps=4,
-              attack="sign_flip", n=N, quorum=6, resync=False):
+              attack="sign_flip", n=N, quorum=6, resync=False, agg_dtype="",
+              record=None):
     """Per step (jax loss, torch loss, jax agg, torch agg, jax params,
     torch params, jax buffer, torch buffer) as flat numpy, the two steps
     fed the same trace rows, batches, weights and starting buffer.  ``n``
@@ -197,7 +262,8 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
     parameters, optimizer state, momentum and buffer, so that each step is
     held from one state (for the rules whose aggregate is discontinuous
     in the gradients, where a flipped coordinate would otherwise move
-    every later step apart)."""
+    every later step apart).  ``agg_dtype`` and ``record`` as in
+    :func:`run_slice`."""
     cfg, jcfg = configs()
     jp = jax.tree.map(jnp.asarray, jax_params_numpy())
     tp = params_from_numpy(jax_params_numpy())
@@ -215,10 +281,12 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
         sims = (straggler_sim(JS, quorum), straggler_sim(TS, quorum))
         rows = range(steps)
     assert tspec.impl == "kernel"
+    if record is not None:
+        jspec, tspec = recording_specs(jspec, tspec, record)
     jbz = JaxBz(n_agents=n, f=F, aggregator=jspec, attack=attack,
-                momentum_alpha=alpha)
+                momentum_alpha=alpha, agg_dtype=agg_dtype)
     tbz = ByzantineConfig(n_agents=n, f=F, aggregator=tspec, attack=attack,
-                          momentum_alpha=alpha)
+                          momentum_alpha=alpha, agg_dtype=agg_dtype)
     jtr = JS.plan_arrivals(sims[0], n, rows[-1] + 1)
     ttr = TS.plan_arrivals(sims[1], n, rows[-1] + 1)
     jw, tw = (JS.staleness_weights(sims[0], jtr),
@@ -258,6 +326,7 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
         tp, ts, tm, tbuf, _, tmet = tsteps[b](
             tp, ts, tm, tbuf, {}, tb, None, refresh,
             torch.from_numpy(tw[r]), False, *extra_t)
+        jax.effects_barrier()
         out.append((float(jmet["loss"]), float(tmet["loss"]),
                     flat_np(js["agg"]), flat_np(params_to_numpy(ts["agg"])),
                     flat_np(jp), flat_np(params_to_numpy(tp)),
@@ -265,10 +334,7 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
                                     for x in leaves_np(jbuf)], axis=1),
                     tbuf.numpy().copy()))
         if resync:
-            tp = params_from_numpy(jax.tree.map(np.asarray, jp))
-            ts = {"step": int(js["step"]),
-                  **{k_: params_from_numpy(jax.tree.map(np.asarray, js[k_]))
-                     for k_ in ("m", "v")}}
+            tp, ts = resync_state(jp, js)
             tbuf = arena_from_numpy(jax.tree.map(np.asarray, jbuf))
             if alpha:
                 tm = arena_from_numpy(jax.tree.map(np.asarray, jm))
@@ -293,7 +359,7 @@ def check_async(rule, alpha, trace="stragglers", n=N, quorum=6):
                                    err_msg=msg)
 
 
-def check_async_resynced(rule, n=N, quorum=6, share=1e-5):
+def check_async_resynced(rule, n=N, quorum=6, share=1e-5, agg_dtype=""):
     """For the rules whose aggregate is discontinuous in the gradients
     (bulyan, ROADMAP.md P8; sign_sgd, P11): the two frameworks' per-agent
     gradients differ by about an ulp, so a few coordinates of the
@@ -304,7 +370,8 @@ def check_async_resynced(rule, n=N, quorum=6, share=1e-5):
     post-step parameters within 1e-4 on all but ``share`` of the
     coordinates."""
     for step, (jl, tl, ja, ta, jpar, tpar, jbuf, tbuf) in enumerate(
-            run_async(rule, 0.0, n=n, quorum=quorum, resync=True)):
+            run_async(rule, 0.0, n=n, quorum=quorum, resync=True,
+                      agg_dtype=agg_dtype)):
         msg = f"{rule} n={n} step {step}"
         np.testing.assert_allclose(tl, jl, rtol=LOGIT_TOL, atol=LOGIT_TOL,
                                    err_msg=msg)
@@ -315,3 +382,73 @@ def check_async_resynced(rule, n=N, quorum=6, share=1e-5):
             flipped = ~np.isclose(ours, ref, rtol=GRAD_TOL, atol=GRAD_TOL)
             assert flipped.sum() <= share * ours.size, (
                 msg, name, int(flipped.sum()))
+
+
+# ---------------------------------------------------------------------------
+# the compressed exchange (agg_dtype int8 / float8_e4m3fn)
+
+# ROADMAP.md P14: quantization is discontinuous in the gradients.  The two
+# frameworks' per-agent gradients differ by about an ulp, so where x /
+# scale sits on a rounding boundary a code moves by one step.  In the first
+# synchronous smoke step 21 of 11,544,576 int8 codes move (1.8e-6) and 628
+# float8_e4m3fn codes (5.4e-5: e4m3 rounds every value to 3 mantissa
+# bits, so far more values sit near a boundary than under int8's fixed
+# step).  The bar on the share of moved codes is set above those; the
+# aggregate and the parameters follow the moved codes (2-6 of 1,443,072
+# coordinates under int8, 7-12 under fp8), so their bar scales with it
+# too.  Every aggregate coordinate that moves must sit where a code moved.
+CODE_SHARE = {"int8": 1e-5, "float8_e4m3fn": 1e-4}
+AGG_SHARE = {"int8": 1e-5, "float8_e4m3fn": 5e-5}
+
+
+def code_ordinals(raw, agg_dtype):
+    """int8 codes, or e4m3 bytes mapped onto the ordered code grid (+-0
+    both 0), as int64: neighbouring codes differ by 1."""
+    if agg_dtype == "int8":
+        return raw.view(np.int8).astype(np.int64)
+    mag = (raw & 0x7F).astype(np.int64)
+    return np.where(raw & 0x80, -mag, mag)
+
+
+def check_quantized(rule, agg_dtype, loop="sync"):
+    """The compressed slice held to JAX: each step starts from the JAX
+    side's state (``resync``), since a moved code moves every later step
+    apart.  Every step: the loss within 1e-5 (and the async buffer within
+    1e-4).  The first step: the row scales within 1e-5 relative; the codes
+    equal on all but ``CODE_SHARE`` of the values, each moved code one
+    step from JAX's; the aggregate and the parameters within 1e-4 on all
+    but ``AGG_SHARE`` of the coordinates, and every aggregate coordinate
+    outside the bar one where a code moved."""
+    rec = {}
+    if loop == "sync":
+        out = run_slice(rule, 0.0, agg_dtype=agg_dtype, resync=True,
+                        record=rec)
+    else:
+        out = run_async(rule, 0.0, agg_dtype=agg_dtype, resync=True,
+                        record=rec)
+    assert len(rec["jax"]) == len(rec["torch"]) == len(out)
+    for step, o in enumerate(out):
+        msg = f"{rule} {agg_dtype} {loop} step {step}"
+        np.testing.assert_allclose(o[1], o[0], rtol=LOGIT_TOL,
+                                   atol=LOGIT_TOL, err_msg=msg)
+        if loop != "sync":
+            np.testing.assert_allclose(o[7], o[6], rtol=GRAD_TOL,
+                                       atol=GRAD_TOL, err_msg=msg)
+    _, _, ja, ta, jpar, tpar = out[0][:6]
+    (jc, jqs, jagg), (tc, tqs, tagg) = rec["jax"][0], rec["torch"][0]
+    assert jqs is not None and tqs is not None
+    assert jc.shape == tc.shape and jc.dtype == tc.dtype == np.uint8
+    np.testing.assert_allclose(tqs, jqs, rtol=1e-5, atol=0)
+    moved = jc != tc
+    assert moved.sum() <= CODE_SHARE[agg_dtype] * moved.size, (
+        rule, agg_dtype, int(moved.sum()))
+    steps = np.abs(code_ordinals(jc, agg_dtype)
+                   - code_ordinals(tc, agg_dtype))
+    assert steps.max(initial=0) <= 1, (rule, agg_dtype, int(steps.max()))
+    for name, ours, ref in (("aggregate", ta, ja), ("params", tpar, jpar)):
+        off = ~np.isclose(ours, ref, rtol=GRAD_TOL, atol=GRAD_TOL)
+        assert off.sum() <= AGG_SHARE[agg_dtype] * ours.size, (
+            name, int(off.sum()))
+    off = ~np.isclose(tagg, jagg, rtol=GRAD_TOL, atol=GRAD_TOL)
+    assert not (off & ~moved.any(axis=0)).any(), (
+        "an aggregate coordinate moved where no code did")

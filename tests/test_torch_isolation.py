@@ -165,7 +165,7 @@ def test_cli_runs_bulyan_on_cpu_when_asked(capsys):
 def test_unported_options_raise_and_name_the_roadmap():
     cfg, ds, bz, opt = _smoke_setup()
     import dataclasses
-    for kw in ({"draco_r": 2}, {"agg_dtype": "int8"}, {"group_size": 2},
+    for kw in ({"draco_r": 2}, {"reshard": True}, {"group_size": 2},
                {"attack": "spec_alie"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_train_step(cfg, dataclasses.replace(bz, **kw), opt,

@@ -240,7 +240,8 @@ def test_make_spec_resolves_and_rejects_impls():
         make_spec("mean", impl="kernel")
     with pytest.raises(ValueError):
         make_spec("trimmed_mean", f=1, gamma=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # scale= goes with a quantized arena (int8 / fp8 codes) only
+    with pytest.raises(ValueError, match="quantized"):
         make_spec("krum", f=1).aggregate_flat(torch.zeros(4, 3),
                                               scale=torch.ones(4))
 

@@ -390,5 +390,5 @@ def test_masked_engine_on_trees_matches_jax(rule):
                            np.asarray(r).astype(np.float32), rule,
                            "bfloat16", ours_impl)
         mixed = {"a": ttree["a"], "b": {"c": t(c)}}
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        with pytest.raises(NotImplementedError, match="slice 4b"):
             spec.aggregate(mixed, mask=torch.from_numpy(mask), weights=t(w))

@@ -172,5 +172,8 @@ def test_sign_vote_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         kernels.masked_sign_vote(torch.zeros(4, 8), torch.ones(3),
                                  torch.ones(3))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        make_spec("sign_sgd", native_dtype=True)
+    # native_dtype is an impl key of the coordinate-wise rules only: the
+    # flat path ignores it, so the spec is the one built without it
+    assert make_spec("sign_sgd", native_dtype=True) == make_spec("sign_sgd")
+    with pytest.raises(ValueError, match="native_dtype"):
+        make_spec("krum", f=1, native_dtype=True)
