@@ -149,6 +149,40 @@ slice 4a), adds:
                codes and scales bitwise equal, equal losses, median, sign
                and krum exact, trimmed mean within 3e-6.
 
+sparse_mean (ROADMAP.md slice 4b) and the legacy ``ops`` sort paths add:
+
+2f. sparse kernels — K17 sparse_masked_weighted_mean and K21
+               scaled_sparse_masked_weighted_mean against their plain
+               versions at n = 8, P = 124,668,672, on the real (n, P) bf16
+               arena of one sparse_mean step (the embedding rows a batch
+               does not touch are 0: not sent; the share of columns nobody
+               sent is printed): bf16 with mask and weights all ones, fp32
+               with 6, 1 and 0 of 8 live and raw staleness weights, int8
+               and fp8 codes of that arena; the NaN / +-inf / -0.0 /
+               unsent / dead-row / inf-scale hazards at a small width;
+               times, a partial yardstick and bounds;
+2g. coord_sort — K23 against its plain version on that arena in bf16 and
+               fp32 at full width, NaN and +-inf rows and n = 3, 8, 11 at
+               a small width; then the ``ops`` legacy paths
+               (kernel_coordinate_median, kernel_trimmed_mean,
+               kernel_pairwise_sq_dists) at full width with their launch
+               counts (K23 twice, K2 once), against the gather laws; times
+               against ``torch.sort(dim=0)`` and the bound;
+3s. sparse train — sparse_mean (f = 2, sign_flip: the rule ignores f)
+               through ``train_loop``: 1 warm-up and 3 timed synchronous
+               steps, 1 + 4 async steps under the phase-3b stragglers,
+               and 1 + 2 steps each of int8 and fp8 sync and int8 async;
+               the launch counts must show one K17 (compressed: one K21)
+               a step and no other kernel; a traced sync and async step;
+4s. sparse kernel vs gather — one full-width step each (sync, async,
+               int8 sync) with impl="kernel" against impl="gather" from
+               the same state: the same arena, codes and loss, aggregates
+               within 3e-6; then the masked tree of mixed leaf dtypes
+               (bf16 and fp32) on both impls at a small width: median,
+               sign and krum exact, trimmed mean and sparse_mean within
+               3e-6 (bf16 leaves 2e-2), one masked kernel a dtype (krum:
+               the imputed fallback with its warning).
+
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
 not available.
@@ -161,6 +195,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -226,6 +261,14 @@ SOURCES = {
         "src/repro/kernels/masked.py:171"),
     "scaled_masked_sign_vote": ("src/repro_torch/kernels/csrc/sign_vote.cu",
                                 "src/repro/kernels/masked.py:207"),
+    "sparse_masked_weighted_mean": (
+        "src/repro_torch/kernels/csrc/sparse_wmean.cu",
+        "src/repro/kernels/wsum.py:186"),
+    "scaled_sparse_masked_weighted_mean": (
+        "src/repro_torch/kernels/csrc/sparse_wmean.cu",
+        "src/repro/kernels/wsum.py:227"),
+    "coord_sort": ("src/repro_torch/kernels/csrc/coord_sort.cu",
+                   "src/repro/kernels/coord_stats.py:53"),
 }
 SYNC_KERNELS = ("coord_stat", "gram", "krum_select", "weighted_sum",
                 "sign_vote")
@@ -276,6 +319,13 @@ QUANT_STEPS = 2
 # the rules whose quantized arena is dequantized at engine level (a count
 # per step, read in phase 3x)
 DEQUANT_RULES = ("krum",)
+# sparse_mean (phase 3s): the kernel of one step, sync and masked, on a
+# float arena and on codes
+K17, K21 = "sparse_masked_weighted_mean", "scaled_sparse_masked_weighted_mean"
+SPARSE_SYNC = {"sparse_mean": (N, {}, (K17,))}
+SPARSE_ASYNC = {"sparse_mean": (N, 6, {}, (K17,))}
+SPARSE_QUANT = {"sparse_mean": (N, {}, (K21,))}
+SPARSE_AQUANT = {"sparse_mean": (N, 6, {}, (K21,))}
 
 
 def emit(phase, **kw):
@@ -1506,6 +1556,305 @@ def scaled_hazard_checks():
 
 
 # ---------------------------------------------------------------------------
+# phase 2f
+
+
+def real_arena(cfg):
+    """The (n, P) bf16 arena that one full-width synchronous sparse_mean
+    step (seed 7) hands to its aggregation, after the attack: a real
+    batch's gradients, so the embedding rows the batch does not touch are
+    0 (not sent)."""
+    from repro_torch.core.aggregators import make_spec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, constant
+    from repro_torch.training import ByzantineConfig, make_train_step
+
+    gen = make_generator(7, DEVICE)
+    params = init_params(cfg, gen)
+    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT)
+    store = {}
+    bz = ByzantineConfig(n_agents=N, f=F, aggregator=recorded(
+        make_spec("sparse_mean", f=F, n=N), store), attack="sign_flip",
+        remat=True)
+    opt = adamw(constant(1e-4))
+    step = make_train_step(cfg, bz, opt, device=DEVICE)
+    step(params, opt.init(params), None, ds.batch(ds.draw_starts(gen)))
+    arena = store["kernel"][0]
+    del params, store, step
+    torch.cuda.empty_cache()
+    sent = arena != 0
+    senders = sent.sum(0)
+    emit("sparse_arena", shape=list(arena.shape),
+         dtype=str(arena.dtype).replace("torch.", ""),
+         nobody_sent_share=float((senders == 0).float().mean()),
+         one_sender_share=float((senders == 1).float().mean()),
+         sent_share_per_row=sent.float().mean(1).tolist())
+    del sent, senders
+    return arena
+
+
+SPARSE_YARDSTICK = ("torch.sum(g, 0, dtype=float32) / "
+                    "torch.count_nonzero(g, 0): a partial yardstick (two "
+                    "calls, every row live with unit weight, no zero guard)")
+
+
+def sparse_kernel_checks(x):
+    """K17 and K21 on the real arena ``x`` (n = 8, bf16): K17 on it with
+    mask and weights all ones (the synchronous step), on its fp32 copy
+    with 6, 1 and 0 of 8 live and raw staleness weights (the async
+    buffer); K21 on its int8 and fp8 codes, all live and 6, 1, 0 of 8.
+    Exact against the plain versions.  The summary takes the bf16 sync
+    case (K17) and the int8 sync case (K21)."""
+    from repro_torch import kernels
+    from repro_torch.core.flat import quantize_rows
+    from repro_torch.kernels.wsum import (
+        scaled_sparse_masked_weighted_mean_plain,
+        sparse_masked_weighted_mean_plain)
+
+    P = x.shape[1]
+    summary = {K17: {"max_abs_err": 0.0}, K21: {"max_abs_err": 0.0}}
+    ones = torch.ones(N, device=DEVICE)
+
+    def case(name, fn, plain, g, m, w, bytes_per, main, label, **extra):
+        live = int((m > 0.5).sum())
+        out = fn()
+        err = max_abs_err(out, plain())
+        ok = err == 0.0 and (live > 0 or not bool(out.any()))
+        del out
+        kw = {}
+        if live in (N, 6):
+            kw = timing(fn, plain, 10, 2, live * P * bytes_per + 4 * P
+                        + 8 * N, 5 * live * P,
+                        library=((lambda: torch.sum(g, 0, dtype=torch.float32)
+                                  / torch.count_nonzero(g, 0))
+                                 if name == K17 else None),
+                        label=SPARSE_YARDSTICK if name == K17 else None)
+        check(name, ok, case=label, shape=[N, P], live=live,
+              max_abs_diff=err, exact=err == 0.0, **extra, **kw)
+        summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
+                                           err)
+        if main:
+            summary[name].update(ms=kw["kernel_ms"], plain_ms=kw["plain_ms"],
+                                 library_ms=None, bound_ms=kw["bound_ms"],
+                                 bound_by=kw["bound_by"])
+
+    # K17 on the synchronous step's bf16 arena
+    case(K17, lambda: kernels.sparse_masked_weighted_mean(x, ones, ones),
+         lambda: sparse_masked_weighted_mean_plain(x, ones, ones), x, ones,
+         ones, 2, True, "sync bf16", dtype="bfloat16")
+    xf = x.float()
+    for live in (6, 1, 0):
+        m = arrival_mask(live)
+        w, _ = discount_weights(m)
+        case(K17, lambda: kernels.sparse_masked_weighted_mean(xf, m, w),
+             lambda: sparse_masked_weighted_mean_plain(xf, m, w), xf, m, w,
+             4, False, "masked fp32, raw staleness weights",
+             dtype="float32")
+    for qdt in QUANT:
+        codes, qs = quantize_rows(xf, qdt)
+        for live in (N, 6, 1, 0):
+            m = arrival_mask(live)
+            w = ones if live == N else discount_weights(m)[0]
+            case(K21, lambda: kernels.scaled_sparse_masked_weighted_mean(
+                codes, qs, m, w),
+                lambda: scaled_sparse_masked_weighted_mean_plain(
+                    codes, qs, m, w), codes, m, w, 1,
+                qdt == "int8" and live == N, "sync" if live == N else
+                "masked, raw staleness weights", dtype=qdt,
+                nobody_sent_share=float(
+                    (~(codes.view(torch.uint8) & 0x7F).bool().any(0))
+                    .float().mean()) if live == N else None)
+        del codes, qs
+        torch.cuda.empty_cache()
+    del xf
+    torch.cuda.empty_cache()
+    sparse_hazard_checks()
+    return summary
+
+
+def sparse_hazard_checks():
+    """K17 and K21 at a small width, n = 3, 8, 11, every live count: an inf
+    or NaN in a live row of weight 0 (unsent), a live NaN (sent: its
+    column NaN), -0.0 (not sent), a dead row of NaN, an all-zero column
+    (an exact 0); on codes NaN rows, an inf row (scale inf: NaN columns
+    wherever it is live) and a zero row.  Exact against the plain
+    versions."""
+    from repro_torch import kernels
+    from repro_torch.core.flat import quantize_rows
+    from repro_torch.kernels.wsum import (
+        scaled_sparse_masked_weighted_mean_plain,
+        sparse_masked_weighted_mean_plain)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    d = 4099
+    for n in (3, 8, 11):
+        base = torch.randn((n, d), generator=gen, device=DEVICE)
+        base = torch.where(torch.rand((n, d), generator=gen, device=DEVICE)
+                           < 0.5, torch.zeros((), device=DEVICE), base)
+        base[:, :7] = 0.0
+        masks = [arrival_mask(k, n) for k in (n, n - 1, 1, 0)]
+        for hazard in ("unsent_nonfinite", "live_nan", "neg_zero",
+                       "dead_nan"):
+            for dtype in (torch.float32, torch.bfloat16):
+                errs, props = [], True
+                for m in masks:
+                    w, _ = discount_weights(m)
+                    g = base.clone()
+                    live = int((m > 0.5).sum())
+                    if hazard == "unsent_nonfinite" and live:
+                        w[0] = 0.0
+                        g[0, 8::3], g[0, 9::3] = math.inf, math.nan
+                    elif hazard == "live_nan" and live:
+                        g[live - 1, 8::5] = math.nan
+                    elif hazard == "neg_zero":
+                        g[:, 9::4] = -0.0
+                    elif hazard == "dead_nan" and live < n:
+                        g[n - 1] = math.nan
+                    g = g.to(dtype)
+                    out = kernels.sparse_masked_weighted_mean(g, m, w)
+                    errs.append(max_abs_err(
+                        out, sparse_masked_weighted_mean_plain(g, m, w)))
+                    props &= not bool(out[:7].any())
+                    if hazard == "live_nan" and live:
+                        props &= bool(torch.isnan(out[8::5]).all())
+                    elif hazard != "live_nan":
+                        props &= bool(torch.isfinite(out).all())
+                torch.cuda.synchronize()
+                check("sparse_hazards", props and max(errs) == 0.0,
+                      of=K17, hazard=hazard, n=n,
+                      dtype=str(dtype).replace("torch.", ""), shape=[n, d],
+                      max_abs_diff=max(errs))
+        for hazard in ("nan", "inf", "zero_row"):
+            g = base.clone()
+            if hazard == "nan":
+                g[min(1, n - 1), ::3] = math.nan
+            elif hazard == "inf":
+                g[0, 8::4], g[0, 9::4] = math.inf, -math.inf
+            else:
+                g[n - 1] = 0.0
+            for qdt in QUANT:
+                codes, qs = quantize_rows(g, qdt)
+                errs, props = [], True
+                for m in masks + [arrival_mask(n - 1, n).flip(0)]:
+                    out = kernels.scaled_sparse_masked_weighted_mean(
+                        codes, qs, m, m)
+                    errs.append(max_abs_err(
+                        out, scaled_sparse_masked_weighted_mean_plain(
+                            codes, qs, m, m)))
+                    if hazard == "inf" and float(m[0]) > 0.5:
+                        props &= bool(torch.isnan(out).all())
+                    elif hazard != "nan":
+                        props &= bool(torch.isfinite(out).all())
+                torch.cuda.synchronize()
+                check("sparse_hazards", props and max(errs) == 0.0,
+                      of=K21, hazard=hazard, n=n, dtype=qdt,
+                      shape=[n, d], max_abs_diff=max(errs))
+
+
+# ---------------------------------------------------------------------------
+# phase 2g
+
+
+def sort_checks(x):
+    """K23 on the real arena ``x`` (bf16, and its fp32 copy) against its
+    plain version, exact; the hazards at a small width; then the ``ops``
+    legacy paths at full width, their launches counted from 0 (the drive
+    of this entry point: K23 twice, K2 once), against the gather laws.
+    Returns (summary, launch counts of the drive)."""
+    from repro_torch import kernels
+    from repro_torch.core.aggregators import trim_count
+    from repro_torch.core.filters import dense
+    from repro_torch.kernels.coord_stats import coord_sort_plain
+
+    P = x.shape[1]
+    summary = {"coord_sort": {"max_abs_err": 0.0}}
+    for g in (x, x.float()):
+        dname = str(g.dtype).replace("torch.", "")
+        out = kernels.coord_sort(g)
+        err = max_abs_err(out, coord_sort_plain(g))
+        del out
+        torch.cuda.empty_cache()
+        lib, label = ((lambda: torch.sort(g, dim=0), "torch.sort(g, dim=0)")
+                      if g.dtype == torch.float32 else
+                      (lambda: torch.sort(g.float(), dim=0),
+                       "torch.sort(g.float(), dim=0)"))
+        kw = timing(lambda: kernels.coord_sort(g),
+                    lambda: coord_sort_plain(g), 5, 2,
+                    N * P * g.element_size() + N * P * 4,
+                    N * (N - 1) // 2 * 2 * P, library=lib, label=label)
+        check("coord_sort", err == 0.0, dtype=dname, shape=[N, P],
+              max_abs_diff=err, exact=err == 0.0, **kw)
+        note(summary, "coord_sort", err, g is x and kw)
+        torch.cuda.empty_cache()
+    sort_hazard_checks()
+    b = trim_count(N, F, None)
+    kernels.reset_launch_counts()
+    med = kernels.kernel_coordinate_median(x)
+    tm = kernels.kernel_trimmed_mean(x, b)
+    d2 = kernels.kernel_pairwise_sq_dists(x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {k: {"coord_sort": 2, "gram": 1}.get(k, 0) for k in counts}
+    xf = x.float()
+    err_med = max_abs_err(med, dense.coordinate_median(xf))
+    tm_ref = dense.trimmed_mean(xf, F)
+    tm_ok = bool(torch.allclose(tm, tm_ref, rtol=TOL, atol=TOL))
+    d2_ref = dense.pairwise_sq_dists(xf)
+    sq = torch.sum(torch.square(xf), dim=1)
+    scale = sq[:, None] + sq[None, :]
+    d2_ok = bool(((d2 - d2_ref).abs() <= TOL * scale).all())
+    ok = counts == want and err_med == 0.0 and tm_ok and d2_ok
+    emit("ops_sort_paths", ok=ok, shape=[N, P], launches=counts,
+         median_max_abs_diff=err_med,
+         trimmed_max_abs_diff=max_abs_err(tm, tm_ref), trimmed_b=b,
+         sq_dists_max_abs_diff=max_abs_err(d2, d2_ref),
+         ms={"kernel_coordinate_median": time_ms(
+             lambda: kernels.kernel_coordinate_median(x), 3),
+             "kernel_trimmed_mean": time_ms(
+                 lambda: kernels.kernel_trimmed_mean(x, b), 3),
+             "kernel_pairwise_sq_dists": time_ms(
+                 lambda: kernels.kernel_pairwise_sq_dists(x), 3)})
+    if not ok:
+        fail(f"ops sort paths: launches {counts} (expected {want}), median "
+             f"{err_med}, trimmed {tm_ok}, distances {d2_ok}")
+    del xf, med, tm, d2, tm_ref
+    torch.cuda.empty_cache()
+    return summary, counts
+
+
+def sort_hazard_checks():
+    """K23 at a small width, n = 3, 8, 11, fp32 and bf16: NaN rows and
+    spots, +-inf rows, ties; exact against the plain version."""
+    from repro_torch import kernels
+    from repro_torch.kernels.coord_stats import coord_sort_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    d = 4099
+    for n in (3, 8, 11):
+        for hazard in ("nan_row", "spots", "inf_rows", "ties"):
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.randn((n, d), generator=gen, device=DEVICE)
+                if hazard == "nan_row":
+                    g[n // 2] = math.nan
+                elif hazard == "spots":
+                    g[1, ::7], g[0, 3::11] = math.nan, math.inf
+                    g[n - 1, 5::13] = -math.inf
+                elif hazard == "inf_rows":
+                    g[0], g[n - 1] = math.inf, -math.inf
+                else:
+                    g[1] = g[0]
+                    g[:, ::4] = torch.round(g[:, ::4])
+                g = g.to(dtype)
+                err = max_abs_err(kernels.coord_sort(g), coord_sort_plain(g))
+                torch.cuda.synchronize()
+                check("sort_hazards", err == 0.0, hazard=hazard, n=n,
+                      dtype=str(dtype).replace("torch.", ""), shape=[n, d],
+                      max_abs_diff=err)
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4
 
 
@@ -2188,12 +2537,112 @@ def phase_masked_vs_gather(cfg, table):
     torch.cuda.empty_cache()
 
 
+def phase_sparse_vs_gather(cfg):
+    """Phase 4s: sparse_mean with impl="kernel" against impl="gather" from
+    the same state: one full-width synchronous step (seed 8), one int8
+    synchronous step, one async step (seed 9, row 2 of the straggler
+    trace) (:func:`compare_impls`); then the mixed-dtype masked tree."""
+    from repro_torch.core.aggregators import make_spec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.models import init_params
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    gen = make_generator(8, DEVICE)
+    base = init_params(cfg, gen)
+    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT)
+    batch = ds.batch(ds.draw_starts(gen))
+    store = {}
+    for qdt in ("", "int8"):
+        losses = sync_pair(cfg, "sparse_mean", N, {}, base, batch, store,
+                           agg_dtype=qdt)
+        compare_impls("sparse_vs_gather", "sparse_mean", N, {}, store,
+                      losses, agg_dtype=qdt or None, loop="sync")
+    del base, batch
+    torch.cuda.empty_cache()
+    setup = async_setup(cfg, 9)
+    store, losses = async_pair(
+        cfg, lambda impl: make_spec("sparse_mean", f=F, impl=impl, n=N), N,
+        *setup)
+    compare_impls("sparse_vs_gather", "sparse_mean", N, {}, store, losses,
+                  loop="async", arrived=int((setup[-1] > 0).sum()))
+    torch.use_deterministic_algorithms(False)
+    del setup
+    torch.cuda.empty_cache()
+    mixed_tree_checks()
+
+
+# the kernels each rule's kernel impl launches on a masked bf16 + fp32 tree
+MIXED_TREE_KERNELS = {
+    "coordinate_median": {"masked_coord_stat": 2},
+    "trimmed_mean": {"masked_coord_stat": 2},
+    "sign_sgd": {"masked_sign_vote": 2},
+    "sparse_mean": {K17: 2},
+    "krum": {"gram": 1, "krum_select": 1, "weighted_sum": 1}}
+
+
+def mixed_tree_checks():
+    """The masked ``spec.aggregate`` on a tree of bf16 and fp32 leaves (6
+    of 8 arrived, staleness weights) at a small width, kernel against
+    gather: median, sign and krum exact, trimmed mean and sparse_mean
+    within 3e-6 (bf16 leaves 2e-2: one rounding after a reassociated sum);
+    the kernel impl launches one masked kernel per leaf dtype (krum: the
+    imputed fallback, K2 -> K3 -> K4 once, with its one warning), the
+    gather impl none."""
+    from repro_torch import kernels
+    from repro_torch.core.aggregators import make_spec
+
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+
+    def leaf(shape, dtype):
+        x = torch.randn((N,) + shape, generator=gen, device=DEVICE) * 1e-3
+        keep = torch.rand((N,) + shape, generator=gen, device=DEVICE) < 0.6
+        return torch.where(keep, x, torch.zeros((), device=DEVICE)).to(dtype)
+
+    tree = {"a": leaf((64, 33), torch.bfloat16),
+            "b": {"c": leaf((1000,), torch.float32),
+                  "e": leaf((7, 129), torch.bfloat16)}}
+    m = arrival_mask(6).bool()
+    w, _ = discount_weights(m.float())
+    for rule, want in MIXED_TREE_KERNELS.items():
+        outs, counts, warned = {}, {}, {}
+        for impl in ("kernel", "gather"):
+            kernels.reset_launch_counts()
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                outs[impl] = make_spec(rule, f=F, impl=impl, n=N).aggregate(
+                    tree, mask=m, weights=w)
+            torch.cuda.synchronize()
+            counts[impl] = {k: v for k, v in kernels.launch_counts().items()
+                            if v}
+            warned[impl] = sum("mixed dtypes" in str(r.message) for r in rec)
+        errs, ok = {}, True
+        for key, k_leaf, g_leaf in (
+                ("a", outs["kernel"]["a"], outs["gather"]["a"]),
+                ("b.c", outs["kernel"]["b"]["c"], outs["gather"]["b"]["c"]),
+                ("b.e", outs["kernel"]["b"]["e"], outs["gather"]["b"]["e"])):
+            errs[key] = max_abs_err(k_leaf, g_leaf)
+            tol = TOL if k_leaf.dtype == torch.float32 else 2e-2
+            ok &= (k_leaf.dtype == g_leaf.dtype and (
+                errs[key] == 0.0 if rule in EXACT_RULES else
+                bool(torch.allclose(k_leaf.float(), g_leaf.float(),
+                                    rtol=tol, atol=tol))))
+        ok &= counts["kernel"] == want and not counts["gather"]
+        ok &= warned == {"kernel": int(rule == "krum"), "gather": 0}
+        emit("mixed_tree", rule=rule, ok=ok, max_abs_diff=errs,
+             launches=counts, fallback_warnings=warned)
+        if not ok:
+            fail(f"mixed-dtype tree {rule}: errors {errs}, launches {counts} "
+                 f"(kernel impl expected {want}), warnings {warned}")
+
+
 OUR_KERNELS = ("coord_stat_kernel", "gram_reg_kernel", "gram_partial_kernel",
                "gram_finish_kernel", "krum_select_kernel", "wsum_kernel",
                "masked_wsum_kernel", "cge_select_kernel",
                "multi_krum_order_kernel", "iterative_order_kernel",
                "ordered_apply_kernel", "bulyan_coord_kernel",
-               "sign_vote_kernel")
+               "sign_vote_kernel", "sparse_wmean_kernel",
+               "coord_sort_kernel")
 
 
 def device_busy(prof):
@@ -2313,6 +2762,12 @@ def main():
     summary.update(selection_kernel_checks(num_params(cfg)))
     summary.update(masked_selection_kernel_checks(num_params(cfg)))
     summary.update(scaled_kernel_checks(num_params(cfg)))
+    arena = real_arena(cfg)
+    summary.update(sparse_kernel_checks(arena))
+    sort_summary, sort_counts = sort_checks(arena)
+    summary.update(sort_summary)
+    del arena
+    torch.cuda.empty_cache()
     sync_rules = {**{r: (N, {}, RULE_KERNELS[r]) for r in RULES},
                   **SIGN_RULES}
     totals = phase_train(cfg, sync_rules, STEPS)
@@ -2326,16 +2781,26 @@ def main():
                     for q in QUANT]
     aquant_totals, aquant_step_ms = phase_async(
         cfg, ASYNC_QUANT_RULES, QUANT_STEPS, agg_dtype="int8")
+    sparse_totals = [phase_train(cfg, SPARSE_SYNC, STEPS)]
+    asparse_totals, asparse_step_ms = phase_async(cfg, SPARSE_ASYNC,
+                                                  ASYNC_STEPS)
+    sparse_totals += [phase_train(cfg, SPARSE_QUANT, QUANT_STEPS,
+                                  agg_dtype=q) for q in QUANT]
+    asq_totals, asq_step_ms = phase_async(cfg, SPARSE_AQUANT, QUANT_STEPS,
+                                          agg_dtype="int8")
+    sparse_totals += [asparse_totals, asq_totals, sort_counts]
     phase_profile(cfg, {"trimmed_mean": (N, {}, ()), "krum": (N, {}, ()),
-                        **SEL_RULES})
+                        **SEL_RULES, "sparse_mean": (N, {}, ())})
     phase_profile_async(cfg, {**{r: (N, 6, {}) for r in RULES},
                               "multi_krum": (N, 6, {"m": 3}),
+                              "sparse_mean": (N, 6, {}),
                               "bulyan": (11, 9, {})})
     phase_kernel_vs_gather(cfg, sync_rules)
     phase_selection_vs_gather(cfg)
     phase_tie_check(cfg)
     phase_masked_vs_gather(cfg, {**ASYNC_RULES, **ASYNC_SEL_RULES})
     phase_quant_vs_gather(cfg)
+    phase_sparse_vs_gather(cfg)
     kern = []
     for name, (src, replaces) in SOURCES.items():
         s = summary[name]
@@ -2345,7 +2810,8 @@ def main():
                                   + elastic_totals[name] + sel_totals[name]
                                   + asel_totals[name]
                                   + sum(t[name] for t in quant_totals)
-                                  + aquant_totals[name]),
+                                  + aquant_totals[name]
+                                  + sum(t[name] for t in sparse_totals)),
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": s["bound_by"],
@@ -2357,6 +2823,8 @@ def main():
          async_median_step_ms=async_step_ms,
          async_selection_median_step_ms=asel_step_ms,
          async_quant_median_step_ms=aquant_step_ms,
+         async_sparse_median_step_ms={"float32": asparse_step_ms,
+                                      "int8": asq_step_ms},
          sign_vote_on_codes=summary["sign_vote_codes"])
     print(json.dumps({"kernels": kern}))
     print(card)

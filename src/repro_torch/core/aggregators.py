@@ -12,7 +12,8 @@ Counterpart of ``repro.core.aggregators`` for the rules ported so far:
 
 Registered so far: ``mean``, ``coordinate_median``, ``trimmed_mean``,
 ``krum``, the selection family ``cge``, ``multi_krum``, ``m_krum``,
-``mda`` and ``bulyan``, and the 1-bit vote ``sign_sgd``.  Impls:
+``mda`` and ``bulyan``, the 1-bit vote ``sign_sgd``, and the sparse /
+dropout-aware ``sparse_mean`` of the compressed exchange.  Impls:
 
 * ``kernel`` — the hand-written CUDA kernels (:mod:`repro_torch.kernels`),
   the JAX package's ``pallas``.  On a CPU tensor each kernel wrapper runs
@@ -30,6 +31,11 @@ refuses it for the others, then drops it: only the JAX package's
 leaf-wise ``fused`` impl reads it (ROADMAP.md slice 11), and the flat
 path ignores it there too.
 
+A rule whose law is neither of the engine's (``sparse_mean``: per-
+coordinate weights) owns its route: ``flat_fn`` takes the whole
+``aggregate_flat`` call (mask, raw weights, row scales) and ``custom_fn``
+the whole tree call, before the engine's synchronous and masked paths.
+
 Masked / staleness-weighted aggregation (``mask=``, ``weights=``): the
 coordinate-wise rules take the order statistic over the ARRIVED rows only
 (absent rows are +inf sort sentinels, the rank window follows the
@@ -37,17 +43,21 @@ arrived count) and sign_sgd the vote of the arrived rows; krum and the
 selection family run on the mean-imputed stack; mean is the exact
 weighted mean of the arrived rows; each but mean is then scaled by the
 mean arrived weight.  ``impl="kernel"`` runs the fused masked kernels
-(K5-K7, K12, K14, K16), which never build the masked (n, P) copy.
+(K5-K7, K12, K14, K16), which never build the masked (n, P) copy.  A
+masked tree of mixed leaf dtypes runs the coordinate-wise kernels once
+per uniform-dtype segment; the pairwise kernel rules fall back to the
+imputed tree path with a one-time warning.
 Elastic membership:
 ``make_spec(..., f=frac(r), n=elastic(n_max, buckets))`` and
 ``spec.respecialize(n_live)``.
 
 Quantized arenas (``aggregate_flat(codes, scale=qs)``, the compressed
 exchange of ``agg_dtype`` int8 / float8_e4m3fn): with ``impl="kernel"``
-coordinate_median, trimmed_mean and sign_sgd dequantize inside their
-kernels (K18-K20, K15 on the codes); every other rule, and the gather
-impl, dequantizes the (n, P) arena first (``core.flat.dequantize_rows``,
-with a one-time warning on the kernel impl), as the JAX engine does.
+coordinate_median, trimmed_mean, sign_sgd and sparse_mean dequantize
+inside their kernels (K18-K21, K15 on the codes); every other rule, and
+the gather impl, dequantizes the (n, P) arena first
+(``core.flat.dequantize_rows``, with a one-time warning on the kernel
+impl), as the JAX engine does.
 
 Wrappers, state and telemetry come with ROADMAP.md slices 3, 6 and 7.
 """
@@ -65,7 +75,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.filters import dense as D
-from repro_torch.core.flat import QUANT_DTYPES, FlatPlan, dtype_name
+from repro_torch.core.flat import (QUANT_DTYPES, FlatPlan, dequantize_rows,
+                                   dtype_name)
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 IMPLS = ("auto", "kernel", "gather", "fused")
 
@@ -226,6 +238,13 @@ class AggregatorDef:
     # whose masked law is not impute-then-scale (mean's exact weighted
     # mean of the arrived rows)
     masked_fn: Optional[Callable] = None
+    # a rule's own routes, taken before the engine's: (spec, stack, mask,
+    # weights, state, qscale) -> (P,) fp32 for the arena, (spec, grads,
+    # mask, weights, state) -> tree for a tree (sparse_mean's per-
+    # coordinate weights fit neither engine law)
+    flat_fn: Optional[Callable] = None
+    custom_fn: Optional[Callable] = None
+    tags: tuple = ()               # e.g. ("compressed",)
 
 
 REGISTRY: dict[str, AggregatorDef] = {}
@@ -234,14 +253,16 @@ REGISTRY: dict[str, AggregatorDef] = {}
 def register_aggregator(name: str, *, caps: AggregatorCaps,
                         hyper: tuple = (), gather: tuple = (),
                         impl_keys: tuple = (), dense_fn=None,
-                        masked_fn=None):
+                        masked_fn=None, flat_fn=None, custom_fn=None,
+                        tags: tuple = ()):
     """Register an aggregation rule (raises on a duplicate name)."""
     if name in REGISTRY:
         raise ValueError(f"aggregator {name!r} already registered")
     REGISTRY[name] = AggregatorDef(
         name=name, caps=caps, hyper_keys=frozenset(hyper),
         gather_keys=frozenset(gather), impl_keys=frozenset(impl_keys),
-        dense_fn=dense_fn, masked_fn=masked_fn)
+        dense_fn=dense_fn, masked_fn=masked_fn, flat_fn=flat_fn,
+        custom_fn=custom_fn, tags=tuple(tags))
     return REGISTRY[name]
 
 
@@ -251,6 +272,11 @@ def get_aggregator_def(name: str) -> AggregatorDef:
     except KeyError:
         raise KeyError(f"unknown aggregator {name!r}; registered: "
                        f"{sorted(REGISTRY)}") from None
+
+
+def list_aggregators(tag: str | None = None) -> list[str]:
+    return sorted(n for n, d in REGISTRY.items()
+                  if tag is None or tag in d.tags)
 
 
 # ---------------------------------------------------------------------------
@@ -299,8 +325,11 @@ class AggregatorSpec:
 
     @property
     def flat_capable(self) -> bool:
-        """True iff :meth:`aggregate_flat` can take a pre-raveled arena
-        (every registered rule on the kernel and gather impls)."""
+        """True iff :meth:`aggregate_flat` can take a pre-raveled arena:
+        a rule with its own flat law (``flat_fn``), and every other
+        registered rule on the kernel and gather impls."""
+        if get_aggregator_def(self.name).flat_fn is not None:
+            return True
         return self.impl in ("kernel", "gather")
 
     def aggregate(self, grads, mask=None, weights=None, state=None):
@@ -313,6 +342,9 @@ class AggregatorSpec:
         where ``mask`` is False."""
         if isinstance(grads, torch.Tensor):
             return self.aggregate_flat(grads, mask, weights, state)
+        d = get_aggregator_def(self.name)
+        if d.custom_fn is not None:
+            return d.custom_fn(self, grads, mask, weights, state)
         plan = FlatPlan.for_tree(grads)
         if mask is None and weights is None:
             vec = self.aggregate_flat(plan.ravel(grads, torch.float32),
@@ -324,9 +356,10 @@ class AggregatorSpec:
             # rounding (bit-for-bit with the JAX masked tree path)
             return plan.unravel(self.aggregate_flat(
                 plan.ravel(grads), mask, weights, state))
-        raise NotImplementedError(
-            "masked aggregation of a tree with mixed leaf dtypes comes "
-            "with ROADMAP.md slice 4b (the per-dtype arenas)")
+        if state is not None:
+            raise NotImplementedError(
+                "stateful rules come with ROADMAP.md slice 6")
+        return _masked_mixed_tree(self, d, grads, plan, mask, weights)
 
     def aggregate_flat(self, stack, mask=None, weights=None, state=None,
                        scale=None):
@@ -354,6 +387,8 @@ class AggregatorSpec:
             raise ValueError(f"{self.describe()} was built for n={self.n}, "
                              f"got a stack of {stack.shape[0]} rows")
         d = get_aggregator_def(self.name)
+        if d.flat_fn is not None:
+            return d.flat_fn(self, stack, mask, weights, state, scale)
         if mask is None and weights is None:
             return _flat_sync_vec(self, d, stack, scale)
         if mask is None:
@@ -416,8 +451,8 @@ def _flat_dequant(spec, stack, qscale):
             f"{spec.name}: no scaled (quantized-arena) kernel — "
             "dequantizing the (n, P) arena at engine level before "
             "aggregation.  Only the kernelized coordinate rules "
-            "(coordinate_median, trimmed_mean, sign_sgd) dequantize inside "
-            "the kernel.")
+            "(coordinate_median, trimmed_mean, sign_sgd, sparse_mean) "
+            "dequantize inside the kernel.")
     return dequantize_rows(stack, qscale)
 
 
@@ -514,6 +549,80 @@ def _flat_masked_vec(spec, d, stack, mask, weights, qscale=None):
     from repro_torch.kernels import ref
     imputed = ref.masked_impute_ref(stack, mask, w / tot)
     return scaled(_flat_sync_vec(spec, d, imputed))
+
+
+def _masked_mixed_tree(spec, d, grads, plan, mask, weights):
+    """The masked law on a tree of mixed leaf dtypes (the JAX tree
+    engine's, ``repro/core/aggregators.py:1133-1210``), leaf slices in plan
+    order.  A coordinate-wise rule with a masked kernel launches it once
+    per uniform-dtype segment (columns are independent, so each segment
+    is the uniform path); its gather impl runs the arrived-window law per
+    leaf.  mean takes its exact weighted mean per leaf.  The rest (krum
+    and the selection family) impute each leaf at the delivered mean in
+    the leaf's dtype and aggregate the fp32 ravel of the imputed tree,
+    with a one-time warning on the kernel impl (the Gram couples every
+    column, so no kernel takes a mixed row).  Each aggregate leaf is
+    rounded to its dtype, scaled by tot/cnt and rounded again, as the
+    uniform path rounds it."""
+    leaves = tree_leaves(grads)
+    n = leaves[0].shape[0]
+    if spec.n is not None and n != spec.n:
+        raise ValueError(f"{spec.describe()} was built for n={spec.n}, got "
+                         f"a tree of {n} rows")
+    mask, w, cnt, tot = _masked_prelude(mask, weights)
+    wn = w / tot
+    scale = torch.where(torch.sum(w) > 0, tot / cnt,
+                        torch.zeros((), device=w.device))
+
+    def scaled(vec, dt):
+        return (vec.to(dt).float() * scale).to(dt)
+
+    cols = [l.reshape(n, -1) for l in leaves]
+    if d.masked_fn is not None:
+        outs = [d.masked_fn(c, wn).to(c.dtype) for c in cols]
+    elif spec.impl == "kernel" and d.caps.coordwise:
+        from repro_torch.kernels import kernel_masked_aggregate
+        outs = _per_dtype(cols, lambda seg: kernel_masked_aggregate(
+            spec.name, seg, mask.float(), wn, spec.f, spec.hyper), scaled)
+    elif d.caps.coordwise and spec.name in _ARRIVED_STAT_RULES:
+        outs = [scaled(_arrived_coord_vec(spec, c.float(), mask), c.dtype)
+                for c in cols]
+    else:
+        if spec.impl == "kernel":
+            dts = tuple(sorted({dtype_name(c.dtype) for c in cols}))
+            warn_once(
+                ("masked-pallas-mixed-dtype", spec.name, dts),
+                f"{spec.name}: masked kernel skipped — gradient leaves "
+                f"carry mixed dtypes {dts}; falling back to the tree-level "
+                "imputed path (materializes the imputed (n, d) stack).  "
+                "Cast the leaves to one exchange dtype to restore the "
+                "fused kernel.")
+        from repro_torch.kernels import ref
+        vec = _flat_sync_vec(spec, d, torch.cat(
+            [ref.masked_impute_ref(c, mask, wn).float() for c in cols],
+            dim=1))
+        outs = [scaled(vec[o:o + c.shape[1]], c.dtype)
+                for o, c in zip(plan.offsets, cols)]
+    return tree_unflatten(plan.paths, [o.reshape(shp) for o, shp in
+                                       zip(outs, plan.shapes)])
+
+
+def _per_dtype(cols, aggregate, finish):
+    """The (n, size) leaf columns aggregated one uniform-dtype segment at a
+    time: ``aggregate`` once per dtype on that dtype's columns side by
+    side, each leaf's slice of the result through ``finish(vec, dtype)``.
+    Exact for a per-coordinate law: no column meets another."""
+    by_dtype: dict = {}
+    for i, c in enumerate(cols):
+        by_dtype.setdefault(c.dtype, []).append(i)
+    outs = [None] * len(cols)
+    for dt, idxs in by_dtype.items():
+        vec = aggregate(torch.cat([cols[i] for i in idxs], dim=1))
+        off = 0
+        for i in idxs:
+            outs[i] = finish(vec[off:off + cols[i].shape[1]], dt)
+            off += cols[i].shape[1]
+    return outs
 
 
 _FUSED_MSG = ("impl='fused' (the leaf-wise, sharding-aware impl) is not "
@@ -661,3 +770,84 @@ register_aggregator(
     "sign_sgd",
     caps=AggregatorCaps(coordwise=True),
     impl_keys=("native_dtype",), dense_fn=D.sign_sgd)
+
+
+# ---------------------------------------------------------------------------
+# the compressed exchange's sparse / dropout-aware mean: a zero coordinate
+# means NOT SENT, so each coordinate is averaged over the rows that sent
+# it, weighted by (coord sent) * w_i.  Per-coordinate weights fit neither
+# engine law, so the rule owns its routes (flat_fn, custom_fn).
+
+
+def _sparse_row_weights(n, mask, weights, device):
+    """((n,) fp32 {0,1} mask, (n,) fp32 row weights with the mask folded
+    in: dead rows -> 0); no mask means every row live."""
+    m = (torch.ones((n,), dtype=torch.float32, device=device) if mask is None
+         else mask.to(torch.bool).float())
+    return m, (m if weights is None else weights.float() * m)
+
+
+def _sparse_mean_law(xf, cw):
+    """sum_i cw_i x_i / sum_i cw_i over the agent axis, an explicit 0 where
+    the denominator is 0 (nobody sent the coordinate).  The where-gate
+    keeps an unsent or dead row's inf or NaN out (never 0 * x)."""
+    num = torch.sum(torch.where(cw > 0, xf, 0.0) * cw, dim=0)
+    den = torch.sum(cw, dim=0)
+    pos = den > 0
+    return torch.where(pos, num / torch.where(pos, den, 1.0), 0.0)
+
+
+def _sparse_mean_flat(spec, stack, mask, weights, state, qscale=None):
+    """sparse_mean on the (n, P) arena.  ``impl="kernel"``: K17 (K21 on a
+    quantized arena, dequantized in registers), from the synchronous
+    tables without a mask and weights, else from the masked ones with the
+    RAW mask-folded row weights; the gather impl applies the law to the
+    fp32 (dequantized) arena."""
+    n = stack.shape[0]
+    if spec.impl == "kernel":
+        from repro_torch import kernels
+        if mask is None and weights is None:
+            if qscale is not None:
+                return kernels.kernel_scaled_aggregate(
+                    "sparse_mean", stack, qscale, spec.f, spec.hyper)
+            return kernels.kernel_aggregate("sparse_mean", stack, spec.f,
+                                            spec.hyper)
+        m, w = _sparse_row_weights(n, mask, weights, stack.device)
+        if qscale is not None:
+            return kernels.kernel_scaled_masked_aggregate(
+                "sparse_mean", stack, qscale, m, w, spec.f, spec.hyper)
+        return kernels.kernel_masked_aggregate("sparse_mean", stack, m, w,
+                                               spec.f, spec.hyper)
+    _, w = _sparse_row_weights(n, mask, weights, stack.device)
+    xf = (dequantize_rows(stack, qscale) if qscale is not None
+          else stack.float())
+    return _sparse_mean_law(xf, (xf != 0).float() * w[:, None])
+
+
+def _sparse_mean_tree(spec, grads, mask, weights, state):
+    """sparse_mean on a tree: on the kernel impl one K17 launch per
+    uniform-dtype segment (the law is per coordinate, so the segments
+    split it exactly), on the gather impl the law per leaf in fp32; each
+    leaf's aggregate rounded to its dtype.  No fp32 ravel of the tree."""
+    plan = FlatPlan.for_tree(grads)
+    leaves = tree_leaves(grads)
+    n = leaves[0].shape[0]
+    m, w = _sparse_row_weights(n, mask, weights, leaves[0].device)
+    cols = [l.reshape(n, -1) for l in leaves]
+    if spec.impl == "kernel":
+        from repro_torch.kernels import kernel_masked_aggregate
+        outs = _per_dtype(cols, lambda seg: kernel_masked_aggregate(
+            "sparse_mean", seg, m, w, spec.f, spec.hyper),
+            lambda vec, dt: vec.to(dt))
+    else:
+        outs = [_sparse_mean_law(c.float(), (c.float() != 0).float()
+                                 * w[:, None]).to(c.dtype) for c in cols]
+    return tree_unflatten(plan.paths, [o.reshape(shp) for o, shp in
+                                       zip(outs, plan.shapes)])
+
+
+register_aggregator(
+    "sparse_mean",
+    caps=AggregatorCaps(coordwise=True),
+    flat_fn=_sparse_mean_flat, custom_fn=_sparse_mean_tree,
+    tags=("compressed",))

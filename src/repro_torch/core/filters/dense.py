@@ -2,7 +2,7 @@
 
 Counterpart of ``repro.core.filters.dense`` for the rules ported so far
 (mean, coordinate_median, trimmed_mean, krum, multi_krum, m_krum, mda,
-cge, bulyan, sign_sgd) and their helpers.
+cge, bulyan, sign_sgd, sparse_mean) and their helpers.
 Uniform signature ``filter(g, f, **hyper) -> (d,)``.  These are the
 paper-faithful dense laws, ``impl="gather"`` of the spec engine, and the
 oracle the kernel path is held against.
@@ -248,6 +248,21 @@ def sign_sgd(g, f=0):
     bounded to [-1, 1] per coordinate; a NaN value makes its column NaN,
     as in the JAX law."""
     return nan_sign(torch.sum(nan_sign(g).float(), dim=0))
+
+
+@register("sparse_mean")
+def sparse_mean(g, f=0):
+    """Sparse / dropout-aware mean: a zero coordinate means NOT SENT, so
+    each coordinate averages only the rows that carry it, agg_c = sum_i
+    [g_ic != 0] g_ic / sum_i [g_ic != 0], with an explicit 0 where nobody
+    sent the coordinate.  Per-agent weights (staleness discounts) enter
+    through the spec engine's weighted path; this dense oracle is the
+    unit-weight case."""
+    sent = (g != 0).float()
+    den = torch.sum(sent, dim=0)
+    num = torch.sum(g.float() * sent, dim=0)
+    pos = den > 0
+    return torch.where(pos, num / torch.where(pos, den, 1.0), 0.0)
 
 
 def _masked_median(g, mask):

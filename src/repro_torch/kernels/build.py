@@ -145,6 +145,11 @@ def lib():
                                                   i64, i64, i32, i32, vp]
         L.rt_scaled_masked_sign_vote.argtypes = [vp, i32, vp, vp, vp, i32,
                                                  i64, i64, vp]
+        L.rt_sparse_masked_weighted_mean.argtypes = [vp, i32, vp, vp, vp,
+                                                     i32, i64, i64, vp]
+        L.rt_scaled_sparse_masked_weighted_mean.argtypes = [
+            vp, i32, vp, vp, vp, vp, i32, i64, i64, vp]
+        L.rt_coord_sort.argtypes = [vp, i32, vp, i32, i64, i64, vp]
         for fn in ("rt_coord_stat", "rt_gram", "rt_krum_select",
                    "rt_weighted_sum", "rt_masked_coord_stat",
                    "rt_masked_gram", "rt_masked_weighted_sum",
@@ -154,7 +159,9 @@ def lib():
                    "rt_masked_bulyan_coord", "rt_sign_vote",
                    "rt_masked_sign_vote", "rt_scaled_coord_stat",
                    "rt_scaled_masked_coord_stat",
-                   "rt_scaled_masked_sign_vote"):
+                   "rt_scaled_masked_sign_vote",
+                   "rt_sparse_masked_weighted_mean",
+                   "rt_scaled_sparse_masked_weighted_mean", "rt_coord_sort"):
             getattr(L, fn).restype = i32
         _LIB = L
     return _LIB

@@ -1,13 +1,18 @@
-"""K1: coordinate-wise order statistics over the agent axis.
+"""K1 and K23: coordinate-wise order statistics over the agent axis, and
+the full per-coordinate sorted stack.
 
-Replaces the Pallas TPU kernel ``repro/kernels/coord_stats.py:coord_stat``
-with the CUDA kernel ``csrc/coord_stat.cu`` (its source note says what
-bounds it on the H100 and what the design does about that).
+* K1 :func:`coord_stat` replaces the Pallas TPU kernel
+  ``repro/kernels/coord_stats.py:coord_stat`` with the CUDA kernel
+  ``csrc/coord_stat.cu`` (its source note says what bounds it on the H100
+  and what the design does about that).
+* K23 :func:`coord_sort` replaces ``repro/kernels/coord_stats.py:
+  coord_sort`` with ``csrc/coord_sort.cu``: the same network, every rank
+  written (the legacy ``ops`` statistics read it).
 
-:func:`coord_stat` is the wrapper: for a CPU tensor it runs the plain
-PyTorch version :func:`coord_stat_plain`; for a CUDA tensor it checks the
-input and launches the kernel, or raises.  ``coord_stat.launches`` counts
-kernel launches (nothing else adds to it).
+Each wrapper runs its plain PyTorch version (:func:`coord_stat_plain`,
+:func:`coord_sort_plain`) for a CPU tensor; for a CUDA tensor it checks
+the input and launches the kernel, or raises.  ``<wrapper>.launches``
+counts kernel launches (nothing else adds to it).
 """
 from __future__ import annotations
 
@@ -88,3 +93,37 @@ def coord_stat(g, stat: str, b: int = 0):
 
 
 coord_stat.launches = 0
+
+
+def coord_sort_plain(g):
+    """(n, d) any float -> (n, d) fp32: the plain version of K23, the
+    network's ranks stacked (NaN where the network spreads it, not last
+    as ``torch.sort`` puts it)."""
+    return torch.stack(_sort_network(g.float().unbind(0)))
+
+
+def coord_sort(g):
+    """g: (n, d) fp32 or bf16 -> (n, d) fp32, each column sorted ascending
+    by the odd-even network."""
+    if g.dim() != 2:
+        raise ValueError(f"coord_sort: need an (n, d) stack, got "
+                         f"{tuple(g.shape)}")
+    n, d = g.shape
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"coord_sort: n={n} outside [1, {MAX_N}]")
+    if g.device.type == "cpu":
+        return coord_sort_plain(g)
+    if g.device.type != "cuda":
+        raise ValueError(f"coord_sort: unsupported device {g.device}")
+    if g.stride(1) != 1:
+        raise ValueError("coord_sort: rows must be contiguous")
+    code = build.dtype_code(g)
+    out = torch.empty((n, d), dtype=torch.float32, device=g.device)
+    rc = build.lib().rt_coord_sort(g.data_ptr(), code, out.data_ptr(), n, d,
+                                   g.stride(0), build.stream_ptr(g))
+    build.check(rc, "coord_sort")
+    coord_sort.launches += 1
+    return out
+
+
+coord_sort.launches = 0

@@ -1,17 +1,18 @@
 // The coord_stat kernel template and its launcher, shared by K1
 // (coord_stat.cu), K5 (masked_coord_stat.cu), K18 (scaled_coord_stat.cu)
-// and K19 (scaled_masked_coord_stat.cu); see those files for the design
-// notes.  MASKED = false: every one of the n rows is read and the window
-// is fixed by n.  MASKED = true: each block reads the (n,) mask once, an
-// absent row becomes a +inf sentinel (and is never read), and the kept
-// rank window follows the arrived count.  SCALED = true: the stack holds
-// int8 / fp8 codes, each block reads the (n,) fp32 row scales once into
-// shared memory, and the load dequantizes, to_f32(code) * scale[row] with
-// one rounded multiply (never contracted into an add), exactly
-// core.flat.dequantize_rows.  The load, the network and the window sum are
-// shared.  Each register capacity MAXN above 16 is instantiated in its own
-// translation unit (coord_stat_{32,64}_*.cu), so nvcc compiles them in
-// parallel.
+// and K19 (scaled_masked_coord_stat.cu), and K23's coord_sort kernel
+// (coord_sort.cu: the same network, writing every rank); see those files
+// for the design notes.  MASKED = false: every one of the n rows is read
+// and the window is fixed by n.  MASKED = true: each block reads the (n,)
+// mask once, an absent row becomes a +inf sentinel (and is never read),
+// and the kept rank window follows the arrived count.  SCALED = true: the
+// stack holds int8 / fp8 codes, each block reads the (n,) fp32 row scales
+// once into shared memory, and the load dequantizes, to_f32(code) *
+// scale[row] with one rounded multiply (never contracted into an add),
+// exactly core.flat.dequantize_rows.  The load, the network and the window
+// sum are shared.  Each register capacity MAXN above 16 is instantiated in
+// its own translation unit (coord_stat_{32,64}_*.cu,
+// coord_sort_{32,64}_*.cu), so nvcc compiles them in parallel.
 #pragma once
 
 #include <math.h>
@@ -153,6 +154,57 @@ int coord_stat_dispatch(const void* x, const float* mask, const float* scale,
   return rt_status();
 }
 
+// K23 coord_sort (coord_sort.cu): every rank of the same network, the
+// (n, d) fp32 sorted stack, row-major with row stride d.  A thread holds
+// its column in registers, runs sort_network and writes each of the n
+// ranks (coalesced across the warp, one row at a time).
+template <int MAXN, typename T>
+__global__ void __launch_bounds__(256)
+coord_sort_kernel(const T* __restrict__ x, float* __restrict__ out, int n,
+                  long long d, long long ld) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
+       j += stride) {
+    float v[MAXN];
+#pragma unroll
+    for (int i = 0; i < MAXN; ++i)
+      v[i] = i < n ? to_f32(x[(long long)i * ld + j]) : 0.f;
+    sort_network<MAXN>(v, n);
+#pragma unroll
+    for (int i = 0; i < MAXN; ++i)
+      if (i < n) out[(long long)i * d + j] = v[i];
+  }
+}
+
+template <int MAXN, typename T>
+void coord_sort_launch(const void* x, float* out, int n, long long d,
+                       long long ld, cudaStream_t s) {
+  const int threads = 256;
+  const unsigned blocks = grid_blocks(d, threads);
+  coord_sort_kernel<MAXN, T><<<blocks, threads, 0, s>>>((const T*)x, out, n,
+                                                        d, ld);
+}
+
+// Runs the instance whose register capacity holds n rows.
+template <typename T>
+int coord_sort_dispatch(const void* x, float* out, int n, long long d,
+                        long long ld, cudaStream_t s) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  if (n <= 4)
+    coord_sort_launch<4, T>(x, out, n, d, ld, s);
+  else if (n <= 8)
+    coord_sort_launch<8, T>(x, out, n, d, ld, s);
+  else if (n <= 16)
+    coord_sort_launch<16, T>(x, out, n, d, ld, s);
+  else if (n <= 32)
+    coord_sort_launch<32, T>(x, out, n, d, ld, s);
+  else if (n <= 64)
+    coord_sort_launch<64, T>(x, out, n, d, ld, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return rt_status();
+}
+
 // The signature of one instance, for the explicit instantiations in
 // coord_stat_{32,64}_{f32,bf16,i8,f8}.cu and the extern declarations here.
 #define RT_CS_LAUNCH(N, T, M, S)                                           \
@@ -175,3 +227,12 @@ extern template RT_CS_LAUNCH(64, int8_t, false, true);
 extern template RT_CS_LAUNCH(64, int8_t, true, true);
 extern template RT_CS_LAUNCH(64, __nv_fp8_e4m3, false, true);
 extern template RT_CS_LAUNCH(64, __nv_fp8_e4m3, true, true);
+
+// K23's 32- and 64-row instances (coord_sort_{32,64}_{f32,bf16}.cu).
+#define RT_SORT_LAUNCH(N, T)                                               \
+  void coord_sort_launch<N, T>(const void*, float*, int, long long,        \
+                               long long, cudaStream_t)
+extern template RT_SORT_LAUNCH(32, float);
+extern template RT_SORT_LAUNCH(32, __nv_bfloat16);
+extern template RT_SORT_LAUNCH(64, float);
+extern template RT_SORT_LAUNCH(64, __nv_bfloat16);

@@ -6,19 +6,22 @@ there, ``KERNEL_RULES`` / ``KERNEL_MASKED_RULES`` here).  Every entry
 takes the (n, P) arena in its native dtype (fp32 or bf16: the kernels
 upcast in registers, so no fp32 (n, P) copy is made) and returns the (P,)
 fp32 aggregate; the masked entries also take the (n,) fp32 mask and the
-normalized weights wn = w / tot, on the arena's device.  Both tables
-hold the same rules: the coordinate statistics, Krum and the selection
-family, and sign_sgd.
+normalized weights wn = w / tot, on the arena's device (sparse_mean's
+entry takes the RAW mask-folded row weights in that slot: its law is
+invariant under a global scaling of the weights).  Both tables hold the
+same rules: the coordinate statistics, Krum and the selection family,
+sign_sgd and sparse_mean.
 
 The scaled tables (``PALLAS_SCALED_RULES`` / ``PALLAS_SCALED_MASKED_RULES``
 there, ``KERNEL_SCALED_RULES`` / ``KERNEL_SCALED_MASKED_RULES`` here) take
 a QUANTIZED arena, int8 / float8_e4m3fn codes and an (n,) fp32 scale per
-row, and dequantize inside the kernel (K18-K20; synchronous sign_sgd votes
+row, and dequantize inside the kernel (K18-K21; synchronous sign_sgd votes
 on the codes with K15), so no dequantized (n, P) copy is made.  The other
-rules dequantize at engine level (``aggregators._flat_dequant``).  The
-JAX tables also hold sparse_mean: it comes with ROADMAP.md slice 4b.
+rules dequantize at engine level (``aggregators._flat_dequant``).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels.coord_stats import coord_stat
 from repro_torch.kernels.masked import (masked_coord_stat, masked_sign_vote,
@@ -32,6 +35,8 @@ from repro_torch.kernels.ops import (kernel_bulyan, kernel_bulyan_masked,
                                      kernel_mda, kernel_mda_masked,
                                      kernel_multi_krum,
                                      kernel_multi_krum_masked)
+from repro_torch.kernels.wsum import (scaled_sparse_masked_weighted_mean,
+                                      sparse_masked_weighted_mean)
 
 
 def _trim_b(n: int, f: int, hyper: dict) -> int:
@@ -85,6 +90,17 @@ def _sign_sgd(stack, f, hyper):
     return sign_vote(stack)
 
 
+def _ones(stack):
+    return torch.ones((stack.shape[0],), dtype=torch.float32,
+                      device=stack.device)
+
+
+def _sparse_mean(stack, f, hyper):
+    # synchronous: every row live with unit weight
+    ones = _ones(stack)
+    return sparse_masked_weighted_mean(stack, ones, ones)
+
+
 KERNEL_RULES = {
     "coordinate_median": _median,
     "trimmed_mean": _trimmed_mean,
@@ -95,6 +111,7 @@ KERNEL_RULES = {
     "mda": _mda,
     "bulyan": _bulyan,
     "sign_sgd": _sign_sgd,
+    "sparse_mean": _sparse_mean,
 }
 
 
@@ -153,6 +170,11 @@ def _masked_sign_sgd(stack, mask, wn, f, hyper):
     return masked_sign_vote(stack, mask, wn)
 
 
+def _masked_sparse_mean(stack, mask, w, f, hyper):
+    # the wn slot carries the RAW mask-folded row weights, not w / tot
+    return sparse_masked_weighted_mean(stack, mask, w)
+
+
 KERNEL_MASKED_RULES = {
     "coordinate_median": _masked_median,
     "trimmed_mean": _masked_trimmed_mean,
@@ -163,6 +185,7 @@ KERNEL_MASKED_RULES = {
     "mda": _masked_mda,
     "bulyan": _masked_bulyan,
     "sign_sgd": _masked_sign_sgd,
+    "sparse_mean": _masked_sparse_mean,
 }
 
 
@@ -207,10 +230,16 @@ def _scaled_sign_sgd(stack, qs, f, hyper):
     return sign_vote(stack)
 
 
+def _scaled_sparse_mean(stack, qs, f, hyper):
+    ones = _ones(stack)
+    return scaled_sparse_masked_weighted_mean(stack, qs, ones, ones)
+
+
 KERNEL_SCALED_RULES = {
     "coordinate_median": _scaled_median,
     "trimmed_mean": _scaled_trimmed_mean,
     "sign_sgd": _scaled_sign_sgd,
+    "sparse_mean": _scaled_sparse_mean,
 }
 
 
@@ -227,10 +256,16 @@ def _scaled_masked_sign_sgd(stack, qs, mask, wn, f, hyper):
     return scaled_masked_sign_vote(stack, qs, mask, wn)
 
 
+def _scaled_masked_sparse_mean(stack, qs, mask, w, f, hyper):
+    # raw row weights, as _masked_sparse_mean
+    return scaled_sparse_masked_weighted_mean(stack, qs, mask, w)
+
+
 KERNEL_SCALED_MASKED_RULES = {
     "coordinate_median": _scaled_masked_median,
     "trimmed_mean": _scaled_masked_trimmed_mean,
     "sign_sgd": _scaled_masked_sign_sgd,
+    "sparse_mean": _scaled_masked_sparse_mean,
 }
 
 

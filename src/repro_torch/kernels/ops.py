@@ -3,7 +3,9 @@
 sum, and the selection family (CGE, multi-Krum, m-Krum, MDA, Bulyan) off
 the same Gram, each plain and masked (over the mean-imputed stack, which
 is never built: the mean is computed once and every stage imputes in its
-own load).  The JAX package pads d to its TPU tile
+own load); and the legacy sort paths, the median and trimmed mean read
+off K23's sorted stack and the pairwise distances off K2's Gram (no
+aggregation path calls them).  The JAX package pads d to its TPU tile
 (``_pad_d``); the CUDA kernels mask their own ragged edge, so nothing is
 padded here.  Its ``_drop_unselected`` where-copy is fused into the
 weighted-sum and ordered-application kernels (and their plain versions)
@@ -15,6 +17,8 @@ import math
 
 import torch
 
+from repro_torch.kernels import ref
+from repro_torch.kernels.coord_stats import coord_sort
 from repro_torch.kernels.pairwise import gram, imputed_mean, masked_gram
 from repro_torch.kernels.select import (bulyan_coord, cge_select, gram_d2,
                                         iterative_order, krum_select,
@@ -22,6 +26,26 @@ from repro_torch.kernels.select import (bulyan_coord, cge_select, gram_d2,
 from repro_torch.kernels.wsum import (masked_ordered_apply,
                                       masked_weighted_sum, ordered_apply,
                                       weighted_sum)
+
+
+def kernel_coordinate_median(g, f=0):
+    """(n, d) -> (d,) fp32: the median off K23's sorted stack."""
+    return ref.median_from_sorted(coord_sort(g))
+
+
+def kernel_trimmed_mean(g, b: int):
+    """(n, d) -> (d,) fp32: the mean of ranks [b, n - b) of K23's sorted
+    stack."""
+    return ref.trimmed_mean_from_sorted(coord_sort(g), b)
+
+
+def kernel_pairwise_sq_dists(g):
+    """(n, d) -> (n, n) fp32 squared distances off K2's Gram, max(G_ii +
+    G_jj - 2 G_ij, 0) (a NaN stays NaN, as ``jnp.maximum`` keeps it)."""
+    gr = gram(g)
+    sq = torch.diagonal(gr)
+    return torch.maximum(sq[:, None] + sq[None, :] - 2.0 * gr,
+                         torch.zeros((), device=gr.device))
 
 
 def kernel_krum(g, f: int):

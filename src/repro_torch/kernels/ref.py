@@ -11,7 +11,10 @@ plain versions are held to.
   coordinate-wise rules' law: the order statistic over the ARRIVED rows
   only, absent rows being +inf sort sentinels;
 * :func:`masked_sign_vote_ref` — the sign family's law: the majority vote
-  of the arrived rows only.
+  of the arrived rows only;
+* :func:`coord_sort_ref`, :func:`median_from_sorted`,
+  :func:`trimmed_mean_from_sorted` — the library sort, and the statistics
+  the legacy ``ops`` paths read off a sorted (n, d) stack (K23's).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import math
 import torch
 
 from repro_torch.core.filters.dense import nan_sign
+from repro_torch.kernels.coord_stats import stat_from_sorted
 
 
 def fma_weighted_sum(w, g):
@@ -126,3 +130,21 @@ def masked_sign_vote_ref(g, mask):
     votes = torch.where(live, nan_sign(g.float()),
                         torch.zeros((), device=g.device))
     return nan_sign(torch.sum(votes, dim=0))
+
+
+def coord_sort_ref(g):
+    """(n, d) -> (n, d) fp32, the library sort of each column (NaN last,
+    where K23's network spreads a NaN as ``jnp.minimum`` does)."""
+    return torch.sort(g.float(), dim=0).values
+
+
+def median_from_sorted(s):
+    """(d,) fp32: 0.5 * (s[(n-1)//2] + s[n//2]) of a sorted (n, d) stack."""
+    return stat_from_sorted(s.unbind(0), "median")
+
+
+def trimmed_mean_from_sorted(s, b: int):
+    """(d,) fp32: the mean of ranks [b, n - b) of a sorted (n, d) stack,
+    summed in ascending order (JAX's ``jnp.mean`` reassociates: within the
+    fp32 bar)."""
+    return stat_from_sorted(s.unbind(0), "trimmed_mean", b)

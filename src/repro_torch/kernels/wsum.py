@@ -1,6 +1,7 @@
 """K4, K7, K11 and K12: the weighted sum w^T G over the agent axis, and
 the ordered application of a selection, each plain and over the
-mean-imputed stack.
+mean-imputed stack; K17 and K21: sparse_mean's per-coordinate weighted
+mean over the rows that sent each coordinate.
 
 * K4 :func:`weighted_sum` replaces the Pallas TPU kernel
   ``repro/kernels/wsum.py:weighted_sum`` with the CUDA kernel
@@ -20,6 +21,15 @@ mean-imputed stack.
   ``repro/kernels/wsum.py:masked_ordered_apply`` with K11's kernel under
   its ``IMPUTE`` switch: a picked absent (ghost) row adds the (d,) imputed
   mean instead (masked multi-Krum, m-Krum, MDA); no absent row is read.
+* K17 :func:`sparse_masked_weighted_mean` replaces
+  ``repro/kernels/wsum.py:sparse_masked_weighted_mean`` with
+  ``csrc/sparse_wmean.cu``: each coordinate averaged over the live rows
+  that sent it (x != 0), weighted by the raw row weights, an exact 0
+  where nobody sent it (sparse_mean, sync and masked).
+* K21 :func:`scaled_sparse_masked_weighted_mean` replaces
+  ``repro/kernels/wsum.py:scaled_sparse_masked_weighted_mean`` with the
+  same kernel under its ``SCALED`` switch: int8 / fp8 codes dequantized
+  in registers (the compressed exchange).
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version for a CPU tensor; ``<wrapper>.launches`` counts kernel launches.
@@ -252,3 +262,106 @@ def masked_ordered_apply(order, g, mask, mean, k: int,
 
 
 masked_ordered_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K17 sparse_masked_weighted_mean, K21 scaled_sparse_masked_weighted_mean
+
+
+def sparse_masked_weighted_mean_plain(g, mask, w, scale=None):
+    """(n, d), (n,), (n,) -> (d,) fp32, the plain version of K17 (and, with
+    ``scale``, of K21: row i decodes as ``g[i].float() * scale[i]``).
+    Over the live rows (mask > 0.5) in row order: cw = w_i where the
+    decoded value is != 0, else 0; num += where(cw > 0, x, 0) * cw and
+    den += cw, each product and each sum rounded on its own (the kernel's
+    __fmul_rn / __fadd_rn); then num / den, an exact 0 where den is 0.
+    An absent row is never read."""
+    num = torch.zeros((g.shape[1],), dtype=torch.float32, device=g.device)
+    den = torch.zeros_like(num)
+    wf = w.float()
+    for i in torch.nonzero(mask.float() > 0.5).flatten().tolist():
+        x = g[i].float()
+        if scale is not None:
+            x = x * scale[i]
+        cw = torch.where(x != 0, wf[i], 0.0)
+        num = num + torch.where(cw > 0, x, 0.0) * cw
+        den = den + cw
+    pos = den > 0
+    return torch.where(pos, num / torch.where(pos, den, 1.0), 0.0)
+
+
+def scaled_sparse_masked_weighted_mean_plain(g, scale, mask, w):
+    """The plain version of K21: K17's on the decoded rows (the decoded
+    value decides "sent": an inf row's 0 codes decode to 0 * inf = NaN,
+    which is sent and poisons its column)."""
+    return sparse_masked_weighted_mean_plain(g, mask, w, scale)
+
+
+def _check_sparse(name, g, mask, w, scale=None):
+    """Shapes, dtypes and devices of K17's / K21's operands; returns the
+    csrc dtype code of ``g`` (a float arena, or codes with ``scale``)."""
+    code = build.dtype_code(g, build.FLOAT_CODES if scale is None
+                            else build.QUANT_CODES)
+    if g.dim() != 2 or mask.shape != (g.shape[0],) or w.shape != mask.shape:
+        raise ValueError(f"{name}: shapes g {tuple(g.shape)}, mask "
+                         f"{tuple(mask.shape)}, w {tuple(w.shape)}")
+    n = g.shape[0]
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"{name}: n={n} outside [1, {MAX_N}]")
+    ops = (mask, w) if scale is None else (scale, mask, w)
+    if scale is not None and scale.shape != (n,):
+        raise ValueError(f"{name}: scale must be ({n},), got "
+                         f"{tuple(scale.shape)}")
+    if any(t.device != g.device for t in ops):
+        raise ValueError(f"{name}: g on {g.device}, an operand on "
+                         f"{[str(t.device) for t in ops]}")
+    if g.device.type == "cpu":
+        return code
+    if g.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {g.device}")
+    if g.stride(1) != 1:
+        raise ValueError(f"{name}: rows must be contiguous")
+    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in ops):
+        raise ValueError(f"{name}: mask, w (and scale) must be contiguous "
+                         "float32")
+    return code
+
+
+def sparse_masked_weighted_mean(g, mask, w):
+    """g: (n, d) fp32 or bf16, mask: (n,) {0,1} fp32 (1 = live), w: (n,)
+    fp32 raw row weights (any positive scaling: the law is scale-
+    invariant) -> (d,) fp32: each coordinate averaged over the live rows
+    that sent it (x != 0), weighted by w; an exact 0 where nobody did."""
+    code = _check_sparse("sparse_masked_weighted_mean", g, mask, w)
+    if g.device.type == "cpu":
+        return sparse_masked_weighted_mean_plain(g, mask, w)
+    n, d = g.shape
+    out = torch.empty((d,), dtype=torch.float32, device=g.device)
+    rc = build.lib().rt_sparse_masked_weighted_mean(
+        g.data_ptr(), code, mask.data_ptr(), w.data_ptr(), out.data_ptr(), n,
+        d, g.stride(0), build.stream_ptr(g))
+    build.check(rc, "sparse_masked_weighted_mean")
+    sparse_masked_weighted_mean.launches += 1
+    return out
+
+
+def scaled_sparse_masked_weighted_mean(g, scale, mask, w):
+    """g: (n, d) int8 or float8_e4m3fn codes, scale: (n,) fp32 row scales,
+    mask and w as :func:`sparse_masked_weighted_mean` -> (d,) fp32: its
+    law on the decoded rows, dequantized in registers."""
+    code = _check_sparse("scaled_sparse_masked_weighted_mean", g, mask, w,
+                         scale)
+    if g.device.type == "cpu":
+        return scaled_sparse_masked_weighted_mean_plain(g, scale, mask, w)
+    n, d = g.shape
+    out = torch.empty((d,), dtype=torch.float32, device=g.device)
+    rc = build.lib().rt_scaled_sparse_masked_weighted_mean(
+        g.data_ptr(), code, scale.data_ptr(), mask.data_ptr(), w.data_ptr(),
+        out.data_ptr(), n, d, g.stride(0), build.stream_ptr(g))
+    build.check(rc, "scaled_sparse_masked_weighted_mean")
+    scaled_sparse_masked_weighted_mean.launches += 1
+    return out
+
+
+sparse_masked_weighted_mean.launches = 0
+scaled_sparse_masked_weighted_mean.launches = 0

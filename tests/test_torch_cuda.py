@@ -12,7 +12,9 @@ within rtol = atol = 3e-6.  The selection family (K8-K14) and the sign
 votes (K15, K16) exact: their plain versions order, sum and divide as the
 kernels do.  The scaled kernels of the compressed exchange (K18-K20, and
 K15 on int8 / fp8 codes) exact, trimmed means within 3e-6: the kernels
-dequantize with the plain versions' one fp32 multiply.
+dequantize with the plain versions' one fp32 multiply.  sparse_mean's
+K17 and K21 exact (their plain versions round each product and sum as
+the kernel does, in row order), K23's sorted stack exact.
 """
 import math
 
@@ -21,7 +23,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core.flat import quantize_rows
-from repro_torch.kernels.coord_stats import coord_stat_plain
+from repro_torch.kernels.coord_stats import coord_sort_plain, coord_stat_plain
 from repro_torch.kernels.masked import (masked_coord_stat_plain,
                                         masked_sign_vote_plain,
                                         scaled_coord_stat_plain,
@@ -39,6 +41,8 @@ from repro_torch.kernels.select import (bulyan_coord_plain,
 from repro_torch.kernels.wsum import (masked_ordered_apply_plain,
                                       masked_weighted_sum_plain,
                                       ordered_apply_plain,
+                                      scaled_sparse_masked_weighted_mean_plain,
+                                      sparse_masked_weighted_mean_plain,
                                       weighted_sum_plain)
 
 TOL = 3e-6
@@ -118,7 +122,8 @@ def test_cuda_launch_counters_count_launches(cuda_device):
         "ordered_apply": 0, "masked_ordered_apply": 0, "bulyan_coord": 0,
         "masked_bulyan_coord": 0, "sign_vote": 0, "masked_sign_vote": 0,
         "scaled_coord_stat": 0, "scaled_masked_coord_stat": 0,
-        "scaled_masked_sign_vote": 0}
+        "scaled_masked_sign_vote": 0, "sparse_masked_weighted_mean": 0,
+        "scaled_sparse_masked_weighted_mean": 0, "coord_sort": 0}
     coord_stat_plain(g, "median")                  # the plain versions
     masked_coord_stat_plain(g, m, m, "median")
     assert kernels.launch_counts()["coord_stat"] == 1
@@ -473,3 +478,104 @@ def test_cuda_scaled_rules_count_their_launches(cuda_device):
     counts = kernels.launch_counts()
     assert counts["gram"] == counts["krum_select"] == 1
     assert counts["scaled_coord_stat"] == 0
+
+
+def sparse(g, seed):
+    """Half the values of ``g`` set to 0 (not sent), columns 0-6 by every
+    row (nobody sent them), -0.0 in every 9th column of the zeros."""
+    keep = torch.rand(g.shape, generator=torch.Generator().manual_seed(seed))
+    g = torch.where(keep.to(g.device) < 0.5, torch.zeros((), device=g.device),
+                    g)
+    g[:, :7] = 0.0
+    g[:, 9::9] = torch.where(g[:, 9::9] == 0, -0.0, g[:, 9::9])
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hazard", HAZARDS)
+@pytest.mark.parametrize("n", [1, 8, 9, 33])
+def test_cuda_sparse_mean_kernel_matches_plain(cuda_device, n, hazard,
+                                               dtype):
+    """K17 at every mask case, unit and raw staleness weights (a live row
+    of weight 0 carrying NaN among them): exact, NaN where the plain
+    version has it."""
+    g = stack(max(n, 6), 4099, 3, hazard, cuda_device, torch.float32)[:n]
+    g = sparse(g, n).to(dtype)
+    for case in MASKS:
+        m = mask_of(n, case, cuda_device)
+        w = m * torch.tensor([1.0, 0.5, 1.0 / 3.0],
+                             device=cuda_device).repeat(n)[:n]
+        for wt in (m, w):
+            ours = kernels.sparse_masked_weighted_mean(g, m, wt)
+            assert_same(ours, sparse_masked_weighted_mean_plain(g, m, wt))
+            assert not bool(ours[:7].any())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt", ["int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("hazard", [None, "nan", "inf", "zeros"])
+@pytest.mark.parametrize("n", [3, 8, 12])
+def test_cuda_scaled_sparse_mean_kernel_matches_plain(cuda_device, n,
+                                                      hazard, qdt):
+    """K21 on codes, exact; a live inf row (scale inf) makes every column
+    NaN (its 0 codes decode to 0 * inf)."""
+    g = sparse(torch.randn((n, 4099),
+                           generator=torch.Generator().manual_seed(n)), n)
+    if hazard == "nan":
+        g[1, ::3] = math.nan
+    elif hazard == "inf":
+        g[0, 8::4], g[0, 9::4] = math.inf, -math.inf
+    elif hazard == "zeros":
+        g[n - 1] = 0.0
+    codes, qs = quantize_rows(g.to(cuda_device), qdt)
+    for case in MASKS:
+        m = mask_of(n, case, cuda_device)
+        ours = kernels.scaled_sparse_masked_weighted_mean(codes, qs, m, m)
+        assert_same(ours, scaled_sparse_masked_weighted_mean_plain(codes, qs,
+                                                                   m, m))
+        if hazard == "inf" and float(m[0]) > 0.5:
+            assert bool(torch.isnan(ours).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hazard", HAZARDS)
+@pytest.mark.parametrize("n", [1, 3, 8, 11, 33, 64])
+def test_cuda_coord_sort_matches_plain(cuda_device, n, hazard, dtype):
+    g = stack(max(n, 6), 4099, 5, hazard, cuda_device, dtype)[:n]
+    assert_same(kernels.coord_sort(g), coord_sort_plain(g))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_mean_and_ops_count_their_launches(cuda_device):
+    """sparse_mean through the engine: K17 synchronous and masked, K21 on
+    a quantized arena, once each and nothing else; the ops sort paths
+    launch K23 (and K2 for the distances)."""
+    from repro_torch.core.aggregators import make_spec
+    g = torch.randn(8, 5000, device=cuda_device)
+    codes, qs = quantize_rows(g, "int8")
+    m = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    m[[2, 7]] = False
+    spec = make_spec("sparse_mean", f=F, n=8)
+    for args, name in (((g,), "sparse_masked_weighted_mean"),
+                       ((g, m, m.float() * 0.5),
+                        "sparse_masked_weighted_mean"),
+                       ((codes, None, None, None, qs),
+                        "scaled_sparse_masked_weighted_mean"),
+                       ((codes, m, None, None, qs),
+                        "scaled_sparse_masked_weighted_mean")):
+        kernels.reset_launch_counts()
+        spec.aggregate_flat(*args)
+        counts = kernels.launch_counts()
+        assert counts == {k: int(k == name) for k in counts}
+    kernels.reset_launch_counts()
+    kernels.kernel_coordinate_median(g)
+    kernels.kernel_trimmed_mean(g, 2)
+    kernels.kernel_pairwise_sq_dists(g)
+    counts = kernels.launch_counts()
+    assert counts == {k: {"coord_sort": 2, "gram": 1}.get(k, 0)
+                      for k in counts}

@@ -410,15 +410,15 @@ def code_ordinals(raw, agg_dtype):
     return np.where(raw & 0x80, -mag, mag)
 
 
-def check_quantized(rule, agg_dtype, loop="sync"):
+def check_quantized(rule, agg_dtype, loop="sync", agg_share=None):
     """The compressed slice held to JAX: each step starts from the JAX
     side's state (``resync``), since a moved code moves every later step
     apart.  Every step: the loss within 1e-5 (and the async buffer within
     1e-4).  The first step: the row scales within 1e-5 relative; the codes
     equal on all but ``CODE_SHARE`` of the values, each moved code one
     step from JAX's; the aggregate and the parameters within 1e-4 on all
-    but ``AGG_SHARE`` of the coordinates, and every aggregate coordinate
-    outside the bar one where a code moved."""
+    but ``AGG_SHARE`` of the coordinates (``agg_share`` where given), and
+    every aggregate coordinate outside the bar one where a code moved."""
     rec = {}
     if loop == "sync":
         out = run_slice(rule, 0.0, agg_dtype=agg_dtype, resync=True,
@@ -447,8 +447,8 @@ def check_quantized(rule, agg_dtype, loop="sync"):
     assert steps.max(initial=0) <= 1, (rule, agg_dtype, int(steps.max()))
     for name, ours, ref in (("aggregate", ta, ja), ("params", tpar, jpar)):
         off = ~np.isclose(ours, ref, rtol=GRAD_TOL, atol=GRAD_TOL)
-        assert off.sum() <= AGG_SHARE[agg_dtype] * ours.size, (
-            name, int(off.sum()))
+        share = AGG_SHARE[agg_dtype] if agg_share is None else agg_share
+        assert off.sum() <= share * ours.size, (name, int(off.sum()))
     off = ~np.isclose(tagg, jagg, rtol=GRAD_TOL, atol=GRAD_TOL)
     assert not (off & ~moved.any(axis=0)).any(), (
         "an aggregate coordinate moved where no code did")

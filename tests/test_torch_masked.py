@@ -20,6 +20,8 @@ trimmed window clamps), all; staleness weights cycle through {1, 1/2,
 the ranks JAX's network spreads it to), NaN and +-inf in an absent row
 (never show), +-inf in arrived rows, ties.
 """
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -368,7 +370,9 @@ def test_masked_engine_matches_jax(rule, dtype):
 @pytest.mark.parametrize("rule", RULES)
 def test_masked_engine_on_trees_matches_jax(rule):
     """spec.aggregate on a bf16 tree (raveled in bf16, as JAX's masked
-    tree path does); a mixed bf16/fp32 tree raises, naming its slice."""
+    tree path does), and on a mixed bf16/fp32 tree against JAX's gather
+    tree path, leaf for leaf (krum's kernel impl falls back to the
+    imputed tree path there, with a one-time warning)."""
     n = 8
     rng = np.random.default_rng(4)
     mask = mask_of(n, "most", seed=5)
@@ -390,5 +394,16 @@ def test_masked_engine_on_trees_matches_jax(rule):
                            np.asarray(r).astype(np.float32), rule,
                            "bfloat16", ours_impl)
         mixed = {"a": ttree["a"], "b": {"c": t(c)}}
-        with pytest.raises(NotImplementedError, match="slice 4b"):
-            spec.aggregate(mixed, mask=torch.from_numpy(mask), weights=t(w))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            ours = spec.aggregate(mixed, mask=torch.from_numpy(mask),
+                                  weights=t(w))
+        ref = _jax_engine(rule, "gather", n,
+                          {"a": jtree["a"], "b": {"c": jnp.asarray(c)}},
+                          mask, w)
+        for o, r, dt in ((ours["a"], ref["a"], "bfloat16"),
+                         (ours["b"]["c"], ref["b"]["c"], "float32")):
+            assert str(o.dtype).replace("torch.", "") == str(r.dtype) == dt
+            _assert_engine(o.float().numpy(),
+                           np.asarray(r).astype(np.float32), rule, dt,
+                           f"{ours_impl} mixed")

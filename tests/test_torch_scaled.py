@@ -183,14 +183,16 @@ def test_scaled_wrappers_check_their_operands():
 
 
 def test_scaled_tables_hold_the_coordinate_rules():
-    assert sorted(KERNEL_SCALED_RULES) == sorted(SCALED_RULES)
-    assert sorted(KERNEL_SCALED_MASKED_RULES) == sorted(SCALED_RULES)
+    assert sorted(KERNEL_SCALED_RULES) == sorted(SCALED_RULES
+                                                 + ["sparse_mean"])
+    assert sorted(KERNEL_SCALED_MASKED_RULES) == sorted(KERNEL_SCALED_RULES)
     for rule in SCALED_RULES:
         assert kernel_scaled_supported(rule)
         spec = make_spec(rule, f=F, native_dtype=True)
         assert spec.impl == "kernel"
         assert spec == make_spec(rule, f=F)
-    for rule in ("krum", "multi_krum", "mean", "sparse_mean"):
+    assert kernel_scaled_supported("sparse_mean")        # K21
+    for rule in ("krum", "multi_krum", "mean"):
         assert not kernel_scaled_supported(rule)
     with pytest.raises(ValueError, match="native_dtype"):
         make_spec("krum", f=F, native_dtype=True)
