@@ -183,6 +183,37 @@ sparse_mean (ROADMAP.md slice 4b) and the legacy ``ops`` sort paths add:
                3e-6 (bf16 leaves 2e-2), one masked kernel a dtype (krum:
                the imputed fallback with its warning).
 
+The defenses with memory and the defense-aware attacks (ROADMAP.md slice
+6) add:
+
+2h. clipped_weighted_sum — K22 against its plain version at n = 8, P =
+               124,668,672: fp32 rows with 8 and 6 of 8 lam > 0, bf16
+               rows with 8; inf / NaN on lam = 0 rows, every lam = 0 (the
+               output is v), sum lam = 1, n = 1, 3, 8, 64 and P = 1, 37,
+               4099 and the prime 65537 at a small width; times against
+               ``torch.addmv`` and the bound;
+3m. memory train — the phase-3b configuration through
+               ``train_loop(sim=...)``, 1 warm-up step and 2 timed steps
+               (int8: 1): centered_clip impl="kernel" under sign_flip on
+               the synchronous trace and under stragglers, centered_clip
+               impl="auto", zeno_pp, server_momentum(trimmed_mean),
+               spec_alie and min_max against kernel centered_clip,
+               slow_drift against server_momentum(trimmed_mean), and one
+               int8 kernel centered_clip step; the launch counts must show
+               5 K22 a step on kernel centered_clip (iters = 5), none under
+               auto and zeno_pp, one K5 a step for server_momentum(
+               trimmed_mean), and nothing from the attack probes (they run
+               the gather impl); one async step built, none synchronous.
+               Then one traced kernel centered_clip step (idle share, K22's
+               device time) and, on its buffer, the clip-radius stage's
+               time apart from K22;
+4m. memory kernel vs gather — one full-width async step of centered_clip
+               with impl="kernel" against impl="gather" from the same
+               state, with a nonzero server_grad carried from an earlier
+               step, under sign_flip and under min_max: equal arenas (the
+               attacked one included) and losses; the aggregate, the new
+               server_grad and each of the 5 iterates within 3e-6.
+
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
 not available.
@@ -269,6 +300,8 @@ SOURCES = {
         "src/repro/kernels/wsum.py:227"),
     "coord_sort": ("src/repro_torch/kernels/csrc/coord_sort.cu",
                    "src/repro/kernels/coord_stats.py:53"),
+    "clipped_weighted_sum": ("src/repro_torch/kernels/csrc/clipped_wsum.cu",
+                             "src/repro/kernels/wsum.py:138"),
 }
 SYNC_KERNELS = ("coord_stat", "gram", "krum_select", "weighted_sum",
                 "sign_vote")
@@ -1855,6 +1888,99 @@ def sort_hazard_checks():
 
 
 # ---------------------------------------------------------------------------
+# phase 2h
+
+K22 = "clipped_weighted_sum"
+K22_LIBRARY = "torch.addmv(v, g.t(), lam, beta=1 - sum lam)"
+
+
+def cclip_kernel_checks(num_params):
+    """K22 clipped_weighted_sum against its plain version at n = 8, P =
+    124,668,672: fp32 rows with 8 and 6 of 8 lam > 0 (the async buffer;
+    the 2 dead rows never read) and bf16 rows with 8; exact.  Times of
+    the kernel, the plain version and ``torch.addmv`` (fp32: the same
+    function in one call; bf16: a partial yardstick, addmv taking one
+    dtype), and the bound.  The summary takes fp32 with 8 live rows."""
+    from repro_torch import kernels
+    from repro_torch.kernels.wsum import clipped_weighted_sum_plain
+
+    P = num_params
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    summary = {K22: {"max_abs_err": 0.0}}
+    v = torch.randn(P, generator=gen, device=DEVICE) * 1e-3
+    for dtype, live in ((torch.float32, N), (torch.float32, 6),
+                        (torch.bfloat16, N)):
+        x = (torch.randn((N, P), generator=gen, device=DEVICE)
+             * 1e-3).to(dtype)
+        lam = torch.rand(N, generator=gen, device=DEVICE) / N
+        lam[live:] = 0.0
+        err = max_abs_err(kernels.clipped_weighted_sum(lam, x, v),
+                          clipped_weighted_sum_plain(lam, x, v))
+        keep = float(1.0 - lam.sum())
+        if dtype == torch.float32:
+            label = K22_LIBRARY
+            library = (lambda: torch.addmv(v, x.t(), lam, beta=keep))
+        else:
+            vb, lb = v.to(dtype), lam.to(dtype)
+            label = (K22_LIBRARY + " in bf16: a partial yardstick (addmv "
+                     "takes one dtype, so v, lam and the sum are bf16)")
+            library = (lambda: torch.addmv(vb, x.t(), lb, beta=keep))
+        kw = timing(lambda: kernels.clipped_weighted_sum(lam, x, v),
+                    lambda: clipped_weighted_sum_plain(lam, x, v), 10, 2,
+                    live * P * x.element_size() + 8 * P + 4 * N,
+                    2 * live * P + 2 * P, library=library, label=label)
+        check(K22, err == 0.0, dtype=str(dtype).replace("torch.", ""),
+              shape=[N, P], live=live, max_abs_diff=err, exact=err == 0.0,
+              **kw)
+        note(summary, K22, err,
+             kw if dtype == torch.float32 and live == N else None)
+        del x
+        torch.cuda.empty_cache()
+    cclip_hazard_checks()
+    return summary
+
+
+def cclip_hazard_checks():
+    """K22 at small widths (P = 1, 37, 4099 and the prime 65537) and n = 1,
+    3, 8, 64, fp32 and bf16: inf / NaN in the rows with lam = 0 (never
+    read: the output stays finite), every lam = 0 (the output is v
+    exactly), sum lam = 1 and plain weights; exact against the plain
+    version."""
+    from repro_torch import kernels
+    from repro_torch.kernels.wsum import clipped_weighted_sum_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    for n, d in ((1, 1), (3, 4099), (8, 65537), (64, 37), (8, 1)):
+        for dtype in (torch.float32, torch.bfloat16):
+            errs, props = [], True
+            for case in ("live", "dead_nonfinite", "all_zero", "sum_one"):
+                g = torch.randn((n, d), generator=gen, device=DEVICE) * 2.0
+                lam = torch.rand(n, generator=gen, device=DEVICE) / n
+                v = torch.randn(d, generator=gen, device=DEVICE)
+                if case == "dead_nonfinite":
+                    lam[::2] = 0.0
+                    g[::2, ::3] = math.inf
+                    g[::2, 1::3] = math.nan
+                elif case == "all_zero":
+                    lam.zero_()
+                elif case == "sum_one":
+                    lam.fill_(1.0 / n)
+                g = g.to(dtype)
+                out = kernels.clipped_weighted_sum(lam, g, v)
+                errs.append(max_abs_err(
+                    out, clipped_weighted_sum_plain(lam, g, v)))
+                props &= bool(torch.isfinite(out).all())
+                if case == "all_zero":
+                    props &= torch.equal(out, v)
+            torch.cuda.synchronize()
+            check("clipped_weighted_sum_hazards",
+                  props and max(errs) == 0.0, of=K22, n=n,
+                  dtype=str(dtype).replace("torch.", ""), shape=[n, d],
+                  cases=["live", "dead_nonfinite", "all_zero", "sum_one"],
+                  max_abs_diff=max(errs))
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4
 
 
@@ -2572,6 +2698,256 @@ def phase_sparse_vs_gather(cfg):
     mixed_tree_checks()
 
 
+# ---------------------------------------------------------------------------
+# phases 3m and 4m: the defenses with memory and the defense-aware attacks
+
+CCLIP_ITERS = 5             # centered_clip's default iters: K22 a step
+
+
+def memory_cases():
+    """(label, spec, attack, trace, agg_dtype, timed steps, the kernels of
+    one step) of phase 3m: the phase-3b configuration through
+    ``train_loop`` with a stateful spec or a defense-aware attack."""
+    from repro_torch.core.aggregators import make_spec, server_momentum
+    cck = make_spec("centered_clip", f=F, n=N, impl="kernel")
+    smt = server_momentum(make_spec("trimmed_mean", f=F, n=N))
+    k22 = {K22: CCLIP_ITERS}
+    k5 = {"masked_coord_stat": 1}
+    return [
+        ("centered_clip kernel", cck, "sign_flip", "sync", "", 2, k22),
+        ("centered_clip kernel", cck, "sign_flip", "stragglers", "", 2, k22),
+        ("centered_clip auto", make_spec("centered_clip", f=F, n=N),
+         "sign_flip", "stragglers", "", 2, {}),
+        ("zeno_pp", make_spec("zeno_pp", f=F, n=N), "sign_flip",
+         "stragglers", "", 2, {}),
+        ("server_momentum(trimmed_mean)", smt, "sign_flip", "stragglers",
+         "", 2, k5),
+        ("spec_alie vs centered_clip kernel", cck, "spec_alie",
+         "stragglers", "", 2, k22),
+        ("min_max vs centered_clip kernel", cck, "min_max", "stragglers",
+         "", 2, k22),
+        ("slow_drift vs server_momentum(trimmed_mean)", smt, "slow_drift",
+         "stragglers", "", 2, k5),
+        ("centered_clip kernel int8", cck, "sign_flip", "stragglers",
+         "int8", 1, k22),
+    ]
+
+
+def phase_memory(cfg):
+    """Phase 3m: per case of :func:`memory_cases`, 1 untimed warm-up step
+    and the timed steps through ``train_loop`` (on the synchronous trace
+    too, every row runs the general async step: the state must see each
+    step).  The launch counts, reset just before the timed run and read
+    just after, must show the case's kernels per step and no other (the
+    attack probes run the gather impl: no launch), one async step built
+    and no synchronous one, and no engine-level dequantization."""
+    from repro_torch import kernels
+    from repro_torch.data import SyntheticLM
+    from repro_torch.obs.counters import counter_delta, snapshot
+    from repro_torch.optim import adamw, constant
+    from repro_torch.training import ByzantineConfig, train_loop
+
+    totals = {k: 0 for k in SOURCES}
+    step_ms_by_case = {}
+    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT)
+    for label, spec, attack, trace, qdt, steps, per_step in memory_cases():
+        sim = straggler_sim() if trace == "stragglers" else None
+        bz = ByzantineConfig(n_agents=N, f=F, aggregator=spec, attack=attack,
+                             remat=True, agg_dtype=qdt)
+        train_loop(cfg, bz, adamw(constant(1e-4)), ds, steps=1, seed=0,
+                   device=DEVICE, sim=sim, log_fn=lambda s: None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = snapshot()
+        kernels.reset_launch_counts()
+        with DequantCount() as dq:
+            _, hist = train_loop(cfg, bz, adamw(constant(1e-4)), ds,
+                                 steps=steps, seed=0, device=DEVICE, sim=sim,
+                                 log_every=1, log_fn=lambda s: None)
+        counts = kernels.launch_counts()
+        torch.cuda.synchronize()
+        built = counter_delta(before)
+        peak = torch.cuda.max_memory_allocated()
+        wall = [h["wall_s"] for h in hist]
+        step_ms = [1e3 * (b - a) for a, b in zip([0.0] + wall[:-1], wall)]
+        losses = [h["loss"] for h in hist]
+        want = {k: steps * per_step.get(k, 0) for k in SOURCES}
+        key = f"{label}, {trace}" + (f", {qdt}" if qdt else "")
+        step_ms_by_case[key] = statistics.median(step_ms)
+        emit("memory", case=label, spec=spec.describe(), impl=spec.impl,
+             attack=attack, trace=trace, agg_dtype=qdt or None, steps=steps,
+             arrived=[h["arrived"] for h in hist], losses=losses,
+             step_ms=step_ms, median_step_ms=step_ms_by_case[key],
+             peak_mem_gb=peak / 1e9, launches=counts, steps_built=built,
+             engine_dequant=dq.n)
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"memory {key}: non-finite loss {losses}")
+        if counts != want:
+            fail(f"memory {key}: kernel launches {counts}, expected {want}")
+        if built != {"async_step": 1}:
+            fail(f"memory {key}: built {built}, expected one async step")
+        if dq.n:
+            fail(f"memory {key}: {dq.n} engine dequantizations")
+        for k, v in counts.items():
+            totals[k] += v
+    return totals, step_ms_by_case
+
+
+def memory_profile(cfg):
+    """One traced async step of kernel centered_clip (row 2 of the
+    straggler trace, after a warm-up step): step ms, device busy, idle
+    share, K22's device time and the top device events; then, on that
+    step's buffer, the device time of the clip-radius stage (the row norms
+    of one iteration, plain torch) apart from K22, and of the whole
+    ``aggregate_flat`` on each impl."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.aggregators import (_cclip_lam, _masked_prelude,
+                                              make_spec)
+    from repro_torch.optim import adamw, constant
+    from repro_torch.simulator import make_async_step
+    from repro_torch.training import ByzantineConfig
+
+    params, buffer, batch, refresh, cw = async_setup(cfg, 5)
+    spec = make_spec("centered_clip", f=F, n=N, impl="kernel")
+    opt = adamw(constant(1e-4))
+    bz = ByzantineConfig(n_agents=N, f=F, aggregator=spec,
+                         attack="sign_flip", remat=True)
+    step = make_async_step(cfg, bz, opt, device=DEVICE)
+    ost = opt.init(params)
+    st = spec.init_state(params)
+    args = (batch, None, refresh, cw)
+    _, _, _, _, st, _ = step(params, ost, None, buffer, st, *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, _, _, st, _ = step(params, ost, None, buffer, st, *args)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, _, _, st, _ = step(params, ost, None, buffer, st, *args)
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    busy, span, by_name = device_busy(prof)
+    seen = busy > 0
+    k22 = sum(t for k, t in by_name.items() if "clipped_wsum_kernel" in k)
+    top = sorted(by_name.items(), key=lambda r: -r[1])[:8]
+    mask, w, _, tot = _masked_prelude(cw > 0, cw)
+    wn = w / tot
+    tau = torch.tensor(1.0, device=DEVICE)
+    v = st["server_grad"]
+    norm_ms = time_ms(lambda: _cclip_lam(buffer, mask, wn, v, tau), 5)
+    agg_ms = {}
+    for impl in ("kernel", "gather"):
+        sp = make_spec("centered_clip", f=F, n=N, impl=impl)
+        agg_ms[impl] = time_ms(
+            lambda: sp.aggregate_flat(buffer, mask, cw, state=st), 3)
+    emit("profile_memory", rule="centered_clip", impl="kernel", n=N,
+         step_ms=wall_ms, traced_step_ms=traced_ms,
+         device_busy_ms=busy if seen else "not measured",
+         device_span_ms=span if seen else "not measured",
+         device_idle_share=(1 - busy / wall_ms) if seen else "not measured",
+         k22_device_ms_per_step=k22 if seen else "not measured",
+         norm_stage_ms_per_iteration=norm_ms,
+         aggregate_flat_ms=agg_ms,
+         top_device_events_ms=[[k[:60], t] for k, t in top])
+    del params, buffer, batch, ost, st
+    torch.cuda.empty_cache()
+    return {"norm_stage_ms_per_iteration": norm_ms,
+            "aggregate_flat_ms": agg_ms}
+
+
+def memory_pair(cfg, attack, params, buffer, batch, refresh, cw, carried):
+    """One full-width async step of centered_clip with impl="kernel" and
+    with impl="gather" from the same parameters, fresh optimizer state,
+    buffer, trace row and carried state under ``attack``; returns (store,
+    losses, the new states)."""
+    from repro_torch.core.aggregators import make_spec
+    from repro_torch.optim import adamw, constant
+    from repro_torch.simulator import make_async_step
+    from repro_torch.training import ByzantineConfig
+
+    store, losses, states = {}, {}, {}
+    for impl in ("kernel", "gather"):
+        spec = recorded(make_spec("centered_clip", f=F, n=N, impl=impl),
+                        store)
+        bz = ByzantineConfig(n_agents=N, f=F, aggregator=spec, attack=attack,
+                             remat=True)
+        opt = adamw(constant(1e-4))
+        step = make_async_step(cfg, bz, opt, device=DEVICE)
+        p = _clone(params)
+        st = {"server_grad": carried.clone()}
+        if attack != "sign_flip":
+            st = {"agg": st, "atk": {}}
+        _, _, _, _, st, met = step(p, opt.init(p), None, buffer.clone(), st,
+                                   batch, None, refresh, cw)
+        losses[impl] = float(met["loss"])
+        states[impl] = st.get("agg", st)["server_grad"]
+        del p
+    return store, losses, states
+
+
+def phase_memory_vs_gather(cfg):
+    """Phase 4m: kernel against gather for centered_clip, from one state
+    (seed 6, row 2 of the straggler trace) with a nonzero ``server_grad``
+    carried from an earlier gather step: under sign_flip and under
+    min_max (whose probes run the gather impl on both paths), the arenas,
+    mask and weights equal and the losses equal; the aggregate, the new
+    ``server_grad`` and each of the 5 iterates within 3e-6."""
+    from repro_torch.core.aggregators import cclip_iterates, make_spec
+    from repro_torch.optim import adamw, constant
+    from repro_torch.simulator import make_async_step
+    from repro_torch.training import ByzantineConfig
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    params, buffer, batch, refresh, cw = async_setup(cfg, 6)
+    spec = make_spec("centered_clip", f=F, n=N, impl="gather")
+    opt = adamw(constant(1e-4))
+    step = make_async_step(cfg, ByzantineConfig(
+        n_agents=N, f=F, aggregator=spec, attack="sign_flip", remat=True),
+        opt, device=DEVICE)
+    p = _clone(params)
+    _, _, _, buffer, carried, _ = step(p, opt.init(p), None, buffer,
+                                       spec.init_state(p), batch, None,
+                                       refresh, cw)
+    carried = carried["server_grad"]
+    del p, step
+    for attack in ("sign_flip", "min_max"):
+        store, losses, states = memory_pair(cfg, attack, params, buffer,
+                                            batch, refresh, cw, carried)
+        (xk, mk, wk, ak, _), (xg, mg, wg, ag, _) = (store["kernel"],
+                                                    store["gather"])
+        same_arena = same(xk, xg) and same(mk, mg) and same(wk, wg)
+        close = {"aggregate": (ak, ag),
+                 "server_grad": (states["kernel"], states["gather"])}
+        st = {"server_grad": carried}
+        its = zip(cclip_iterates(make_spec("centered_clip", f=F, n=N,
+                                           impl="kernel"), xk, mk, wk, st),
+                  cclip_iterates(make_spec("centered_clip", f=F, n=N,
+                                           impl="gather"), xg, mg, wg, st))
+        for i, pair in enumerate(its, 1):
+            close[f"iterate_{i}"] = pair
+        errs = {k: max_abs_err(a, b) for k, (a, b) in close.items()}
+        within = {k: bool(torch.allclose(a, b, rtol=TOL, atol=TOL))
+                  for k, (a, b) in close.items()}
+        ok = (same_arena and all(within.values())
+              and len(close) == 2 + CCLIP_ITERS
+              and losses["kernel"] == losses["gather"])
+        emit("memory_vs_gather", rule="centered_clip", attack=attack, ok=ok,
+             same_arena=same_arena, max_abs_diff=errs, within_3e6=within,
+             loss_kernel=losses["kernel"], loss_gather=losses["gather"],
+             carried_norm=float(torch.linalg.vector_norm(carried)))
+        del store, close, its
+        torch.cuda.empty_cache()
+        if not ok:
+            fail(f"memory_vs_gather {attack}: arena equal {same_arena}, "
+                 f"errors {errs}, losses {losses}")
+    torch.use_deterministic_algorithms(False)
+    del params, buffer, batch, carried
+    torch.cuda.empty_cache()
+
+
 # the kernels each rule's kernel impl launches on a masked bf16 + fp32 tree
 MIXED_TREE_KERNELS = {
     "coordinate_median": {"masked_coord_stat": 2},
@@ -2642,7 +3018,7 @@ OUR_KERNELS = ("coord_stat_kernel", "gram_reg_kernel", "gram_partial_kernel",
                "multi_krum_order_kernel", "iterative_order_kernel",
                "ordered_apply_kernel", "bulyan_coord_kernel",
                "sign_vote_kernel", "sparse_wmean_kernel",
-               "coord_sort_kernel")
+               "coord_sort_kernel", "clipped_wsum_kernel")
 
 
 def device_busy(prof):
@@ -2768,6 +3144,7 @@ def main():
     summary.update(sort_summary)
     del arena
     torch.cuda.empty_cache()
+    summary.update(cclip_kernel_checks(num_params(cfg)))
     sync_rules = {**{r: (N, {}, RULE_KERNELS[r]) for r in RULES},
                   **SIGN_RULES}
     totals = phase_train(cfg, sync_rules, STEPS)
@@ -2789,6 +3166,7 @@ def main():
     asq_totals, asq_step_ms = phase_async(cfg, SPARSE_AQUANT, QUANT_STEPS,
                                           agg_dtype="int8")
     sparse_totals += [asparse_totals, asq_totals, sort_counts]
+    memory_totals, memory_step_ms = phase_memory(cfg)
     phase_profile(cfg, {"trimmed_mean": (N, {}, ()), "krum": (N, {}, ()),
                         **SEL_RULES, "sparse_mean": (N, {}, ())})
     phase_profile_async(cfg, {**{r: (N, 6, {}) for r in RULES},
@@ -2801,6 +3179,8 @@ def main():
     phase_masked_vs_gather(cfg, {**ASYNC_RULES, **ASYNC_SEL_RULES})
     phase_quant_vs_gather(cfg)
     phase_sparse_vs_gather(cfg)
+    memory_stage_ms = memory_profile(cfg)
+    phase_memory_vs_gather(cfg)
     kern = []
     for name, (src, replaces) in SOURCES.items():
         s = summary[name]
@@ -2811,7 +3191,8 @@ def main():
                                   + asel_totals[name]
                                   + sum(t[name] for t in quant_totals)
                                   + aquant_totals[name]
-                                  + sum(t[name] for t in sparse_totals)),
+                                  + sum(t[name] for t in sparse_totals)
+                                  + memory_totals[name]),
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": s["bound_by"],
@@ -2825,7 +3206,9 @@ def main():
          async_quant_median_step_ms=aquant_step_ms,
          async_sparse_median_step_ms={"float32": asparse_step_ms,
                                       "int8": asq_step_ms},
-         sign_vote_on_codes=summary["sign_vote_codes"])
+         sign_vote_on_codes=summary["sign_vote_codes"],
+         memory_median_step_ms=memory_step_ms,
+         centered_clip_stages=memory_stage_ms)
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,14 +4,17 @@ The JAX side hands over ``jax.tree.map(np.asarray, params)``: a nested
 dict of numpy arrays in the JAX layout, which the port shares.  bf16
 leaves arrive as ml_dtypes ``bfloat16`` arrays; they are moved bit for
 bit through a ``uint16`` view (keyed on ``arr.dtype.name``, so neither
-jax nor ml_dtypes is imported here).
+jax nor ml_dtypes is imported here).  An aggregator state crosses with
+:func:`agg_state_from_numpy` / :func:`agg_state_to_numpy`: the JAX
+``server_grad`` tree is the port's one (P,) vector in the same leaf order.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import (tree_items, tree_leaves, tree_map,
+                              tree_unflatten)
 
 
 def tensor_from_numpy(arr, device="cpu"):
@@ -76,4 +79,46 @@ def opt_state_to_numpy(state):
     for k in ("m", "v", "mu"):
         if k in state:
             out[k] = params_to_numpy(state[k])
+    return out
+
+
+def agg_state_from_numpy(state, device="cpu"):
+    """A JAX aggregator state (``spec.init_state`` / the async loop's
+    ``agg_state``, numpy leaves) -> the port's: every ``server_grad``
+    tree ravelled into one fp32 (P,) vector in its leaf order, nested
+    ``"inner"`` states and the ``{"agg", "atk"}`` bundle kept, any other
+    leaf (``atk``'s ``t``) a tensor."""
+    out = {}
+    for k, v in state.items():
+        if k == "server_grad":
+            leaves = [np.asarray(l, np.float32).reshape(-1)
+                      for l in tree_leaves(v)]
+            out[k] = torch.from_numpy(np.concatenate(leaves)).to(device)
+        elif isinstance(v, dict):
+            out[k] = agg_state_from_numpy(v, device)
+        else:
+            out[k] = tensor_from_numpy(v, device)
+    return out
+
+
+def agg_state_to_numpy(state, proto):
+    """The port's aggregator state -> the JAX form: each ``server_grad``
+    vector unravelled into an fp32 numpy tree shaped like ``proto`` (a
+    single-agent parameter tree, numpy or tensors)."""
+    shapes = [tuple(np.shape(l)) for l in tree_leaves(proto)]
+    out = {}
+    for k, v in state.items():
+        if k == "server_grad":
+            flat = tensor_to_numpy(v)
+            parts, o = [], 0
+            for shp in shapes:
+                size = int(np.prod(shp, dtype=np.int64))
+                parts.append(flat[o:o + size].reshape(shp))
+                o += size
+            out[k] = tree_unflatten([p for p, _ in tree_items(proto)],
+                                    parts)
+        elif isinstance(v, dict):
+            out[k] = agg_state_to_numpy(v, proto)
+        else:
+            out[k] = tensor_to_numpy(v)
     return out

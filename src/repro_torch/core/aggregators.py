@@ -12,8 +12,10 @@ Counterpart of ``repro.core.aggregators`` for the rules ported so far:
 
 Registered so far: ``mean``, ``coordinate_median``, ``trimmed_mean``,
 ``krum``, the selection family ``cge``, ``multi_krum``, ``m_krum``,
-``mda`` and ``bulyan``, the 1-bit vote ``sign_sgd``, and the sparse /
-dropout-aware ``sparse_mean`` of the compressed exchange.  Impls:
+``mda`` and ``bulyan``, the 1-bit vote ``sign_sgd``, the sparse /
+dropout-aware ``sparse_mean`` of the compressed exchange, and the
+defenses with memory ``centered_clip``, ``zeno_pp`` and the
+``server_momentum`` wrapper.  Impls:
 
 * ``kernel`` — the hand-written CUDA kernels (:mod:`repro_torch.kernels`),
   the JAX package's ``pallas``.  On a CPU tensor each kernel wrapper runs
@@ -32,9 +34,10 @@ leaf-wise ``fused`` impl reads it (ROADMAP.md slice 11), and the flat
 path ignores it there too.
 
 A rule whose law is neither of the engine's (``sparse_mean``: per-
-coordinate weights) owns its route: ``flat_fn`` takes the whole
-``aggregate_flat`` call (mask, raw weights, row scales) and ``custom_fn``
-the whole tree call, before the engine's synchronous and masked paths.
+coordinate weights; the stateful rules) owns its route: ``flat_fn`` takes
+the whole ``aggregate_flat`` call (mask, raw weights, state, row scales)
+and ``custom_fn`` the whole tree call, before the engine's synchronous and
+masked paths.
 
 Masked / staleness-weighted aggregation (``mask=``, ``weights=``): the
 coordinate-wise rules take the order statistic over the ARRIVED rows only
@@ -59,7 +62,18 @@ the gather impl, dequantizes the (n, P) arena first
 (``core.flat.dequantize_rows``, with a one-time warning on the kernel
 impl), as the JAX engine does.
 
-Wrappers, state and telemetry come with ROADMAP.md slices 3, 6 and 7.
+State and wrappers (the defenses with memory): a stateful rule carries
+its memory between steps (``spec.init_state(proto)``, passed back as
+``aggregate_flat(..., state=)``, advanced by ``spec.update_state(state,
+agg)`` after each aggregate); on the arena the port keeps ``server_grad``
+as ONE fp32 (P,) vector in the JAX leaf order, which the JAX state tree
+ravels onto exactly.  ``centered_clip`` (its flat law runs K22 under an
+explicit ``impl="kernel"``; ``auto`` keeps the dense body) and
+``zeno_pp`` are stateful rules; ``server_momentum(inner, beta)`` is a
+composition WRAPPER: it aggregates with its ``inner`` spec, and an inner
+rule's state nests under ``state["inner"]``.  ``clipped``, ``bucketed``
+and ``staleness_discounted`` come with ROADMAP.md item 15, selection
+telemetry with slice 7.
 """
 from __future__ import annotations
 
@@ -244,6 +258,12 @@ class AggregatorDef:
     # coordinate weights fit neither engine law)
     flat_fn: Optional[Callable] = None
     custom_fn: Optional[Callable] = None
+    # the state protocol: keys that must arrive through ``state=``, never
+    # as a hyper; (spec, proto) -> state and (spec, state, agg) -> state
+    state_keys: frozenset = frozenset()
+    init_state_fn: Optional[Callable] = None
+    update_state_fn: Optional[Callable] = None
+    is_wrapper: bool = False       # needs an inner spec (server_momentum)
     tags: tuple = ()               # e.g. ("compressed",)
 
 
@@ -254,6 +274,8 @@ def register_aggregator(name: str, *, caps: AggregatorCaps,
                         hyper: tuple = (), gather: tuple = (),
                         impl_keys: tuple = (), dense_fn=None,
                         masked_fn=None, flat_fn=None, custom_fn=None,
+                        state_keys: tuple = (), init_state=None,
+                        update_state=None, is_wrapper: bool = False,
                         tags: tuple = ()):
     """Register an aggregation rule (raises on a duplicate name)."""
     if name in REGISTRY:
@@ -262,7 +284,9 @@ def register_aggregator(name: str, *, caps: AggregatorCaps,
         name=name, caps=caps, hyper_keys=frozenset(hyper),
         gather_keys=frozenset(gather), impl_keys=frozenset(impl_keys),
         dense_fn=dense_fn, masked_fn=masked_fn, flat_fn=flat_fn,
-        custom_fn=custom_fn, tags=tuple(tags))
+        custom_fn=custom_fn, state_keys=frozenset(state_keys),
+        init_state_fn=init_state, update_state_fn=update_state,
+        is_wrapper=is_wrapper, tags=tuple(tags))
     return REGISTRY[name]
 
 
@@ -291,6 +315,7 @@ class AggregatorSpec:
     f: int = 0
     hyper: tuple = ()                 # sorted ((key, value), ...)
     impl: str = "gather"              # kernel | gather
+    inner: Optional["AggregatorSpec"] = None   # a wrapper's inner spec
     n: Optional[int] = None           # static agent count (n_max if elastic)
     # elastic-n: the bucketed live-count range this spec was built for;
     # ``respecialize(n_live)`` selects the per-bucket concrete spec
@@ -303,7 +328,18 @@ class AggregatorSpec:
 
     @property
     def stateful(self) -> bool:
-        return self.caps.stateful
+        """True iff this rule, or any rule of its wrapper chain, carries
+        state."""
+        return self.caps.stateful or (self.inner is not None
+                                      and self.inner.stateful)
+
+    @property
+    def elastic_n(self) -> Optional[ElasticN]:
+        """The ElasticN governing this spec: its own, or its wrapper
+        chain's (a wrapper delegates elasticity to its inner rule)."""
+        if self.elastic is not None:
+            return self.elastic
+        return self.inner.elastic_n if self.inner is not None else None
 
     def hp(self, key: str, default=None):
         return dict(self.hyper).get(key, default)
@@ -312,7 +348,32 @@ class AggregatorSpec:
         h = ", ".join(f"{k}={v}" for k, v in self.hyper)
         el = (f", elastic[{'/'.join(map(str, self.elastic.buckets))}]"
               if self.elastic else "")
-        return f"{self.name}(f={self.f}{', ' + h if h else ''}{el})"
+        inner = f" -> {self.inner.describe()}" if self.inner else ""
+        return f"{self.name}(f={self.f}{', ' + h if h else ''}{el})" + inner
+
+    def init_state(self, proto):
+        """The initial state for a single-agent prototype (a parameter
+        tree, or a (P,) vector): ``{}`` for a stateless rule, an inner
+        rule's state nested under ``"inner"``."""
+        d = get_aggregator_def(self.name)
+        state = d.init_state_fn(self, proto) if d.init_state_fn else {}
+        if self.inner is not None and self.inner.stateful:
+            state = {**state, "inner": self.inner.init_state(proto)}
+        return state
+
+    def update_state(self, state, agg):
+        """The state after a step whose aggregate was ``agg`` (the
+        unraveled tree, or its (P,) ravel): the inner rule's state first,
+        from the same aggregate, then this rule's."""
+        d = get_aggregator_def(self.name)
+        inner_state = None
+        if self.inner is not None and self.inner.stateful:
+            inner_state = self.inner.update_state(state["inner"], agg)
+        new = (d.update_state_fn(self, state, agg) if d.update_state_fn
+               else dict(state))
+        if inner_state is not None:
+            new = {**new, "inner": inner_state}
+        return new
 
     def respecialize(self, n_live: int) -> "AggregatorSpec":
         """The concrete spec serving a live roster of ``n_live`` agents:
@@ -342,6 +403,7 @@ class AggregatorSpec:
         where ``mask`` is False."""
         if isinstance(grads, torch.Tensor):
             return self.aggregate_flat(grads, mask, weights, state)
+        self._check_state(state)
         d = get_aggregator_def(self.name)
         if d.custom_fn is not None:
             return d.custom_fn(self, grads, mask, weights, state)
@@ -350,16 +412,22 @@ class AggregatorSpec:
             vec = self.aggregate_flat(plan.ravel(grads, torch.float32),
                                       state=state)
             return plan.unravel(vec)
-        if plan.uniform_dtype is not None:
+        if plan.uniform_dtype is not None or self.stateful:
             # ravel in the leaves' own dtype: the engine's double rounding
             # through the arena dtype is then the tree engine's per-leaf
-            # rounding (bit-for-bit with the JAX masked tree path)
+            # rounding (bit-for-bit with the JAX masked tree path).  A
+            # stateful rule's own law is fp32 per coordinate, so a mixed
+            # tree takes its fp32 ravel
             return plan.unravel(self.aggregate_flat(
                 plan.ravel(grads), mask, weights, state))
-        if state is not None:
-            raise NotImplementedError(
-                "stateful rules come with ROADMAP.md slice 6")
         return _masked_mixed_tree(self, d, grads, plan, mask, weights)
+
+    def _check_state(self, state):
+        if self.stateful and state is None:
+            raise ValueError(
+                f"{self.describe()} is stateful: pass "
+                "state=spec.init_state(proto) (called on THIS spec — for "
+                "composed specs it nests the inner state correctly)")
 
     def aggregate_flat(self, stack, mask=None, weights=None, state=None,
                        scale=None):
@@ -380,9 +448,7 @@ class AggregatorSpec:
                 f"scale= goes with a quantized arena "
                 f"({' or '.join(sorted(QUANT_DTYPES))} codes), got "
                 f"{stack.dtype}")
-        if state is not None:
-            raise NotImplementedError(
-                "stateful rules come with ROADMAP.md slice 6")
+        self._check_state(state)
         if self.n is not None and stack.shape[0] != self.n:
             raise ValueError(f"{self.describe()} was built for n={self.n}, "
                              f"got a stack of {stack.shape[0]} rows")
@@ -402,6 +468,10 @@ def _respecialize(spec: AggregatorSpec, n_live: int) -> AggregatorSpec:
     """Cached: repeat calls for the same (spec, n_live) return the SAME
     object."""
     if spec.elastic is None:
+        if spec.inner is not None and spec.inner.elastic_n is not None:
+            # a wrapper keyed on its RESOLVED inner spec: every n_live of
+            # one bucket gives the same wrapper object
+            return _with_inner(spec, _respecialize(spec.inner, n_live))
         if spec.n is None or spec.n == n_live:
             return spec
         raise ValueError(
@@ -415,9 +485,18 @@ def _respecialize(spec: AggregatorSpec, n_live: int) -> AggregatorSpec:
 def _bucket_spec(spec: AggregatorSpec, b: int) -> AggregatorSpec:
     """The concrete per-bucket spec of an elastic spec (cached)."""
     f_b = spec.f_policy.resolve(b) if spec.f_policy is not None else spec.f
-    out = dataclasses.replace(spec, n=b, f=f_b, elastic=None, f_policy=None)
+    inner = spec.inner
+    if inner is not None and inner.elastic_n is not None:
+        inner = inner.respecialize(b)
+    out = dataclasses.replace(spec, n=b, f=f_b, elastic=None, f_policy=None,
+                              inner=inner)
     _warm_plan(out, b)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _with_inner(spec: AggregatorSpec, inner: AggregatorSpec):
+    return dataclasses.replace(spec, inner=inner)
 
 
 def _warm_plan(spec: AggregatorSpec, n: int):
@@ -426,6 +505,8 @@ def _warm_plan(spec: AggregatorSpec, n: int):
         mda_combos(n, spec.f)
     if spec.name == "trimmed_mean":
         trim_count(n, spec.f, spec.hp("beta"))
+    if spec.inner is not None:
+        _warm_plan(spec.inner, n)
 
 
 # ---------------------------------------------------------------------------
@@ -633,7 +714,7 @@ def kernel_available(name: str) -> bool:
     """True iff ``name`` has a kernel path AND its caps declare the
     matching structure (coordinate-wise or Gram-derivable)."""
     d = get_aggregator_def(name)
-    if not (d.caps.coordwise or d.caps.pairwise):
+    if d.is_wrapper or not (d.caps.coordwise or d.caps.pairwise):
         return False
     from repro_torch.kernels import kernel_supported
     return kernel_supported(name)
@@ -665,6 +746,12 @@ def _resolve_impl(name: str, impl: str, hyper: dict | None = None) -> str:
     if impl == "auto":
         return "kernel" if supported else "gather"
     if impl == "kernel" and not supported:
+        from repro_torch.kernels.dispatch import FLAT_SELF_KERNELED
+        if name in FLAT_SELF_KERNELED:
+            # the rule's flat_fn launches its own kernel stages
+            # (centered_clip's K22); ``auto`` does not select it, since
+            # the kernel's sum association differs from the dense body
+            return impl
         reason = ("its hyper-parameters select a non-kernelized variant"
                   if kernel_available(name) else
                   "no kernel is registered for it")
@@ -674,9 +761,11 @@ def _resolve_impl(name: str, impl: str, hyper: dict | None = None) -> str:
 
 
 def make_spec(name: str, f: "int | FracF" = 0, impl: str = "auto",
+              inner: AggregatorSpec | None = None,
               n: "int | ElasticN | None" = None, **hyper) -> AggregatorSpec:
-    """Build a validated :class:`AggregatorSpec` (unknown hyper keys and
-    unsupported impls raise here).
+    """Build a validated :class:`AggregatorSpec` (unknown hyper keys,
+    state keys passed as hypers and unsupported impls raise here; a
+    wrapper needs ``inner=``, any other rule takes none).
 
     ``n=elastic(n_max, buckets=...)`` builds an ELASTIC spec: every
     bucket's concrete spec is prebuilt here and
@@ -699,8 +788,16 @@ def make_spec(name: str, f: "int | FracF" = 0, impl: str = "auto",
         raise ValueError(f"f must be an int >= 0 or frac(...), got {f!r}")
     if n_int is not None and not isinstance(n_int, int):
         raise ValueError(f"n must be an int or elastic(...), got {n!r}")
+    if d.is_wrapper and inner is None:
+        raise ValueError(f"{name} is a composition wrapper: pass inner=")
+    if not d.is_wrapper and inner is not None:
+        raise ValueError(f"{name} takes no inner spec")
     plain = {}
     for k, v in hyper.items():
+        if k in d.state_keys:
+            raise ValueError(
+                f"{name}: {k!r} is aggregator STATE, not a hyper-parameter "
+                f"— pass it via state= (see AggregatorSpec.init_state)")
         if k in d.hyper_keys:
             plain[k] = v
         elif k not in d.impl_keys:
@@ -708,8 +805,8 @@ def make_spec(name: str, f: "int | FracF" = 0, impl: str = "auto",
                 f"{name}: unknown hyper-parameter {k!r} "
                 f"(allowed: {sorted(d.hyper_keys | d.impl_keys)})")
     spec = AggregatorSpec(name=name, f=f, hyper=tuple(sorted(plain.items())),
-                          impl=_resolve_impl(name, impl, plain), n=n_int,
-                          elastic=el, f_policy=f_policy)
+                          impl=_resolve_impl(name, impl, plain), inner=inner,
+                          n=n_int, elastic=el, f_policy=f_policy)
     if el is not None:
         for b in el.buckets:          # prebuild every bucket's spec NOW
             _bucket_spec(spec, b)
@@ -851,3 +948,269 @@ register_aggregator(
     caps=AggregatorCaps(coordwise=True),
     flat_fn=_sparse_mean_flat, custom_fn=_sparse_mean_tree,
     tags=("compressed",))
+
+
+# ---------------------------------------------------------------------------
+# the state protocol's helpers: every stateful rule keeps its memory as
+# ``server_grad``, one fp32 (P,) vector in the JAX leaf order (the JAX
+# state tree raveled)
+
+
+def _as_vec(x):
+    """A (P,) tensor, or a tree (ravelled in its leaf order), as fp32."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(-1).float()
+    return torch.cat([l.reshape(-1).float() for l in tree_leaves(x)])
+
+
+def _server_grad_zeros(proto):
+    """``{"server_grad": 0}`` shaped like one agent's ravelled gradient:
+    ``proto`` is a single-agent tree (the parameters) or a (P,) vector."""
+    leaves = [proto] if isinstance(proto, torch.Tensor) else tree_leaves(
+        proto)
+    total = sum(l.numel() for l in leaves)
+    return {"server_grad": torch.zeros((total,), dtype=torch.float32,
+                                       device=leaves[0].device)}
+
+
+def _server_grad_ema(state, agg, ema):
+    """``(1 - ema) s + ema a`` — arithmetic even at ema = 1, so an inf in
+    the carried state gives NaN (0 * inf), as in JAX; ema = 0 keeps the
+    state as it is (an externally maintained center)."""
+    if not ema:
+        return dict(state)
+    v = (1.0 - ema) * state["server_grad"] + ema * _as_vec(agg)
+    return {**state, "server_grad": v}
+
+
+def _server_grad(state, n_cols):
+    v = state["server_grad"]
+    if not isinstance(v, torch.Tensor) or v.shape != (n_cols,):
+        raise ValueError(
+            f"state['server_grad'] must be the ({n_cols},) fp32 ravel of the "
+            f"gradient, got {type(v).__name__} "
+            f"{tuple(getattr(v, 'shape', ()))}")
+    return v.float()
+
+
+def _f32_tree_route(spec, grads, mask, weights, state):
+    """The tree route of a rule whose output is fp32 whatever the leaf
+    dtypes (the JAX tree laws of centered_clip and server_momentum carry
+    an fp32 center): the flat law on the tree's ravel, fp32 leaves out."""
+    plan = FlatPlan.for_tree(grads)
+    vec = spec.aggregate_flat(plan.ravel(grads), mask, weights, state)
+    return plan.as_dtype("float32").unravel(vec)
+
+
+def _rows_f32(stack, qscale):
+    return (dequantize_rows(stack, qscale) if qscale is not None
+            else stack.float())
+
+
+# ---------------------------------------------------------------------------
+# centered clipping (Karimireddy et al.): iterate v <- v + sum_i lam_i
+# (x_i - v), lam_i = w_i / tot * min(1, tau / ||x_i - v||), from the
+# CARRIED center.  The clip radius needs whole-row norms, so it stays
+# plain torch; the model-sized multiply-accumulate runs K22 under
+# impl="kernel".
+
+
+def _cclip_lam(xf, mask, wn, v, tau):
+    """The iteration's clip-folded weights: absent rows are where-gated
+    to an exact 0 before the norm (their inf / NaN never reaches it), so
+    their lam is 0 (``mask=None``: every row arrived, nothing to gate).
+    Returns (lam, the gated difference)."""
+    diff = xf - v[None]
+    if mask is not None:
+        diff = torch.where(mask[:, None], diff, 0.0)
+    dist = torch.sqrt(torch.clamp_min(torch.sum(diff * diff, dim=1), 1e-30))
+    return wn * torch.clamp_max(tau / dist, 1.0), diff
+
+
+def cclip_iterates(spec, stack, mask=None, weights=None, state=None,
+                   qscale=None):
+    """Yields every iterate of centered_clip's flat law, v_1 .. v_iters
+    ((P,) fp32 each; the last is the aggregate).  ``impl="kernel"`` applies
+    each step with K22 on the arena's own rows (the dequantized fp32 rows
+    of a quantized arena), the gather impl with the dense body
+    ``v + sum_i lam_i (x_i - v)``."""
+    n, P = stack.shape
+    xf = _rows_f32(stack, qscale)
+    gate = mask
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.bool, device=stack.device)
+    mask, w, _, tot = _masked_prelude(mask, weights)
+    wn = w / tot
+    tau = torch.tensor(float(spec.hp("tau", 1.0)), dtype=torch.float32,
+                       device=stack.device)
+    v = _server_grad(state, P)
+    rows = xf if qscale is not None else stack
+    for _ in range(int(spec.hp("iters", 5))):
+        lam, diff = _cclip_lam(xf, None if gate is None else mask, wn, v,
+                               tau)
+        if spec.impl == "kernel":
+            del diff
+            from repro_torch.kernels import clipped_weighted_sum
+            v = clipped_weighted_sum(lam, rows, v)
+        else:
+            v = v + torch.sum(diff * lam[:, None], dim=0)
+            del diff
+        yield v
+
+
+def _cclip_flat(spec, stack, mask, weights, state, qscale=None):
+    """centered_clip on the (n, P) arena: its own masked law (no mean
+    imputation: an imputed row would drag v toward the attacker-
+    controlled delivered mean); a quantized arena is dequantized first,
+    as the JAX engine does."""
+    v = _server_grad(state, stack.shape[1])
+    for v in cclip_iterates(spec, stack, mask, weights, state, qscale):
+        pass
+    return v
+
+
+def _cclip_update_state(spec, state, agg):
+    # ema = 1 (default): the center IS the last aggregate; smaller ema
+    # trails it
+    return _server_grad_ema(state, agg, spec.hp("ema", 1.0))
+
+
+register_aggregator(
+    "centered_clip",
+    caps=AggregatorCaps(stateful=True),
+    hyper=("tau", "iters", "ema"), state_keys=("server_grad",),
+    flat_fn=_cclip_flat, custom_fn=_f32_tree_route,
+    init_state=lambda spec, proto: _server_grad_zeros(proto),
+    update_state=_cclip_update_state, tags=("memory",))
+
+
+# ---------------------------------------------------------------------------
+# zeno_pp, the delay-adaptive score filter (Zeno++ line): accept a
+# delivered row whose cosine with the coordinate median of the delivered
+# rows clears a staleness-tightened threshold (or that aligns strongly
+# with the carried EMA v), and whose norm is sane; average the accepted
+# rows with their discounts.  No kernel: JAX runs it outside any.
+
+_MEDIAN_CHUNK = 1 << 22     # columns per sort: (n, 4M) values and indices
+
+
+def _arrived_median(xf, mask, lo, hi):
+    """(P,) fp32: 0.5 (s[lo] + s[hi]) of each column sorted with the
+    absent rows as +inf, sorted a column chunk at a time so that no
+    (n, P) sort (and its int64 indices) exists at once."""
+    out = torch.empty((xf.shape[1],), dtype=torch.float32, device=xf.device)
+    inf = torch.tensor(math.inf, dtype=torch.float32, device=xf.device)
+    for c in range(0, xf.shape[1], _MEDIAN_CHUNK):
+        blk = torch.where(mask[:, None], xf[:, c:c + _MEDIAN_CHUNK], inf)
+        s = torch.sort(blk, dim=0).values
+        out[c:c + _MEDIAN_CHUNK] = 0.5 * (s.index_select(0, lo)[0]
+                                          + s.index_select(0, hi)[0])
+    return out
+
+
+def zeno_pp_weights(spec, xf, mask=None, weights=None, state=None):
+    """The (n,) aggregation weights of zeno_pp on the fp32 rows ``xf``
+    (JAX ``_zeno_pp_weights``).  Row norms and dots are flat sums over
+    the whole row (JAX adds per-leaf sums in leaf order: the same values
+    within the fp32 bar)."""
+    eps = spec.hp("eps", 1e-12)
+    xi = spec.hp("xi", 0.5)
+    dev = xf.device
+    n = xf.shape[0]
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.bool, device=dev)
+    mask, base_w, _, base_tot = _masked_prelude(mask, weights)
+    v = _server_grad(state, xf.shape[1])
+    v_sq = torch.clamp_min(torch.sum(v * v), 0.0)
+    g_norm = torch.sqrt(torch.clamp_min(torch.sum(xf * xf, dim=1), eps))
+    cos_v = torch.mv(xf, v) / (g_norm * torch.sqrt(torch.clamp_min(v_sq,
+                                                                   eps)))
+    # the primary reference: the coordinate median over ONLY the delivered
+    # rows (no imputation: the delivered mean is attacker-controlled)
+    cnt = torch.sum(mask).to(torch.int64)
+    lo = (torch.clamp_min(cnt - 1, 0) // 2).reshape(1)
+    hi = (cnt // 2).reshape(1)
+    ref = _arrived_median(xf, mask, lo, hi)
+    ref_sq = torch.sum(ref * ref)
+    cos_ref = torch.mv(xf, ref) / (
+        g_norm * torch.sqrt(torch.clamp_min(ref_sq, eps)))
+    del ref
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    disc = torch.where(mask, base_w / torch.clamp_min(torch.max(base_w),
+                                                      eps), zero)
+    thresh = xi * (1.0 - torch.clamp(disc, 0.0, 1.0))
+    # the norm-sanity gate: rows farther than c_norm x the delivered
+    # rows' median norm are rejected whatever their cosine
+    c_norm = spec.hp("c_norm", 2.5)
+    inf = torch.tensor(math.inf, dtype=torch.float32, device=dev)
+    s_norm = torch.sort(torch.where(mask, g_norm, inf)).values
+    med_norm = 0.5 * (s_norm.index_select(0, lo)[0]
+                      + s_norm.index_select(0, hi)[0])
+    sane = g_norm <= c_norm * med_norm
+    # the rescue path: strong alignment with the historically honest EMA
+    rescue = (v_sq >= eps) & (cos_v >= xi)
+    w = torch.where(((cos_ref >= thresh) | rescue) & sane & mask, base_w,
+                    zero)
+    tot = torch.sum(w)
+    # fallback: the discounted mean of the norm-sane delivered rows
+    w_sane = torch.where(sane & mask, base_w, zero)
+    t_sane = torch.sum(w_sane)
+    fallback = torch.where(t_sane > eps, w_sane / torch.clamp_min(t_sane, eps),
+                           base_w / base_tot)
+    return torch.where(tot > eps, w / torch.clamp_min(tot, eps), fallback)
+
+
+def _zeno_pp_flat(spec, stack, mask, weights, state, qscale=None):
+    """zeno_pp on the (n, P) arena: the weighted sum of the rows with its
+    weights, as the fused multiply-add chain of the jitted JAX step
+    (:func:`repro_torch.kernels.ref.fma_weighted_sum`; a row of weight 0
+    is never read)."""
+    from repro_torch.kernels import ref
+    xf = _rows_f32(stack, qscale)
+    return ref.fma_weighted_sum(
+        zeno_pp_weights(spec, xf, mask, weights, state), xf)
+
+
+register_aggregator(
+    "zeno_pp",
+    caps=AggregatorCaps(stateful=True),
+    hyper=("xi", "ema", "eps", "c_norm"), state_keys=("server_grad",),
+    flat_fn=_zeno_pp_flat,
+    init_state=lambda spec, proto: _server_grad_zeros(proto),
+    update_state=lambda spec, state, agg: _server_grad_ema(
+        state, agg, spec.hp("ema", 0.2)))
+
+
+# ---------------------------------------------------------------------------
+# server momentum, a composition wrapper (the survey's history filter):
+# out_t = beta m_{t-1} + (1 - beta) inner(g_t), m_t = out_t
+
+
+def _server_momentum_flat(spec, stack, mask, weights, state, qscale=None):
+    """The inner spec's aggregate of the arena (rounded to a float
+    arena's dtype, as the inner rule's tree aggregate is in JAX), then
+    the fp32 momentum step."""
+    beta = spec.hp("beta", 0.9)
+    inner = spec.inner.aggregate_flat(
+        stack, mask, weights,
+        state.get("inner") if spec.inner.stateful else None, qscale)
+    if qscale is None:
+        inner = inner.to(stack.dtype).float()
+    m = _server_grad(state, stack.shape[1])
+    return beta * m + (1.0 - beta) * inner
+
+
+register_aggregator(
+    "server_momentum",
+    caps=AggregatorCaps(stateful=True),
+    hyper=("beta",), state_keys=("server_grad",),
+    flat_fn=_server_momentum_flat, custom_fn=_f32_tree_route,
+    init_state=lambda spec, proto: _server_grad_zeros(proto),
+    # the momentum buffer IS the emitted update
+    update_state=lambda spec, state, agg: _server_grad_ema(state, agg, 1.0),
+    is_wrapper=True)
+
+
+def server_momentum(inner: AggregatorSpec,
+                    beta: float = 0.9) -> AggregatorSpec:
+    return make_spec("server_momentum", f=inner.f, inner=inner, beta=beta)

@@ -6,8 +6,8 @@ An attack rewrites the rows of the f Byzantine agents.  Signature:
 fp32 and ``byz_mask: (n,)`` bool (True = Byzantine); ``gen`` is a
 ``torch.Generator`` for the attacks that draw noise.  ``gaussian`` also
 takes the noise itself (``noise=``), which is how a test feeds both
-packages the same numbers.  The defense-aware attacks come with ROADMAP.md
-slice 6.
+packages the same numbers.  The defense-aware attacks are in
+:mod:`.adaptive`.
 """
 from __future__ import annotations
 

@@ -34,7 +34,8 @@ from repro_torch.kernels.select import (bulyan_coord, cge_select,
                                         iterative_order, krum_select,
                                         masked_bulyan_coord,
                                         multi_krum_order)
-from repro_torch.kernels.wsum import (masked_ordered_apply,
+from repro_torch.kernels.wsum import (clipped_weighted_sum,
+                                      masked_ordered_apply,
                                       masked_weighted_sum, ordered_apply,
                                       scaled_sparse_masked_weighted_mean,
                                       sparse_masked_weighted_mean,
@@ -58,7 +59,8 @@ WRAPPERS = {"coord_stat": coord_stat, "gram": gram,
             "sparse_masked_weighted_mean": sparse_masked_weighted_mean,
             "scaled_sparse_masked_weighted_mean":
                 scaled_sparse_masked_weighted_mean,
-            "coord_sort": coord_sort}
+            "coord_sort": coord_sort,
+            "clipped_weighted_sum": clipped_weighted_sum}
 
 
 def launch_counts() -> dict:

@@ -150,6 +150,8 @@ def lib():
         L.rt_scaled_sparse_masked_weighted_mean.argtypes = [
             vp, i32, vp, vp, vp, vp, i32, i64, i64, vp]
         L.rt_coord_sort.argtypes = [vp, i32, vp, i32, i64, i64, vp]
+        L.rt_clipped_weighted_sum.argtypes = [vp, vp, i32, vp, vp, i32, i64,
+                                              i64, vp]
         for fn in ("rt_coord_stat", "rt_gram", "rt_krum_select",
                    "rt_weighted_sum", "rt_masked_coord_stat",
                    "rt_masked_gram", "rt_masked_weighted_sum",
@@ -161,7 +163,8 @@ def lib():
                    "rt_scaled_masked_coord_stat",
                    "rt_scaled_masked_sign_vote",
                    "rt_sparse_masked_weighted_mean",
-                   "rt_scaled_sparse_masked_weighted_mean", "rt_coord_sort"):
+                   "rt_scaled_sparse_masked_weighted_mean", "rt_coord_sort",
+                   "rt_clipped_weighted_sum"):
             getattr(L, fn).restype = i32
         _LIB = L
     return _LIB

@@ -12,6 +12,11 @@ invariant under a global scaling of the weights).  Both tables hold the
 same rules: the coordinate statistics, Krum and the selection family,
 sign_sgd and sparse_mean.
 
+``FLAT_SELF_KERNELED`` (the JAX table of that name) holds the rules whose
+own flat law (``flat_fn``) launches their kernel stages: centered_clip's
+K22.  An explicit ``impl="kernel"`` selects it; ``auto`` keeps the dense
+body, since the kernel's sum association differs from it.
+
 The scaled tables (``PALLAS_SCALED_RULES`` / ``PALLAS_SCALED_MASKED_RULES``
 there, ``KERNEL_SCALED_RULES`` / ``KERNEL_SCALED_MASKED_RULES`` here) take
 a QUANTIZED arena, int8 / float8_e4m3fn codes and an (n,) fp32 scale per
@@ -37,6 +42,8 @@ from repro_torch.kernels.ops import (kernel_bulyan, kernel_bulyan_masked,
                                      kernel_multi_krum_masked)
 from repro_torch.kernels.wsum import (scaled_sparse_masked_weighted_mean,
                                       sparse_masked_weighted_mean)
+
+FLAT_SELF_KERNELED = frozenset({"centered_clip"})
 
 
 def _trim_b(n: int, f: int, hyper: dict) -> int:

@@ -30,6 +30,10 @@ mean over the rows that sent each coordinate.
   ``repro/kernels/wsum.py:scaled_sparse_masked_weighted_mean`` with the
   same kernel under its ``SCALED`` switch: int8 / fp8 codes dequantized
   in registers (the compressed exchange).
+* K22 :func:`clipped_weighted_sum` replaces
+  ``repro/kernels/wsum.py:clipped_weighted_sum`` with
+  ``csrc/clipped_wsum.cu``: one centered-clip step, (1 - sum lam) v +
+  sum_{lam_i > 0} lam_i g_i; a row with lam_i = 0 is never read.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version for a CPU tensor; ``<wrapper>.launches`` counts kernel launches.
@@ -365,3 +369,69 @@ def scaled_sparse_masked_weighted_mean(g, scale, mask, w):
 
 sparse_masked_weighted_mean.launches = 0
 scaled_sparse_masked_weighted_mean.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K22 clipped_weighted_sum
+
+
+def clipped_weighted_sum_plain(lam, g, v):
+    """(n,), (n, d), (d,) -> (d,) fp32, the plain version of K22, in the
+    kernel's order: ``s = sum lam_i`` over every row in row order, each
+    sum rounded on its own; the fused multiply-add chain over the rows
+    with lam_i > 0 in row order from the first rounded product
+    (:func:`ref.fma_weighted_sum`; the other rows are never read); then
+    one more fused step, ``fma(1 - s, v, acc)``."""
+    lam = lam.float()
+    s = torch.zeros((), dtype=torch.float32, device=g.device)
+    for i in range(lam.shape[0]):
+        s = s + lam[i]
+    acc = ref.fma_weighted_sum(lam, g)
+    return ref.fma_f32(1.0 - s, v.float(), acc)
+
+
+def clipped_weighted_sum(lam, g, v):
+    """lam: (n,) fp32 NON-NEGATIVE clip-folded weights, g: (n, d) fp32 or
+    bf16 rows, v: (d,) fp32 current center -> (d,) fp32 updated center
+    ``v + sum_i lam_i (g_i - v) = (1 - sum lam) v + sum lam_i g_i``, the
+    application stage of one centered-clipping iteration.  ``lam >= 0``
+    is the caller's precondition, as in the JAX kernel: a row is gated on
+    lam_i > 0, so a negative weight would be dropped from the product
+    (and still counted in sum lam)."""
+    if (g.dim() != 2 or lam.shape != (g.shape[0],)
+            or v.shape != (g.shape[1],)):
+        raise ValueError(f"clipped_weighted_sum: shapes lam "
+                         f"{tuple(lam.shape)}, g {tuple(g.shape)}, v "
+                         f"{tuple(v.shape)}")
+    if not 1 <= g.shape[0] <= MAX_N:
+        raise ValueError(f"clipped_weighted_sum: n={g.shape[0]} outside "
+                         f"[1, {MAX_N}]")
+    if v.dtype != torch.float32:
+        raise ValueError(f"clipped_weighted_sum: v must be float32, got "
+                         f"{v.dtype}")
+    code = build.dtype_code(g)
+    if g.device.type == "cpu":
+        if lam.device != g.device or v.device != g.device:
+            raise ValueError(f"clipped_weighted_sum: lam on {lam.device}, "
+                             f"g on {g.device}, v on {v.device}")
+        return clipped_weighted_sum_plain(lam, g, v)
+    if g.device.type != "cuda" or {lam.device, v.device} != {g.device}:
+        raise ValueError(f"clipped_weighted_sum: lam on {lam.device}, g on "
+                         f"{g.device}, v on {v.device}")
+    if g.stride(1) != 1 or not v.is_contiguous():
+        raise ValueError("clipped_weighted_sum: rows and v must be "
+                         "contiguous")
+    if lam.dtype != torch.float32 or not lam.is_contiguous():
+        raise ValueError("clipped_weighted_sum: lam must be contiguous "
+                         "float32")
+    n, d = g.shape
+    out = torch.empty((d,), dtype=torch.float32, device=g.device)
+    rc = build.lib().rt_clipped_weighted_sum(
+        lam.data_ptr(), g.data_ptr(), code, v.data_ptr(), out.data_ptr(), n,
+        d, g.stride(0), build.stream_ptr(g))
+    build.check(rc, "clipped_weighted_sum")
+    clipped_weighted_sum.launches += 1
+    return out
+
+
+clipped_weighted_sum.launches = 0

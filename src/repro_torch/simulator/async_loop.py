@@ -17,7 +17,19 @@ Per server step t (one parameter version):
      the delivered rows with their staleness discounts — with
      ``impl="auto"`` the masked kernels K5 (coordinate rules) or K6 -> K3
      -> K7 (krum);
-  4. one unravel (fp32: the buffer's dtype) and the server optimizer.
+  4. one unravel (fp32: the buffer's dtype), the aggregator's state
+     update, and the server optimizer.
+
+Defenses with memory and defense-aware attacks: the aggregator's state
+(``spec.init_state``, ``server_grad`` one fp32 (P,) vector) threads
+through every step as ``agg_state`` and is advanced from the unraveled
+aggregate after it (``spec.update_state``).  A defense-aware attack is
+built against the spec the step runs (the bucket's under elastic
+membership), runs on the fp32 in-flight buffer before any ``agg_dtype``
+cast or quantization, reads the defense's carried center, and its own
+state rides in the same slot: ``agg_state = {"agg": ..., "atk": ...}``.
+With a stateful spec or a defense-aware attack every trace row runs the
+general async step, even a synchronous one, as in JAX.
 
 ``agg_dtype`` (the compressed exchange) acts at delivery, after the
 attack, as in the synchronous step: int8 / float8_e4m3fn quantize the
@@ -49,8 +61,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.aggregators import staleness_discount_table
-from repro_torch.core.attacks import get_attack, make_byzantine_mask
+from repro_torch.core.aggregators import (get_aggregator_def,
+                                          staleness_discount_table)
+from repro_torch.core.attacks import (get_attack, is_adaptive_attack,
+                                      make_adaptive_attack,
+                                      make_byzantine_mask)
 from repro_torch.core.flat import FlatPlan, dtype_name, quantize_rows
 from repro_torch.core.momentum import init_momentum, worker_momentum
 from repro_torch.data import label_flip
@@ -113,7 +128,9 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
     agg_state, metrics)``.
 
     ``buffer``    (n, P) fp32 in-flight gradients, updated in place;
-    ``agg_state`` {} (stateful rules come with ROADMAP.md slice 6);
+    ``agg_state`` the aggregator's state (``spec.init_state``; {} for a
+                  stateless rule), bundled as ``{"agg": ..., "atk":
+                  ...}`` with a defense-aware attack's state;
     ``refresh``   (n,) bool on the HOST — the agents computing a fresh
                   gradient this step (it decides which agents run a
                   backward pass);
@@ -143,17 +160,21 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
     agg_dtype = dtype_name(xdt) if xdt is not None and not quant else (
         "float32")
     spec = bz.resolve_spec()
-    if spec.stateful:
-        raise NotImplementedError(
-            f"{spec.name} is stateful: stateful rules come with ROADMAP.md "
-            "slice 6")
-    if bucket is not None or spec.elastic is not None:
+    if bucket is not None or spec.elastic_n is not None:
         spec = spec.respecialize(bucket if bucket is not None
                                  else bz.n_agents)
     if not spec.flat_capable:
         raise NotImplementedError(f"{spec.describe()} has no flat path")
+    if get_aggregator_def(spec.name).is_wrapper:
+        # a wrapper is the JAX package's tree path, whose fp32 momentum
+        # step leaves fp32 leaves whatever the exchange dtype
+        agg_dtype = "float32"
+    stateful = spec.stateful
+    # a defense-aware attack is built against the spec this step runs
+    adaptive = (make_adaptive_attack(bz.attack, spec, **bz.attack_hyper)
+                if is_adaptive_attack(bz.attack) else None)
     attack_fn = (get_attack(bz.attack, **bz.attack_hyper)
-                 if bz.attack != "none" else None)
+                 if bz.attack != "none" and adaptive is None else None)
     n = bz.n_agents
     byz_mask = make_byzantine_mask(n, bz.f, device=dev)
     honest = (~byz_mask).float()
@@ -162,9 +183,6 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
     def async_step(params, opt_state, momentum, buffer, agg_state, batch,
                    gen, refresh, contrib_w, use_coded=False,
                    roster_idx=None, roster_valid=None):
-        if agg_state:
-            raise NotImplementedError(
-                "aggregator state comes with ROADMAP.md slice 6")
         if use_coded:
             raise NotImplementedError(
                 "the coded fallback comes with ROADMAP.md slice 5")
@@ -208,6 +226,9 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
             del loss
 
         with torch.no_grad():
+            atk_state = None
+            if adaptive is not None:
+                atk_state, agg_state = agg_state["atk"], agg_state["agg"]
             # (3) Byzantine corruption at delivery time, on a copy of what
             # is in flight: the buffer itself stays honest
             sent = buffer
@@ -215,6 +236,14 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
                 sent = torch.empty_like(buffer)
                 attack_arena(attack_fn, gen, plan, buffer, byz_mask,
                              out=sent)
+            elif adaptive is not None:
+                # on the whole fp32 arena (min-max needs whole-row
+                # geometry), reading the defense's carried center
+                dvec = (agg_state["server_grad"]
+                        if stateful and "server_grad" in agg_state
+                        else None)
+                sent, atk_state = adaptive(gen, buffer, byz_mask,
+                                           atk_state, dvec)
             # the exchange: per-row codes and scales, or a cast
             qs = None
             if quant:
@@ -232,9 +261,16 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
             else:
                 rows, rmask, rw, rqs = sent, cw > 0, cw, qs
             vec = spec.aggregate_flat(rows, mask=rmask, weights=rw,
-                                      scale=rqs)
+                                      scale=rqs,
+                                      state=agg_state if stateful else None)
             del rows, sent, qs, rqs
             agg = plan.as_dtype(agg_dtype).unravel(vec)
+            # the state advances from the aggregate as unraveled (with
+            # its exchange-dtype rounding), as in JAX
+            if stateful:
+                agg_state = spec.update_state(agg_state, agg)
+            if adaptive is not None:
+                agg_state = {"agg": agg_state, "atk": atk_state}
 
             # (4) server-side optimizer
             updates, opt_state = optimizer.update(agg, opt_state, params)
@@ -250,6 +286,21 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
         return params, opt_state, momentum, buffer, agg_state, metrics
 
     return async_step
+
+
+def _masked_kernel_missing(spec):
+    """Why a rule of ``spec``'s chain that runs on the kernel impl has no
+    masked kernel path (None when each has one: a masked kernel, or its
+    own flat law, centered_clip's)."""
+    from repro_torch.kernels.dispatch import (FLAT_SELF_KERNELED,
+                                              kernel_masked_supported,
+                                              masked_kernel_missing)
+    while spec is not None:
+        if (spec.impl == "kernel" and spec.name not in FLAT_SELF_KERNELED
+                and not kernel_masked_supported(spec.name)):
+            return masked_kernel_missing(spec.name)
+        spec = spec.inner
+    return None
 
 
 def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
@@ -283,7 +334,7 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
     spec = bz.resolve_spec()
     atrace = plan_arrivals(sim, n, steps)
     roster = atrace.roster                 # (steps, n) bool | None
-    el = spec.elastic
+    el = spec.elastic_n                    # a wrapper chain delegates
     if el is not None:
         if el.n_max != n:
             raise ValueError(
@@ -292,7 +343,10 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
         if roster is None:
             # membership never changes: the n_max bucket's concrete spec
             bz = dataclasses.replace(bz, aggregator=spec.respecialize(n))
+            spec = bz.resolve_spec()
             el = None
+    stateful = spec.stateful
+    adaptive = is_adaptive_attack(bz.attack)
     contrib_w = staleness_weights(sim, atrace)
 
     gen = make_generator(seed, dev)
@@ -302,6 +356,13 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
     total = FlatPlan.for_proto(params).total
     momentum = (init_momentum(n, total, dev) if bz.momentum_alpha > 0.0
                 else None)
+    agg_state = spec.init_state(params) if stateful else {}
+    if adaptive:
+        # the attack's state rides in the same slot; its structure does
+        # not depend on the bucket, so it threads across respecializations
+        agg_state = {"agg": agg_state,
+                     "atk": make_adaptive_attack(
+                         bz.attack, spec, **bz.attack_hyper).init_state(dev)}
 
     # step functions, built on first use: the synchronous step, the
     # async step, and one async step per elastic bucket
@@ -324,18 +385,19 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
             & (atrace.staleness.max(1, initial=0) == 0))
     if roster is not None:
         pure &= roster.all(1)
+    if stateful or adaptive:
+        # their state must see every step: the general async step, always
+        pure = np.zeros(steps, bool)
     # a row that is not pure aggregates through the masked engine: refuse
     # a kernel spec without a masked kernel before any step runs, rather
     # than failing mid-run or quietly running the gather law
     masked_rows = ~pure & atrace.contrib.any(1)
-    if masked_rows.any() and spec.impl == "kernel":
-        from repro_torch.kernels.dispatch import (kernel_masked_supported,
-                                                  masked_kernel_missing)
-        if not kernel_masked_supported(spec.name):
-            raise NotImplementedError(
-                f"{masked_kernel_missing(spec.name)} (trace rows "
-                f"{np.flatnonzero(masked_rows)[:8].tolist()} are not "
-                "synchronous)")
+    missing = _masked_kernel_missing(spec)
+    if masked_rows.any() and missing:
+        raise NotImplementedError(
+            f"{missing} (trace rows "
+            f"{np.flatnonzero(masked_rows)[:8].tolist()} are not "
+            "synchronous)")
 
     # the in-flight buffer (fp32 whatever the parameter dtype), zero until
     # the first async step writes it, and the dispatches deferred across
@@ -370,17 +432,17 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
                 # pack the live roster into its bucket's fixed shape (a
                 # contributor is a member, so the roster is not empty)
                 b, idx, valid = el.pack(np.flatnonzero(roster[step]))
-                (params, opt_state, momentum, buffer, _,
+                (params, opt_state, momentum, buffer, agg_state,
                  metrics) = step_fn(int(b))(
-                    params, opt_state, momentum, buffer, {}, batch, gen,
-                    refresh, cw, False,
+                    params, opt_state, momentum, buffer, agg_state, batch,
+                    gen, refresh, cw, False,
                     torch.as_tensor(idx, dtype=torch.int64).to(dev),
                     torch.as_tensor(valid).to(dev))
             else:
-                (params, opt_state, momentum, buffer, _,
+                (params, opt_state, momentum, buffer, agg_state,
                  metrics) = step_fn("async")(
-                    params, opt_state, momentum, buffer, {}, batch, gen,
-                    refresh, cw)
+                    params, opt_state, momentum, buffer, agg_state, batch,
+                    gen, refresh, cw)
         if step % log_every == 0 or step == steps - 1:
             if metrics is None:
                 m = {"loss": float("nan"), "loss_all": float("nan"),

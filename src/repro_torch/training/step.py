@@ -29,9 +29,11 @@ stack (``roster_idx``, padded by repeating a live slot, and
 spec.  Each build counts once as ``"train_step"``
 (:mod:`repro_torch.obs.counters`).
 
-Restricted to ``draco_r=0``, ``group_size=1``, ``reshard=False``,
-stateless specs and static attacks.  Everything else raises
-``NotImplementedError`` naming the ROADMAP.md slice that brings it.
+Restricted to ``draco_r=0``, ``group_size=1`` and ``reshard=False``
+(each of those raises ``NotImplementedError`` naming the ROADMAP.md slice
+that brings it).  Stateful specs and the defense-aware attacks raise as
+in the JAX step: they run through the async loop, which threads their
+state.
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.core.aggregators import AggregatorSpec
-from repro_torch.core.attacks import ATTACKS, get_attack, make_byzantine_mask
+from repro_torch.core.attacks import (get_attack, is_adaptive_attack,
+                                      make_byzantine_mask)
 from repro_torch.core.flat import (QUANT_DTYPES, FlatPlan, dtype_name,
                                    quantize_rows)
 from repro_torch.core.momentum import worker_momentum
@@ -88,9 +91,6 @@ def unsupported(bz: ByzantineConfig, telemetry=False):
                 "(distribution)")
     if telemetry:
         return "selection telemetry comes with ROADMAP.md slice 7"
-    if bz.attack != "none" and bz.attack not in ATTACKS:
-        return (f"attack {bz.attack!r} is not a static attack; the "
-                "defense-aware attacks come with ROADMAP.md slice 6")
     return None
 
 
@@ -140,16 +140,21 @@ def make_train_step(cfg, bz: ByzantineConfig, optimizer, device=None,
     why = unsupported(bz, telemetry)
     if why:
         raise NotImplementedError(why)
+    if is_adaptive_attack(bz.attack):
+        raise NotImplementedError(
+            f"{bz.attack} is a defense-aware attack — run it through the "
+            "async loop (repro_torch.simulator.async_loop threads attack "
+            "state and the defense's center alongside aggregator state)")
     quant, xdt = exchange_dtype(bz)
     spec = bz.resolve_spec()
-    if bucket is not None or spec.elastic is not None:
+    if spec.stateful:
+        raise NotImplementedError(
+            f"{spec.name} is stateful — run it through the async loop "
+            "(repro_torch.simulator.async_loop threads aggregator state)")
+    if bucket is not None or spec.elastic_n is not None:
         # an elastic master runs as its n_max bucket
         spec = spec.respecialize(bucket if bucket is not None
                                  else bz.n_agents)
-    if spec.stateful:
-        raise NotImplementedError(
-            f"{spec.name} is stateful: stateful rules come with ROADMAP.md "
-            "slice 6")
     if not spec.flat_capable:
         raise NotImplementedError(f"{spec.describe()} has no flat path")
     attack_fn = (get_attack(bz.attack, **bz.attack_hyper)

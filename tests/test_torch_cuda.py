@@ -14,7 +14,9 @@ kernels do.  The scaled kernels of the compressed exchange (K18-K20, and
 K15 on int8 / fp8 codes) exact, trimmed means within 3e-6: the kernels
 dequantize with the plain versions' one fp32 multiply.  sparse_mean's
 K17 and K21 exact (their plain versions round each product and sum as
-the kernel does, in row order), K23's sorted stack exact.
+the kernel does, in row order), K23's sorted stack exact.  centered_clip's
+K22 exact: its plain version sums lam, chains the fused multiply-adds and
+adds the center in the kernel's order.
 """
 import math
 
@@ -38,7 +40,8 @@ from repro_torch.kernels.select import (bulyan_coord_plain,
                                         krum_select_plain,
                                         masked_bulyan_coord_plain,
                                         multi_krum_order_plain)
-from repro_torch.kernels.wsum import (masked_ordered_apply_plain,
+from repro_torch.kernels.wsum import (clipped_weighted_sum_plain,
+                                      masked_ordered_apply_plain,
                                       masked_weighted_sum_plain,
                                       ordered_apply_plain,
                                       scaled_sparse_masked_weighted_mean_plain,
@@ -123,7 +126,8 @@ def test_cuda_launch_counters_count_launches(cuda_device):
         "masked_bulyan_coord": 0, "sign_vote": 0, "masked_sign_vote": 0,
         "scaled_coord_stat": 0, "scaled_masked_coord_stat": 0,
         "scaled_masked_sign_vote": 0, "sparse_masked_weighted_mean": 0,
-        "scaled_sparse_masked_weighted_mean": 0, "coord_sort": 0}
+        "scaled_sparse_masked_weighted_mean": 0, "coord_sort": 0,
+        "clipped_weighted_sum": 0}
     coord_stat_plain(g, "median")                  # the plain versions
     masked_coord_stat_plain(g, m, m, "median")
     assert kernels.launch_counts()["coord_stat"] == 1
@@ -579,3 +583,57 @@ def test_cuda_sparse_mean_and_ops_count_their_launches(cuda_device):
     counts = kernels.launch_counts()
     assert counts == {k: {"coord_sort": 2, "gram": 1}.get(k, 0)
                       for k in counts}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["live", "dead_nonfinite", "all_zero",
+                                  "sum_one"])
+@pytest.mark.parametrize("n,d", [(1, 1), (3, 4099), (8, 4099), (64, 37)])
+def test_cuda_clipped_weighted_sum_matches_plain(cuda_device, n, d, case,
+                                                 dtype):
+    """K22 against its plain version, bit for bit: a row with lam = 0 is
+    never read (its inf / NaN stays out), all lam = 0 returns v, and sum
+    lam = 1 drops the center's term to 0 * v."""
+    gen = torch.Generator().manual_seed(n * 131 + d)
+    g = torch.randn((n, d), generator=gen) * 2.0
+    lam = torch.rand(n, generator=gen) / n
+    if case == "dead_nonfinite":
+        lam[::2] = 0.0
+        g[::2, ::3] = math.inf
+        g[::2, 1::3] = math.nan
+    elif case == "all_zero":
+        lam.zero_()
+    elif case == "sum_one":
+        lam.fill_(1.0 / n)
+    v = torch.randn(d, generator=gen)
+    g, lam, v = g.to(cuda_device, dtype), lam.to(cuda_device), v.to(
+        cuda_device)
+    out = kernels.clipped_weighted_sum(lam, g, v)
+    assert_same(out, clipped_weighted_sum_plain(lam, g, v))
+    assert bool(torch.isfinite(out).all())
+    if case == "all_zero":
+        assert torch.equal(out, v)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_centered_clip_counts_its_launches(cuda_device):
+    """centered_clip's kernel impl launches K22 once per iteration and
+    nothing else (masked and on int8 codes too); ``auto`` launches none."""
+    from repro_torch.core.aggregators import make_spec
+    g = torch.randn(8, 5000, device=cuda_device)
+    codes, qs = quantize_rows(g, "int8")
+    m = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    m[[2, 7]] = False
+    st = {"server_grad": torch.zeros(5000, device=cuda_device)}
+    for impl, want in (("kernel", 5), ("auto", 0)):
+        spec = make_spec("centered_clip", f=F, n=8, impl=impl)
+        for stack, kw in ((g, {}), (g, dict(mask=m, weights=m * 0.5)),
+                          (codes, dict(mask=m, scale=qs))):
+            kernels.reset_launch_counts()
+            spec.aggregate_flat(stack, state=st, **kw)
+            counts = kernels.launch_counts()
+            assert counts == {k: want * (k == "clipped_weighted_sum")
+                              for k in counts}, (impl, sorted(kw))
+

@@ -26,8 +26,8 @@ from repro.models import init_params as jax_init_params
 from repro.training.step import ByzantineConfig as JaxBz
 from repro.training.step import make_train_step as jax_make_train_step
 from repro_torch.configs import get_config
-from repro_torch.convert import (arena_from_numpy, params_from_numpy,
-                                 params_to_numpy)
+from repro_torch.convert import (agg_state_from_numpy, arena_from_numpy,
+                                 params_from_numpy, params_to_numpy)
 from repro_torch.core.aggregators import (AggregatorSpec, elastic, frac,
                                           make_spec)
 from repro_torch.core.momentum import init_momentum
@@ -253,40 +253,57 @@ def in_flight_np(seed, n=N):
 
 def run_async(rule, alpha, trace="stragglers", steps=4,
               attack="sign_flip", n=N, quorum=6, resync=False, agg_dtype="",
-              record=None):
+              record=None, specs=None, attack_hyper=({}, {})):
     """Per step (jax loss, torch loss, jax agg, torch agg, jax params,
-    torch params, jax buffer, torch buffer) as flat numpy, the two steps
-    fed the same trace rows, batches, weights and starting buffer.  ``n``
-    and ``quorum`` size the straggler trace (the churn trace is n = 8).
+    torch params, jax buffer, torch buffer, jax server_grad, torch
+    server_grad) as flat numpy (the last two None for a stateless rule),
+    the two steps fed the same trace rows, batches, weights and starting
+    buffer, and each side's aggregator state threaded from step to step
+    (bundled with a defense-aware attack's state, as the loops do).
+    ``trace``: "stragglers" (``n`` and ``quorum`` size it), "churn" (n =
+    8, rows 4-7) or "sync" (no fault: every row delivers in full).
     ``resync``: the torch side starts every step from the JAX side's
-    parameters, optimizer state, momentum and buffer, so that each step is
-    held from one state (for the rules whose aggregate is discontinuous
-    in the gradients, where a flipped coordinate would otherwise move
-    every later step apart).  ``agg_dtype`` and ``record`` as in
-    :func:`run_slice`."""
+    parameters, optimizer state, momentum, buffer and aggregator state, so
+    that each step is held from one state (for the rules whose aggregate
+    is discontinuous in the gradients, where a flipped coordinate would
+    otherwise move every later step apart).  ``agg_dtype`` and ``record``
+    as in :func:`run_slice`.  ``specs``: ``trace -> (jax spec, torch
+    spec)`` in place of the rule's kernel specs; ``attack_hyper``: the
+    (jax, torch) attack hyper."""
     cfg, jcfg = configs()
     jp = jax.tree.map(jnp.asarray, jax_params_numpy())
     tp = params_from_numpy(jax_params_numpy())
     jo = _jax_recording(jopt.adamw(jopt.constant(LR), eps=EPS))
     to = _torch_recording(topt.adamw(topt.constant(LR), eps=EPS))
     if trace == "churn":
-        jspec = jax_make_spec(rule, f=jax_frac(0.25), impl="pallas",
-                              n=jax_elastic(N, (4, 6, 8)))
-        tspec = make_spec(rule, f=frac(0.25), n=elastic(N, (4, 6, 8)))
+        if specs is None:
+            jspec = jax_make_spec(rule, f=jax_frac(0.25), impl="pallas",
+                                  n=jax_elastic(N, (4, 6, 8)))
+            tspec = make_spec(rule, f=frac(0.25), n=elastic(N, (4, 6, 8)))
         sims = (churn_sim(JS), churn_sim(TS))
         rows = range(4, 4 + steps)
-    else:
+    elif specs is None:
         jspec = jax_make_spec(rule, f=F, impl="pallas", n=n)
         tspec = make_spec(rule, f=F, n=n)
+    if trace == "sync":
+        sims = (JS.SimConfig(), TS.SimConfig())
+        rows = range(steps)
+    elif trace != "churn":
         sims = (straggler_sim(JS, quorum), straggler_sim(TS, quorum))
         rows = range(steps)
-    assert tspec.impl == "kernel"
+    if specs is not None:
+        jspec, tspec = specs(trace)
+    else:
+        assert tspec.impl == "kernel"
     if record is not None:
         jspec, tspec = recording_specs(jspec, tspec, record)
     jbz = JaxBz(n_agents=n, f=F, aggregator=jspec, attack=attack,
-                momentum_alpha=alpha, agg_dtype=agg_dtype)
+                attack_hyper=attack_hyper[0], momentum_alpha=alpha,
+                agg_dtype=agg_dtype)
     tbz = ByzantineConfig(n_agents=n, f=F, aggregator=tspec, attack=attack,
-                          momentum_alpha=alpha, agg_dtype=agg_dtype)
+                          attack_hyper=attack_hyper[1], momentum_alpha=alpha,
+                          agg_dtype=agg_dtype)
+    jst, tst = initial_agg_states(jbz, tbz, jp, tp)
     jtr = JS.plan_arrivals(sims[0], n, rows[-1] + 1)
     ttr = TS.plan_arrivals(sims[1], n, rows[-1] + 1)
     jw, tw = (JS.staleness_weights(sims[0], jtr),
@@ -319,12 +336,12 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
                                            bucket=b)
         tb, jb = batch_np(300 + k, n)
         refresh = jtr.refresh[r]
-        jp, js, jm, jbuf, _, jmet = jsteps[b](
-            jp, js, jm, jbuf, {}, jb, jax.random.PRNGKey(7),
+        jp, js, jm, jbuf, jst, jmet = jsteps[b](
+            jp, js, jm, jbuf, jst, jb, jax.random.PRNGKey(7),
             jnp.asarray(refresh), jnp.asarray(jw[r]), jnp.asarray(False),
             *extra_j)
-        tp, ts, tm, tbuf, _, tmet = tsteps[b](
-            tp, ts, tm, tbuf, {}, tb, None, refresh,
+        tp, ts, tm, tbuf, tst, tmet = tsteps[b](
+            tp, ts, tm, tbuf, tst, tb, None, refresh,
             torch.from_numpy(tw[r]), False, *extra_t)
         jax.effects_barrier()
         out.append((float(jmet["loss"]), float(tmet["loss"]),
@@ -332,20 +349,51 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
                     flat_np(jp), flat_np(params_to_numpy(tp)),
                     np.concatenate([x.reshape(n, -1)
                                     for x in leaves_np(jbuf)], axis=1),
-                    tbuf.numpy().copy()))
+                    tbuf.numpy().copy(), *server_grads(jst, tst)))
         if resync:
             tp, ts = resync_state(jp, js)
             tbuf = arena_from_numpy(jax.tree.map(np.asarray, jbuf))
             if alpha:
                 tm = arena_from_numpy(jax.tree.map(np.asarray, jm))
+            tst = agg_state_from_numpy(jax.tree.map(np.asarray, jst))
     return out
+
+
+def initial_agg_states(jbz, tbz, jp, tp):
+    """The two loops' initial aggregator states: ``spec.init_state`` of a
+    stateful spec (else {}), bundled as {"agg", "atk"} with a defense-
+    aware attack's initial state, as ``async_train_loop`` builds them."""
+    from repro.core.attacks import is_adaptive_attack as jax_adaptive
+    from repro.core.attacks import make_adaptive_attack as jax_attack
+    from repro_torch.core.attacks import make_adaptive_attack
+    jspec, tspec = jbz.resolve_spec(), tbz.resolve_spec()
+    jst = (jspec.init_state(jax.tree.map(
+        lambda p: jnp.zeros(p.shape, jnp.float32), jp))
+        if jspec.stateful else {})
+    tst = tspec.init_state(tp) if tspec.stateful else {}
+    if jax_adaptive(jbz.attack):
+        jst = {"agg": jst, "atk": jax_attack(
+            jbz.attack, jspec, **jbz.attack_hyper).init_state()}
+        tst = {"agg": tst, "atk": make_adaptive_attack(
+            tbz.attack, tspec, **tbz.attack_hyper).init_state("cpu")}
+    return jst, tst
+
+
+def server_grads(jst, tst):
+    """The carried ``server_grad`` of each side's state as flat numpy
+    (through a {"agg", "atk"} bundle), or (None, None)."""
+    jst, tst = jst.get("agg", jst), tst.get("agg", tst)
+    if "server_grad" not in tst:
+        return None, None
+    return (flat_np(jst["server_grad"]),
+            tst["server_grad"].numpy().copy())
 
 
 def check_async(rule, alpha, trace="stragglers", n=N, quorum=6):
     """Losses, aggregates, post-step parameters and the in-flight buffer
     within the slice-1 bars (loss 1e-5, the rest 1e-4) after each of 4
     steps."""
-    for step, (jl, tl, ja, ta, jpar, tpar, jbuf, tbuf) in enumerate(
+    for step, (jl, tl, ja, ta, jpar, tpar, jbuf, tbuf, *_) in enumerate(
             run_async(rule, alpha, trace, n=n, quorum=quorum)):
         msg = f"{rule} alpha={alpha} n={n} {trace} step {step}"
         np.testing.assert_allclose(tl, jl, rtol=LOGIT_TOL, atol=LOGIT_TOL,
@@ -369,7 +417,7 @@ def check_async_resynced(rule, n=N, quorum=6, share=1e-5, agg_dtype=""):
     in-flight buffer within 1e-4 everywhere, the aggregate and the
     post-step parameters within 1e-4 on all but ``share`` of the
     coordinates."""
-    for step, (jl, tl, ja, ta, jpar, tpar, jbuf, tbuf) in enumerate(
+    for step, (jl, tl, ja, ta, jpar, tpar, jbuf, tbuf, *_) in enumerate(
             run_async(rule, 0.0, n=n, quorum=quorum, resync=True,
                       agg_dtype=agg_dtype)):
         msg = f"{rule} n={n} step {step}"

@@ -165,8 +165,45 @@ def test_cli_runs_bulyan_on_cpu_when_asked(capsys):
 def test_unported_options_raise_and_name_the_roadmap():
     cfg, ds, bz, opt = _smoke_setup()
     import dataclasses
-    for kw in ({"draco_r": 2}, {"reshard": True}, {"group_size": 2},
-               {"attack": "spec_alie"}):
+    for kw in ({"draco_r": 2}, {"reshard": True}, {"group_size": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_train_step(cfg, dataclasses.replace(bz, **kw), opt,
                             device="cpu")
+    # the sync step refuses what only the async loop's state thread runs,
+    # in the JAX step's words
+    with pytest.raises(NotImplementedError, match="defense-aware"):
+        make_train_step(cfg, dataclasses.replace(bz, attack="spec_alie"),
+                        opt, device="cpu")
+    stateful = dataclasses.replace(bz, aggregator=make_spec(
+        "centered_clip", f=1, n=4))
+    with pytest.raises(NotImplementedError,
+                       match="stateful — run it through the async loop"):
+        make_train_step(cfg, stateful, opt, device="cpu")
+
+
+def test_memory_defense_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, ds, bz, opt = _smoke_setup()
+    import dataclasses
+    bz = dataclasses.replace(bz, attack="min_max", aggregator=make_spec(
+        "centered_clip", f=1, n=4, impl="kernel"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_loop(cfg, bz, opt, ds, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_async_step(cfg, bz, opt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--smoke", "--steps", "1", "--filter",
+                           "zeno_pp", "--attack", "slow_drift"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--filter", "centered_clip", "--impl", "kernel", "--attack",
+     "spec_alie"],
+    ["--filter", "centered_clip", "--attack", "min_max", "--quorum", "3"],
+    ["--filter", "zeno_pp", "--attack", "slow_drift"]])
+def test_cli_runs_memory_defenses_on_cpu_when_asked(flags, capsys):
+    hist = launch_train.main(["--smoke", "--device", "cpu", "--steps", "2",
+                              "--n-agents", "4", "--f", "1", "--seq-len",
+                              "16", "--per-agent-batch", "1"] + flags)
+    assert math.isfinite(hist[-1]["loss"])
+    assert "final loss" in capsys.readouterr().out
