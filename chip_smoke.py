@@ -214,6 +214,22 @@ The defenses with memory and the defense-aware attacks (ROADMAP.md slice
                attacked one included) and losses; the aggregate, the new
                server_grad and each of the 5 iterates within 3e-6.
 
+The Gram kernels' redesign (K2, K6: one tensor-core template for every
+n up to 64) adds:
+
+2.  K2 at bulyan's n = 11 at full width in bf16 and fp32;
+2b. K6 at n = 11 at full width, 9 of 11 arrived, fp32 and bf16 (every
+               n = 11 case timed against ``x @ x.T`` and its bound); then
+               the Gram sweep: K2 and K6 at n = 1..17, 24, 32, 33, 48 and
+               64 in bf16 and fp32, d = 1, 127, 4099 (a leading stride the
+               16-byte vectors cannot take) and d = 4099 in rows of 4112
+               (ld > d), the NaN / +-inf / tie hazards, K6 with its absent
+               rows NaN-filled (the Gram must stay finite); each case
+               within 3e-6 of its plain version, repeated bit for bit and
+               bitwise symmetric; then both kernels timed at n = 16 and
+               64 on an (n, 16,777,216) bf16 stack, with bounds, where the
+               kernel turns compute-bound.
+
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
 not available.
@@ -584,7 +600,149 @@ def kernel_checks(num_params):
         torch.cuda.empty_cache()
     hazard_checks()
     sign_hazard_checks()
+    note(summary, "gram", gram_bulyan_checks(P, gen))
     return summary, agg_ms
+
+
+# the Gram kernels beyond the main path's n = 8: the sweep's n, its (d,
+# leading stride, hazard) cases, and the width of the compute-bound probe
+GRAM_SWEEP_N = tuple(range(1, 18)) + (24, 32, 33, 48, 64)
+GRAM_SWEEP_CASES = ((1, 1, None), (127, 127, None), (4099, 4099, None),
+                    (4099, 4112, None), (4099, 4112, "nan"),
+                    (4099, 4112, "inf"), (4099, 4112, "ties"))
+GRAM_WIDE_D = 16_777_216
+
+
+def same_bits(a, b):
+    """Bitwise equality of two fp32 tensors (NaN payloads included)."""
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def gram_agrees(fn, plain):
+    """(ok, error, Gram): ``fn()`` within 3e-6 of ``plain()`` (NaN equal
+    to NaN), repeated bit for bit, and bitwise symmetric."""
+    gr = fn()
+    ref = plain()
+    err = max_abs_err(gr, ref)
+    ok = (bool(torch.allclose(gr, ref, rtol=TOL, atol=TOL, equal_nan=True))
+          and same_bits(gr, fn()) and same_bits(gr, gr.T))
+    return ok, err, gr
+
+
+def gram_case(name, fn, plain, x, bytes_moved, **kw):
+    """One timed full-width Gram case: held as :func:`gram_agrees` holds
+    it, timed with its plain version, ``x @ x.T`` and the bound.  Returns
+    the error."""
+    n = x.shape[0]
+    ok, err, _ = gram_agrees(fn, plain)
+    kw.update(timing(fn, plain, 10, 2, bytes_moved,
+                     n * (n + 1) // 2 * 2 * x.shape[1],
+                     library=lambda: x @ x.T, label="x @ x.T"))
+    check(name, ok, n=n, shape=list(x.shape), max_abs_diff=err,
+          bitwise_repeat=True, bitwise_symmetric=True, **kw)
+    return err
+
+
+def gram_bulyan_checks(P, gen):
+    """K2 at bulyan's n = 11 at full width, bf16 (the sync arena) and
+    fp32.  Returns the largest error."""
+    from repro_torch import kernels
+    from repro_torch.kernels.pairwise import gram_plain
+
+    n, worst = 11, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        s = torch.finfo(dtype).bits // 8
+        x = (torch.randn((n, P), generator=gen, device=DEVICE,
+                         dtype=torch.float32) * 1e-3).to(dtype)
+        worst = max(worst, gram_case(
+            "gram", lambda: kernels.gram(x), lambda: gram_plain(x), x,
+            n * P * s + 4 * n * n, dtype=str(dtype).replace("torch.", "")))
+        del x
+        torch.cuda.empty_cache()
+    return worst
+
+
+def gram_sweep_checks():
+    """K2 and K6 at every n of GRAM_SWEEP_N, bf16 and fp32, at the
+    GRAM_SWEEP_CASES widths, strides and hazards (see :func:`gram_agrees`);
+    K6's absent rows (n // 2, n // 2 + 3, ...) NaN-filled, its mean drawn
+    apart.  One line per n.  Returns the largest error of each kernel."""
+    from repro_torch import kernels
+    from repro_torch.kernels.pairwise import gram_plain, masked_gram_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    worst = {"gram": 0.0, "masked_gram": 0.0}
+    for n in GRAM_SWEEP_N:
+        m = torch.ones(n, device=DEVICE)
+        m[n // 2::3] = 0.0
+        _, wn = discount_weights(m)
+        absent = torch.nonzero(m <= 0.5).flatten()
+        errs = {"gram": 0.0, "masked_gram": 0.0}
+        cases = 0
+        for dtype in (torch.bfloat16, torch.float32):
+            for d, ld, hazard in GRAM_SWEEP_CASES:
+                base = torch.randn((n, ld), generator=gen,
+                                   device=DEVICE) * 2.0
+                if hazard == "nan":
+                    base[min(1, n - 1), ::5] = math.nan
+                elif hazard == "inf":
+                    base[0, ::3] = math.inf
+                    base[n - 1, 1::3] = -math.inf
+                elif hazard == "ties":
+                    base[:] = base[0].clone()
+                    base[:, ::2] = torch.round(base[:, ::2])
+                base = base.to(dtype)
+                x = base[:, :d]
+                ok, err, _ = gram_agrees(lambda: kernels.gram(x),
+                                         lambda: gram_plain(x))
+                errs["gram"] = max(errs["gram"], err)
+                base[absent] = math.nan          # never read by K6
+                mean = torch.randn(d, generator=gen, device=DEVICE).to(dtype)
+                ok_m, err, gr = gram_agrees(
+                    lambda: kernels.masked_gram(x, m, wn, mean),
+                    lambda: masked_gram_plain(x, m, wn, mean))
+                errs["masked_gram"] = max(errs["masked_gram"], err)
+                if hazard is None:
+                    ok_m = ok_m and bool(torch.isfinite(gr).all())
+                cases += 2
+                if not (ok and ok_m):
+                    check("gram_sweep", False, n=n, d=d, ld=ld,
+                          hazard=hazard, dtype=str(dtype), gram_ok=ok,
+                          masked_gram_ok=ok_m, max_abs_diff=errs)
+        torch.cuda.synchronize()
+        check("gram_sweep", True, n=n, cases=cases, arrived=n - len(absent),
+              max_abs_diff=errs, bitwise_repeat=True, bitwise_symmetric=True)
+        for k in worst:
+            worst[k] = max(worst[k], errs[k])
+    return worst
+
+
+def gram_width_checks():
+    """K2 and K6 (n - 2 arrived) on an (n, GRAM_WIDE_D) bf16 stack at n =
+    16 and 64, timed with bounds: where the kernel turns compute-bound.
+    Returns the largest error of each kernel."""
+    from repro_torch import kernels
+    from repro_torch.kernels.pairwise import gram_plain, masked_gram_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    D, worst = GRAM_WIDE_D, {"gram": 0.0, "masked_gram": 0.0}
+    for n in (16, 64):
+        x = (torch.randn((n, D), generator=gen, device=DEVICE) * 1e-3).to(
+            torch.bfloat16)
+        worst["gram"] = max(worst["gram"], gram_case(
+            "gram", lambda: kernels.gram(x), lambda: gram_plain(x), x,
+            2 * n * D + 4 * n * n, dtype="bfloat16"))
+        m = arrival_mask(n - 2, n)
+        _, wn = discount_weights(m)
+        mean = kernels.imputed_mean(x, wn)
+        worst["masked_gram"] = max(worst["masked_gram"], gram_case(
+            "masked_gram", lambda: kernels.masked_gram(x, m, wn, mean),
+            lambda: masked_gram_plain(x, m, wn, mean), x,
+            2 * (n - 1) * D + 4 * n * n, dtype="bfloat16", arrived=n - 2))
+        del x, mean
+        torch.cuda.empty_cache()
+    return worst
 
 
 def sign_hazard_checks():
@@ -831,7 +989,33 @@ def masked_kernel_checks(num_params):
         torch.cuda.empty_cache()
     note(summary, "masked_coord_stat", masked_bucket_checks(P, gen))
     masked_hazard_checks()
+    note(summary, "masked_gram", masked_gram_bulyan_checks(P, gen))
     return summary
+
+
+def masked_gram_bulyan_checks(P, gen):
+    """K6 at bulyan's n = 11 at full width, 9 of 11 arrived (the async
+    bulyan step's quorum), fp32 (the async arena) and bf16, on the imputed
+    mean of K4.  Returns the largest error."""
+    from repro_torch import kernels
+    from repro_torch.kernels.pairwise import masked_gram_plain
+
+    n, arrived, worst = 11, 9, 0.0
+    m = arrival_mask(arrived, n)
+    _, wn = discount_weights(m)
+    for dtype in (torch.float32, torch.bfloat16):
+        s = torch.finfo(dtype).bits // 8
+        x = (torch.randn((n, P), generator=gen, device=DEVICE,
+                         dtype=torch.float32) * 1e-3).to(dtype)
+        mean = kernels.imputed_mean(x, wn)
+        worst = max(worst, gram_case(
+            "masked_gram", lambda: kernels.masked_gram(x, m, wn, mean),
+            lambda: masked_gram_plain(x, m, wn, mean), x,
+            (arrived + 1) * P * s + 4 * n * n,
+            dtype=str(dtype).replace("torch.", ""), arrived=arrived))
+        del x, mean
+        torch.cuda.empty_cache()
+    return worst
 
 
 # (bucket n, live rows, trimmed b = the bucket's f): the masks that the
@@ -3012,11 +3196,11 @@ def mixed_tree_checks():
                  f"(kernel impl expected {want}), warnings {warned}")
 
 
-OUR_KERNELS = ("coord_stat_kernel", "gram_reg_kernel", "gram_partial_kernel",
-               "gram_finish_kernel", "krum_select_kernel", "wsum_kernel",
-               "masked_wsum_kernel", "cge_select_kernel",
-               "multi_krum_order_kernel", "iterative_order_kernel",
-               "ordered_apply_kernel", "bulyan_coord_kernel",
+OUR_KERNELS = ("coord_stat_kernel", "gram_mma_kernel", "gram_finish_kernel",
+               "krum_select_kernel", "wsum_kernel", "masked_wsum_kernel",
+               "cge_select_kernel", "multi_krum_order_kernel",
+               "iterative_order_kernel", "ordered_apply_kernel",
+               "bulyan_coord_kernel",
                "sign_vote_kernel", "sparse_wmean_kernel",
                "coord_sort_kernel", "clipped_wsum_kernel")
 
@@ -3135,6 +3319,9 @@ def main():
     cfg = get_config("paper-100m")
     summary, _ = kernel_checks(num_params(cfg))
     summary.update(masked_kernel_checks(num_params(cfg)))
+    for errs in (gram_sweep_checks(), gram_width_checks()):
+        for name, err in errs.items():
+            note(summary, name, err)
     summary.update(selection_kernel_checks(num_params(cfg)))
     summary.update(masked_selection_kernel_checks(num_params(cfg)))
     summary.update(scaled_kernel_checks(num_params(cfg)))

@@ -116,6 +116,7 @@ def lib():
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         L.rt_coord_stat.argtypes = [vp, i32, vp, i32, i64, i64, i32, i32, vp]
         L.rt_gram.argtypes = [vp, i32, vp, vp, i32, i64, i64, i32, vp]
+        L.rt_gram_scratch_blocks.argtypes = [i32, i32, i64, i32]
         L.rt_krum_select.argtypes = [vp, vp, i32, i32, vp]
         L.rt_weighted_sum.argtypes = [vp, vp, i32, vp, i32, i64, i64, vp]
         L.rt_masked_coord_stat.argtypes = [vp, i32, vp, vp, i32, i64, i64,
@@ -152,8 +153,8 @@ def lib():
         L.rt_coord_sort.argtypes = [vp, i32, vp, i32, i64, i64, vp]
         L.rt_clipped_weighted_sum.argtypes = [vp, vp, i32, vp, vp, i32, i64,
                                               i64, vp]
-        for fn in ("rt_coord_stat", "rt_gram", "rt_krum_select",
-                   "rt_weighted_sum", "rt_masked_coord_stat",
+        for fn in ("rt_coord_stat", "rt_gram", "rt_gram_scratch_blocks",
+                   "rt_krum_select", "rt_weighted_sum", "rt_masked_coord_stat",
                    "rt_masked_gram", "rt_masked_weighted_sum",
                    "rt_cge_select", "rt_multi_krum_order",
                    "rt_iterative_order", "rt_ordered_apply",

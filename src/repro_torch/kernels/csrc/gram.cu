@@ -4,23 +4,21 @@
 // dot per (n, TILE_D) VMEM tile, the (n, n) block revisited and summed
 // across the sequential grid).
 //
-// Bound on this card: bytes at the n = 8 of the main path.  The (n, d)
-// stack is read once; the n(n+1)/2 * d multiply-adds run in fp64 (half
-// the fp32 rate), which stays under the memory time up to n ~ 16 and
-// sets the time above that.
+// Bound on this card: bytes up to n ~ 40 in bf16 and up to n = 64 in
+// fp32: the (n, d) stack is read once (2 or 4 bytes a value) against the
+// n(n+1)/2 * d multiply-adds at the 67 TFLOP/s of the fp64 tensor cores
+// (H100 SXM).  The kernel multiplies whole 16 x 8 blocks, so its own
+// tensor time passes the bytes' earlier: at n = 11 it runs 2 products of
+// 512 multiply-adds per 4 columns where 66 would do.
 //
-// Design (the templates are in gram.cuh, shared with K6): n <= 8 (the
-// main path) runs gram_reg_kernel: all pair sums in registers, each value
-// read once.  Larger n: the grid splits d into one contiguous chunk per
-// block (blocks run in no order, so nothing is carried between them).  A
-// block walks its chunk in (n, TD) tiles staged in shared memory as fp32
-// (exact for bf16 and fp32 input); each (pair, lane) work item
-// multiply-adds its lane of the tile's columns into an fp64 running sum.
-// fp32 sums over the ~1e8 columns of a model drift past the 3e-6 bar on
-// entries that cancel; in fp64 the only rounding that shows is the final
-// one to fp32.  The block writes its (n, n) fp64 partial; a second
-// one-block kernel sums the partials in block order.  No atomics: a run
-// repeats bit for bit.
+// Design (gram.cuh, shared with K6): mma.sync m16n8k4 f64 over n padded
+// to 8-row blocks, row pairs against the blocks at or right of them; each
+// lane streams 16-byte vectors of its row into the fragments directly (no
+// shared memory), one iteration ahead; a persistent grid, one contiguous
+// column range per block; the warps folded in order into per-block fp64
+// partials, summed in a fixed order by a second kernel, each (i <= j)
+// entry written to both halves.  No atomics: a run repeats bit for bit,
+// and the Gram is bitwise symmetric.
 #include "gram.cuh"
 
 RT_EXPORT int rt_gram(const void* x, int dtype, double* partial, float* out,
@@ -28,4 +26,12 @@ RT_EXPORT int rt_gram(const void* x, int dtype, double* partial, float* out,
                       void* stream) {
   return gram_launch<false>(x, dtype, nullptr, nullptr, partial, out, n, d,
                             ld, blocks, stream);
+}
+
+// Blocks of the (blocks, n, n) fp64 scratch that rt_gram and
+// rt_masked_gram take for an (n, d) stack on a card of `sms` SMs; 0 for
+// an n or dtype they do not take.
+RT_EXPORT int rt_gram_scratch_blocks(int n, int dtype, long long d,
+                                     int sms) {
+  return gram_blocks(n, dtype, d, sms);
 }

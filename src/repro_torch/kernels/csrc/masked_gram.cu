@@ -10,11 +10,12 @@
 // row is absent, the (d,) mean once (an absent row is never read), and
 // writes (n, n) fp32.
 //
-// Design: K2's kernels (gram.cuh) with the imputing load, IMPUTE = true:
-// where(mask, x, mean) in the arena dtype, then the exact upcast, so the
-// (n, d) imputed stack is never built.  K2's exactness rule holds: fp64
-// multiply-adds (fp32 products are exact in fp64), per-block partials
-// summed in block order, no atomics — a run repeats bit for bit.
+// Design: K2's kernel (gram.cuh) with the imputing load, IMPUTE = true:
+// the lanes of an absent row stream the mean's vectors in its place, in
+// the arena dtype, then the exact upcast, so the (n, d) imputed stack is
+// never built.  K2's exactness rule holds: fp64 tensor-core sums of
+// exact products, per-block partials summed in a fixed order, no
+// atomics — a run repeats bit for bit.
 #include "gram.cuh"
 
 // mask: (n,) fp32, > 0.5 = arrived; mean: (d,) in the arena dtype.

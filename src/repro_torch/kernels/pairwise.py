@@ -2,13 +2,17 @@
 the mean-imputed stack.
 
 * K2 :func:`gram` replaces the Pallas TPU kernel
-  ``repro/kernels/pairwise.py:gram`` with the CUDA kernel ``csrc/gram.cu``
-  (split over d, fp64 running sums, partials summed in a fixed order: no
-  atomics, runs repeat bit for bit).
+  ``repro/kernels/pairwise.py:gram`` with the CUDA kernel ``csrc/gram.cu``:
+  one template for every n up to 64 on the fp64 tensor cores (n padded to
+  8-row blocks, the upper-triangle blocks only), each lane streaming
+  16-byte vectors of its row into the fragments; a persistent grid, one
+  contiguous column range and one fp64 partial per block, the partials
+  summed in a fixed order (no atomics: runs repeat bit for bit, the Gram
+  is bitwise symmetric).
 * K6 :func:`masked_gram` replaces ``repro/kernels/pairwise.py:masked_gram``
-  with ``csrc/masked_gram.cu``: K2's kernels with an imputing load (an
-  absent row is read as the (d,) imputed mean), so the (n, d) imputed
-  stack is never built.
+  with ``csrc/masked_gram.cu``: K2's kernel with an imputing load (the
+  lanes of an absent row stream the (d,) imputed mean instead), so the
+  (n, d) imputed stack is never built and an absent row is never read.
 * :func:`imputed_mean` — that (d,) mean, computed once and shared with K7.
   The JAX package computes it outside any kernel; here it goes through
   K4, which reads the arena in its own dtype and skips rows of weight 0
@@ -25,8 +29,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.wsum import weighted_sum
 
 MAX_N = 64
-TD = 128                 # columns per tile (csrc/gram.cu kTD)
-BLOCKS_PER_SM = 8
 
 
 def gram_plain(g):
@@ -56,12 +58,13 @@ def _cuda_scratch(name, g):
     if g.stride(1) != 1:
         raise ValueError(f"{name}: rows must be contiguous")
     n, d = g.shape
+    code = build.dtype_code(g)
     sms = torch.cuda.get_device_properties(g.device).multi_processor_count
-    blocks = max(1, min((d + TD - 1) // TD, sms * BLOCKS_PER_SM))
+    blocks = build.lib().rt_gram_scratch_blocks(n, code, d, sms)
     partial = torch.empty((blocks, n, n), dtype=torch.float64,
                           device=g.device)
     out = torch.empty((n, n), dtype=torch.float32, device=g.device)
-    return build.dtype_code(g), blocks, partial, out
+    return code, blocks, partial, out
 
 
 def gram(g):

@@ -207,6 +207,42 @@ def test_cuda_masked_kernels_match_plain(cuda_device, n, hazard, dtype):
     torch.cuda.synchronize()
 
 
+def same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 8, 9, 11, 16, 17, 33, 64])
+def test_cuda_gram_kernels_match_plain_at_every_width(cuda_device, n, dtype):
+    """K2 and K6 at each row-block count of the tensor-core template:
+    within 3e-6 of the plain versions, repeated bit for bit, bitwise
+    symmetric; rows whose leading stride the 16-byte vectors cannot take
+    (d = 4099), a strided stack (d = 4099 in rows of 4112: vectors and a
+    scalar tail), an aligned one and d = 1; K6's absent rows NaN-filled
+    and never read."""
+    m = torch.ones(n, device=cuda_device)
+    m[n // 2::3] = 0.0
+    wn = m / m.sum().clamp_min(1.0)
+    for d, ld in ((4099, 4099), (4099, 4112), (4096, 4096), (1, 1)):
+        base = stack(n, ld, n + d, None, cuda_device, dtype)
+        g = base[:, :d]
+        gr = kernels.gram(g)
+        torch.testing.assert_close(gr, gram_plain(g), rtol=TOL, atol=TOL)
+        assert same_bits(gr, kernels.gram(g)) and same_bits(gr, gr.T)
+        base[m <= 0.5] = math.nan                 # never read by K6
+        mean = torch.randn(d, generator=torch.Generator().manual_seed(d))
+        mean = mean.to(cuda_device, dtype)
+        gr = kernels.masked_gram(g, m, wn, mean)
+        assert torch.isfinite(gr).all()
+        torch.testing.assert_close(gr, masked_gram_plain(g, m, wn, mean),
+                                   rtol=TOL, atol=TOL)
+        assert (same_bits(gr, kernels.masked_gram(g, m, wn, mean))
+                and same_bits(gr, gr.T))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_bad_input(cuda_device):
     g = torch.randn(8, 100, device=cuda_device)

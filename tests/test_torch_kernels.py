@@ -111,7 +111,8 @@ def test_coord_stat_rejects_what_the_kernel_cannot_take():
 # K2 gram
 
 
-@pytest.mark.parametrize("n,d", [(8, 771), (9, 2048), (13, 130)])
+@pytest.mark.parametrize("n,d", [(8, 771), (9, 2048), (13, 130), (11, 515),
+                                 (16, 130), (64, 67)])
 def test_gram_plain_matches_jax(n, d):
     """Against the exact Gram (numpy fp64, rounded once): rtol 1e-7.
     Against JAX's fp32 Gram: 3e-6 of the Cauchy-Schwarz scale

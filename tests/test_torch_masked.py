@@ -178,7 +178,7 @@ def test_masked_coord_stat_rejects_what_the_kernel_cannot_take():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("n", NS + [11, 16, 64])
 def test_imputed_mean_and_masked_gram_match_jax(n, dtype):
     for case in ("most", "one", "below_window", "all"):
         mask = mask_of(n, case, seed=2 * n)
@@ -205,6 +205,8 @@ def test_imputed_mean_and_masked_gram_match_jax(n, dtype):
                                    rtol=1e-7, atol=0, err_msg=case)
         scale = np.sqrt(np.outer(np.diag(exact), np.diag(exact)))
         assert np.all(np.abs(ours - ref) <= TOL * scale), case
+        if n > 16:      # the Gram is what n = 64 adds; JAX's selection
+            continue    # network takes ~17 s to compile there
         sel = krum_select_plain(torch.from_numpy(ours), f_of(n)).numpy()
         np.testing.assert_array_equal(
             sel, np.asarray(jax_krum_select(jnp.asarray(ref), f_of(n),
