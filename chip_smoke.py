@@ -230,6 +230,24 @@ n up to 64) adds:
                64 on an (n, 16,777,216) bf16 stack, with bounds, where the
                kernel turns compute-bound.
 
+Bulyan's coordinate stage redesigned (K13, K14: one template, the
+register capacity from theta, a fast path beside the exact law) adds:
+
+2c / 2d. each timed full-width K13 / K14 case with its predicted ms on
+               its line, and the async bulyan aggregation (n = 11, 9
+               arrived, fp32) timed; then the Bulyan sweep: K13 and K14 at
+               n = 1..17, 24, 32, 33, 48 and 64 in bf16 and fp32, theta in
+               {n - 2f, n - 2f - 1, n} and f in {0, max((n - 3) // 4, 1)},
+               widths and strides (1, 1), (127, 127), (4099, 4099), (4099,
+               4112) and a view offset by one element (the scalar path),
+               and on the (4099, 4112) stack the hazard columns: +-0
+               medians, +-3e38 (overflowing distances, all-inf rounds),
+               subnormals, +-inf selected values, NaN only in unselected
+               rows (never in K13's output), NaN in a selected row every
+               7th column, theta + 2 and theta - 2 rows selected; each
+               case bitwise equal to its plain version (NaN to NaN) and to
+               a repeat.
+
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
 not available.
@@ -602,6 +620,17 @@ def kernel_checks(num_params):
     sign_hazard_checks()
     note(summary, "gram", gram_bulyan_checks(P, gen))
     return summary, agg_ms
+
+
+# the predicted ms of the timed full-width K13 / K14 cases (kernel, dtype,
+# n), written before the redesigned kernels' first run (PERF.md §6)
+BULYAN_PREDICTED_MS = {
+    ("bulyan_coord", "bfloat16", 11): (0.8, 1.3),
+    ("bulyan_coord", "float32", 11): (1.3, 1.8),
+    ("bulyan_coord", "bfloat16", 8): (0.5, 0.9),
+    ("masked_bulyan_coord", "float32", 11): (1.2, 1.8),
+    ("masked_bulyan_coord", "bfloat16", 11): (0.7, 1.1),
+}
 
 
 # the Gram kernels beyond the main path's n = 8: the sweep's n, its (d,
@@ -1223,7 +1252,9 @@ def selection_kernel_checks(num_params):
                         lambda: torch.sort(x[picked], dim=0),
                         "torch.sort(g[sel], dim=0), a partial yardstick")
             check("bulyan_coord", err == 0.0, dtype=dname, n=n, theta=theta,
-                  beta=beta, shape=[n, P], max_abs_diff=err, **kw)
+                  beta=beta, shape=[n, P], max_abs_diff=err,
+                  predicted_ms=BULYAN_PREDICTED_MS.get(
+                      ("bulyan_coord", dname, n)), **kw)
             note(summary, "bulyan_coord", err,
                  kw if main and n == 11 else None)
             # aggregation time of each selection rule at this n (the
@@ -1445,12 +1476,25 @@ def masked_selection_kernel_checks(num_params):
                         lambda: torch.sort(x[picked], dim=0),
                         "torch.sort(g[sel], dim=0), a partial yardstick") if (
                         label == "K10 picks") else {}
+                    pred = BULYAN_PREDICTED_MS.get(
+                        ("masked_bulyan_coord", dname, n)) if kw else None
                     check("masked_bulyan_coord", err == 0.0, dtype=dname,
                           n=n, theta=theta, beta=beta, arrived=arrived,
                           selection=label, ghost_selected=ghost,
-                          shape=[n, P], max_abs_diff=err, **kw)
+                          shape=[n, P], max_abs_diff=err, predicted_ms=pred,
+                          **kw)
                     note(summary, "masked_bulyan_coord", err,
                          kw if main and label == "K10 picks" else None)
+                if main:
+                    # the async bulyan aggregation (the spec's masked call,
+                    # every stage included)
+                    from repro_torch.core.aggregators import make_spec
+                    spec = make_spec("bulyan", f=F, n=n)
+                    w, _ = discount_weights(m)
+                    emit("kernels", masked_aggregation_ms={
+                        "bulyan": time_ms(lambda: spec.aggregate_flat(
+                            x, mask=m, weights=w), 5)}, dtype=dname, n=n,
+                         arrived=arrived)
             del x, gr, mean
             torch.cuda.empty_cache()
     masked_selection_hazard_checks()
@@ -1542,6 +1586,148 @@ def masked_selection_hazard_checks():
               hazard="all-inf rounds", n=n, theta=theta,
               dtype=str(dtype).replace("torch.", ""), shape=[n, d],
               max_abs_diff={"masked_bulyan_coord": err})
+
+
+# Bulyan's coordinate stage beyond the main path: the sweep's n (the
+# Gram's), its (d, leading stride, view offset) widths, and the hazard
+# columns of its (4099, 4112) stack
+BULYAN_SWEEP_WIDTHS = ((1, 1, 0), (127, 127, 0), (4099, 4099, 0),
+                       (4099, 4112, 0), (4099, 4112, 1))
+BULYAN_HAZARDS = ("signed_zero", "overflow", "subnormal", "inf_selected",
+                  "nan_unselected", "nan_7th", "more_than_theta",
+                  "fewer_than_theta")
+
+
+def same_bits_nan(a, b):
+    """Bitwise equality of two fp32 tensors, NaN equal to NaN whatever
+    its payload."""
+    an, bn = torch.isnan(a), torch.isnan(b)
+    return torch.equal(an, bn) and same_bits(a[~an], b[~bn])
+
+
+def bulyan_hazard(base, sel, gen, hazard, theta):
+    """Writes ``hazard`` into the (n, ld) fp32 ``base`` and returns the
+    selection: +-0 on most rows every 5th column (the median +-0);
+    +-3e38 / +-1e38 / 2e38 every 3rd column (|x - med| overflows, the
+    all-inf rounds take row 0, selected or not); a few fp32 subnormal ulps
+    every 2nd column (halving the median's sum rounds: it must not be
+    contracted into x - med); +inf and -inf in selected rows every 3rd
+    column (infinite distances that a round may or may not reach); NaN in
+    every unselected row; NaN in one selected row every 7th column (a
+    warp mixes the fast and the exact path); theta + 2 or theta - 2 rows
+    selected."""
+    n, ld = base.shape
+    picked = torch.nonzero(sel > 0.5).flatten()
+    if hazard == "signed_zero":
+        z = base[: n // 2 + 1, ::5]
+        z[:] = torch.where(torch.rand(z.shape, generator=gen,
+                                      device=DEVICE) < 0.5, 0.0, -0.0)
+    elif hazard == "overflow":
+        big = torch.tensor([3e38, -3e38, 1e38, -1e38, 2e38], device=DEVICE)
+        cols = base[:, ::3]
+        cols[:] = big[torch.randint(0, 5, cols.shape, generator=gen,
+                                    device=DEVICE)]
+    elif hazard == "subnormal":
+        base[:, ::2] *= 1e-44
+    elif hazard == "inf_selected":
+        base[picked[0], ::3] = math.inf
+        base[picked[-1], 1::3] = -math.inf
+    elif hazard == "nan_unselected":
+        base[sel <= 0.5] = math.nan
+    elif hazard == "nan_7th":
+        base[picked[0], ::7] = math.nan
+    elif hazard in ("more_than_theta", "fewer_than_theta"):
+        k = theta + 2 if hazard == "more_than_theta" else theta - 2
+        sel = torch.zeros(n, device=DEVICE)
+        sel[torch.randperm(n, generator=gen, device=DEVICE)[:max(min(k, n),
+                                                                 0)]] = 1.0
+    return sel
+
+
+def bulyan_sweep_checks():
+    """K13 and K14 at every n of GRAM_SWEEP_N, bf16 and fp32, theta in {n -
+    2f, n - 2f - 1, n} and f in {0, max((n - 3) // 4, 1)}, at the
+    BULYAN_SWEEP_WIDTHS (the offset view misaligns the vectors: the
+    scalar path) and, on the (4099, 4112) stack, each BULYAN_HAZARDS
+    column; K14 with rows n // 2, n // 2 + 3, ... absent and NaN-filled
+    (never read), its mean drawn apart.  Each case bitwise equal to its
+    plain version (NaN to NaN) and to a repeat; an unselected NaN never
+    reaches K13's output (nor an absent one K14's).  One line per n.
+    Returns the largest error of each kernel."""
+    from repro_torch import kernels
+    from repro_torch.kernels.select import (bulyan_beta, bulyan_coord_plain,
+                                            masked_bulyan_coord_plain)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    worst = {"bulyan_coord": 0.0, "masked_bulyan_coord": 0.0}
+    for n in GRAM_SWEEP_N:
+        m = torch.ones(n, device=DEVICE)
+        m[n // 2::3] = 0.0
+        absent = m <= 0.5
+        errs = {"bulyan_coord": 0.0, "masked_bulyan_coord": 0.0}
+        cases = 0
+        fn = max((n - 3) // 4, 1)
+        for f in (0, fn):
+            for theta in sorted({max(n - 2 * f, 1), max(n - 2 * f - 1, 1),
+                                 n}):
+                for dtype in (torch.bfloat16, torch.float32):
+                    for d, ld, off in BULYAN_SWEEP_WIDTHS:
+                        hazards = (None,) + (BULYAN_HAZARDS if (d, ld, off)
+                                             == (4099, 4112, 0) else ())
+                        for hazard in hazards:
+                            base = torch.randn((n, ld + off), generator=gen,
+                                               device=DEVICE) * 2.0
+                            sel = torch.zeros(n, device=DEVICE)
+                            sel[torch.randperm(n, generator=gen,
+                                               device=DEVICE)[:theta]] = 1.0
+                            sel = bulyan_hazard(base, sel, gen, hazard,
+                                                theta)
+                            k = int(sel.sum())
+                            base = base.to(dtype)
+                            x = base[:, off:off + d]
+                            out = kernels.bulyan_coord(x, sel, theta, f)
+                            ref = bulyan_coord_plain(x, sel, theta, f)
+                            ok = (same_bits_nan(out, ref) and same_bits_nan(
+                                out, kernels.bulyan_coord(x, sel, theta, f)))
+                            clean = (hazard == "nan_unselected"
+                                     and k >= bulyan_beta(theta, f))
+                            if clean:
+                                ok = ok and bool(torch.isfinite(out).all())
+                            errs["bulyan_coord"] = max(
+                                errs["bulyan_coord"], max_abs_err(out, ref))
+                            base[absent] = math.nan      # never read by K14
+                            mean = (torch.randn(d + off, generator=gen,
+                                                device=DEVICE)
+                                    * 2.0).to(dtype)[off:]
+                            out = kernels.masked_bulyan_coord(x, m, mean, sel,
+                                                              theta, f)
+                            ref = masked_bulyan_coord_plain(x, m, mean, sel,
+                                                            theta, f)
+                            ok_m = (same_bits_nan(out, ref) and same_bits_nan(
+                                out, kernels.masked_bulyan_coord(
+                                    x, m, mean, sel, theta, f)))
+                            if clean or (hazard is None and k >= bulyan_beta(
+                                    theta, f)):
+                                ok_m = ok_m and bool(
+                                    torch.isfinite(out).all())
+                            errs["masked_bulyan_coord"] = max(
+                                errs["masked_bulyan_coord"],
+                                max_abs_err(out, ref))
+                            cases += 2
+                            if not (ok and ok_m):
+                                check("bulyan_sweep", False, n=n, f=f,
+                                      theta=theta, selected=k, d=d, ld=ld,
+                                      offset=off, hazard=hazard,
+                                      dtype=str(dtype), bulyan_coord_ok=ok,
+                                      masked_bulyan_coord_ok=ok_m,
+                                      max_abs_diff=errs)
+        torch.cuda.synchronize()
+        check("bulyan_sweep", True, n=n, cases=cases,
+              arrived=n - int(absent.sum()), max_abs_diff=errs,
+              bitwise=True, bitwise_repeat=True)
+        for key in worst:
+            worst[key] = max(worst[key], errs[key])
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -3324,6 +3510,8 @@ def main():
             note(summary, name, err)
     summary.update(selection_kernel_checks(num_params(cfg)))
     summary.update(masked_selection_kernel_checks(num_params(cfg)))
+    for name, err in bulyan_sweep_checks().items():
+        note(summary, name, err)
     summary.update(scaled_kernel_checks(num_params(cfg)))
     arena = real_arena(cfg)
     summary.update(sparse_kernel_checks(arena))

@@ -1,7 +1,8 @@
-// bulyan_coord (K13) for 64-row register capacity, float input (one
-// translation unit per capacity and dtype: they compile in parallel).
+// The Bulyan coordinate stage (K13 and K14) for a 64-value register
+// capacity, float input (one translation unit per capacity and dtype:
+// they compile in parallel).
 #include "bulyan_coord.cuh"
 
-template void bulyan_coord_launch<64, float, false>(
+template void bulyan_coord_launch<64, float>(
     const void*, const float*, const float*, const void*, float*, int,
     long long, long long, int, int, cudaStream_t);

@@ -10,20 +10,20 @@
 // tile's slice of the precomputed (d,) imputed mean, _impute_tile, then
 // K13's stage on the imputed tile).
 //
-// Bound on this card: bytes.  It reads the theta selected rows once, a
-// selected absent row as the (d,) mean in its place (the absent row is
-// never read, and several selected ghosts read one mean), and writes (d,)
-// fp32; the network and the beta rounds stay in registers.
+// Bound on this card: bytes.  It reads the selected arrived rows and, if
+// an absent row is selected, the (d,) mean once, and writes (d,) fp32;
+// an absent row is never read.
 //
-// Design: K13's kernel (bulyan_coord.cuh) with IMPUTE = true, as K6 is
-// K2's with an imputing load: each block reads the (n,) mask beside the
-// selection, and every read of a row goes through the imputing load
-// where(mask > 0.5, x, mean) in the arena dtype, then the exact upcast.
-// That includes the reference's all-inf round, which takes the first row
-// at +inf even if it is unselected and adds its (imputed) value: the JAX
-// kernel imputes the whole tile before the stage.  The 32- and 64-row
-// register capacities are instantiated in masked_bulyan_coord_{32,64}_
-// {f32,bf16}.cu, apart from K13's, so that nvcc compiles them in parallel.
+// Design: K13's kernel (bulyan_coord.cuh; its notes are in
+// bulyan_coord.cu), with the mask and the mean.  Each block reads the
+// (n,) mask beside the selection once, and lists a selected absent row as
+// a pointer to the mean, so the imputation costs nothing in the inner
+// loop (several selected ghosts read one mean, from the cache after the
+// first).  Row 0 as the reference's all-inf round reads it is the mean
+// too when row 0 is absent: the JAX kernel imputes the whole tile before
+// the stage, so that round adds row 0's imputed value, selected or not.
+// The fast path, the exact path, the register capacity from theta and
+// the vector loads are K13's.
 #include "bulyan_coord.cuh"
 
 // mask: (n,) fp32, > 0.5 = arrived; mean: (d,) in the arena dtype.
@@ -32,6 +32,6 @@ RT_EXPORT int rt_masked_bulyan_coord(const void* x, int dtype,
                                      const float* sel, float* out, int n,
                                      long long d, long long ld, int theta,
                                      int beta, void* stream) {
-  return bulyan_coord_entry<true>(x, dtype, sel, mask, mean, out, n, d, ld,
-                                  theta, beta, stream);
+  return bulyan_coord_entry(x, dtype, sel, mask, mean, out, n, d, ld, theta,
+                            beta, stream);
 }

@@ -11,7 +11,7 @@
   ``csrc/bulyan_coord.cu``: per coordinate, the mean of the beta selected
   values closest to the selected set's median;
 * K14 :func:`masked_bulyan_coord` replaces ``select.py:masked_bulyan_coord``
-  with K13's kernel under its ``IMPUTE`` switch (``csrc/
+  with K13's kernel given the mask and the mean (``csrc/
   masked_bulyan_coord.cu``): the same stage over the mean-imputed stack,
   an absent row read as the (d,) imputed mean.
 

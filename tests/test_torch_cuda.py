@@ -259,6 +259,36 @@ def assert_same(a, b):
     torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
+# Bulyan's hazards beyond stack()'s (K13, K14 and the K11 / K12 beside
+# them): +-0 on most rows every 5th column (a +-0 median); +-3e38 / +-1e38
+# / 2e38 every 3rd column (|x - med| overflows, the all-inf rounds take
+# row 0)
+BULYAN_HAZARDS = ["signed_zero", "overflow"]
+
+
+def bulyan_hazard(g, hazard):
+    gen = torch.Generator().manual_seed(g.shape[0])
+    if hazard == "signed_zero":
+        z = g[: g.shape[0] // 2 + 1, ::5]
+        z[:] = torch.where(torch.rand(z.shape, generator=gen) < 0.5, 0.0,
+                           -0.0).to(g.device)
+    elif hazard == "overflow":
+        cols = g[:, ::3]
+        big = torch.tensor([3e38, -3e38, 1e38, -1e38, 2e38])
+        cols[:] = big[torch.randint(0, 5, cols.shape,
+                                    generator=gen)].to(g.device)
+    return g
+
+
+def offset_view(t):
+    """t's values in a view offset by one element along its last axis: an
+    address no vector load takes (the kernels' scalar path)."""
+    wide = torch.full(t.shape[:-1] + (t.shape[-1] + 1,), math.nan,
+                      dtype=t.dtype, device=t.device)
+    wide[..., 1:] = t
+    return wide[..., 1:]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hazard", HAZARDS + ["dup"])
 @pytest.mark.parametrize("n", [3, 4, 8, 11, 16, 33])
@@ -288,18 +318,21 @@ def test_cuda_selection_kernels_match_plain(cuda_device, n, hazard):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hazard", [None, "nan", "inf", "spots"])
+@pytest.mark.parametrize("hazard", [None, "nan", "inf", "spots"]
+                         + BULYAN_HAZARDS)
 @pytest.mark.parametrize("n", [3, 8, 11, 16, 33])
 def test_cuda_ordered_apply_and_bulyan_coord_match_plain(cuda_device, n,
                                                          hazard, dtype):
     """K11 with the selection kernels' orders (and a hand-made one), K13
-    at each theta a Bulyan step can give; +-inf / NaN rows and spots in
-    and out of the selection, ties of equidistant values."""
+    at each theta a Bulyan step can give, also on a view offset by one
+    element; +-inf / NaN rows and spots in and out of the selection, ties
+    of equidistant values, +-0 medians and overflowing distances."""
     f = 1 if n < 8 else 2
     g = stack(max(n, 8), 4099, 6, hazard, cuda_device,
               torch.float32)[:n].contiguous()
     g[:, ::5] = torch.round(g[:, ::5])          # equidistant values
-    g = g.to(dtype)
+    g = bulyan_hazard(g, hazard).to(dtype)
+    gv = offset_view(g)
     gr = kernels.gram(g)
     orders = [kernels.multi_krum_order(gr, f, min(3, n)),
               kernels.iterative_order(gr, f, min(3, n))]
@@ -315,8 +348,9 @@ def test_cuda_ordered_apply_and_bulyan_coord_match_plain(cuda_device, n,
     for theta in sorted({max(n - 2 * f, 1), max(n - 2 * f - 1, 1), n}):
         sel = (kernels.iterative_order(gr, f, theta) < theta).float()
         for ff in (0, f):
-            assert_same(kernels.bulyan_coord(g, sel, theta, ff),
-                        bulyan_coord_plain(g, sel, theta, ff))
+            for x in (g, gv):
+                assert_same(kernels.bulyan_coord(x, sel, theta, ff),
+                            bulyan_coord_plain(x, sel, theta, ff))
     torch.cuda.synchronize()
 
 
@@ -361,20 +395,22 @@ def test_cuda_selection_wrappers_raise_on_bad_input(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hazard", [None, "nan", "absent", "inf", "ties"])
+@pytest.mark.parametrize("hazard", [None, "nan", "absent", "inf", "ties"]
+                         + BULYAN_HAZARDS)
 @pytest.mark.parametrize("n", [3, 8, 11, 16, 33])
 def test_cuda_masked_selection_kernels_match_plain(cuda_device, n, hazard,
                                                    dtype):
     """K12 with the selection kernels' orders on the imputed Gram (a ghost
     pick included), K14 at each theta a Bulyan step can give, a selected
-    ghost included; masks of n - 2, one and no arrived rows."""
+    ghost included, also on a stack and mean offset by one element; masks
+    of n - 2, one and no arrived rows."""
     f = 1 if n < 8 else 2
     for case in ("most", "one", "none"):
         m = mask_of(n, case, cuda_device)
         g = masked_hazard(stack(max(n, 8), 4099, 7, None, cuda_device,
                                 torch.float32)[:n].contiguous(), m, hazard)
         g[:, ::5] = torch.round(g[:, ::5])
-        g = g.to(dtype)
+        g = bulyan_hazard(g, hazard).to(dtype)
         wn = m / torch.clamp_min(m.sum(), 1.0)
         mean = kernels.imputed_mean(g, wn)
         gr = kernels.masked_gram(g, m, wn, mean)
@@ -396,9 +432,10 @@ def test_cuda_masked_selection_kernels_match_plain(cuda_device, n, hazard,
             sel = (kernels.iterative_order(gr, f, theta) < theta).float()
             sel[ghost] = 1.0
             theta_s = int(sel.sum())
-            assert_same(
-                kernels.masked_bulyan_coord(g, m, mean, sel, theta_s, f),
-                masked_bulyan_coord_plain(g, m, mean, sel, theta_s, f))
+            for x, mx in ((g, mean), (offset_view(g), offset_view(mean))):
+                assert_same(
+                    kernels.masked_bulyan_coord(x, m, mx, sel, theta_s, f),
+                    masked_bulyan_coord_plain(x, m, mx, sel, theta_s, f))
     torch.cuda.synchronize()
 
 

@@ -87,6 +87,14 @@ def put_hazard(g, mask, rows, hazard):
     elif hazard == "nonfinite_absent" and absent.size:
         g[absent[0], ::2] = np.nan
         g[absent[-1], 1::2] = np.inf
+    elif hazard == "signed_zero":
+        z = g[: g.shape[0] // 2 + 1, ::5]
+        z[:] = np.where(np.random.default_rng(len(rows)).random(z.shape)
+                        < 0.5, 0.0, -0.0)
+    elif hazard == "overflow":
+        cols = g[:, ::3]
+        cols[:] = np.random.default_rng(len(rows)).choice(
+            np.float32([3e38, -3e38, 1e38, -1e38, 2e38]), size=cols.shape)
     return g
 
 
@@ -95,6 +103,12 @@ def put_hazard(g, mask, rows, hazard):
 CASES = ([("float32", h) for h in (None, "inf_live", "nan_live",
                                    "nonfinite_absent")]
          + [("bfloat16", h) for h in (None, "nonfinite_absent")])
+
+
+# K14 also on +-0 around the median and on |x - med| overflowing to +inf
+# (the all-inf rounds take row 0, imputed where absent), in both dtypes
+BULYAN_CASES = [(dt, h) for dt in ("float32", "bfloat16")
+                for h in ("signed_zero", "overflow")]
 
 
 def jax_side(g, m, mean):
@@ -161,7 +175,7 @@ def test_masked_ordered_apply_ghost_pick_is_the_mean():
 # K14 masked_bulyan_coord
 
 
-@pytest.mark.parametrize("dtype,hazard", CASES)
+@pytest.mark.parametrize("dtype,hazard", CASES + BULYAN_CASES)
 @pytest.mark.parametrize("n", [3, 4, 8, 11])
 def test_masked_bulyan_coord_plain_matches_jax(n, dtype, hazard):
     f = 0 if n == 3 else 1 if n < 8 else 2

@@ -184,9 +184,19 @@ def test_ordered_apply_reads_bf16_like_its_fp32_upcast():
 
 def bulyan_stack(n, d, seed, hazard):
     """Selected rows with +-inf / NaN values, equidistant values around
-    the median, or NaN in one selected coordinate."""
+    the median, NaN in one selected coordinate, +-0 on most rows every
+    5th column (a +-0 median), or +-3e38 / +-1e38 / 2e38 every 3rd column
+    (|x - med| overflows to +inf: the all-inf rounds take row 0)."""
     g = stack(n, d, seed)
-    if hazard == "inf":
+    rng = np.random.default_rng(seed + 1)
+    if hazard == "signed_zero":
+        z = g[: n // 2 + 1, ::5]
+        z[:] = np.where(rng.random(z.shape) < 0.5, 0.0, -0.0)
+    elif hazard == "overflow":
+        cols = g[:, ::3]
+        cols[:] = rng.choice(np.float32([3e38, -3e38, 1e38, -1e38, 2e38]),
+                             size=cols.shape)
+    elif hazard == "inf":
         g[0, ::3] = np.inf
         g[2, ::3] = -np.inf
     elif hazard == "nan":
@@ -201,7 +211,8 @@ def bulyan_stack(n, d, seed, hazard):
 
 
 @pytest.mark.parametrize("hazard", [None, "inf", "nan", "spot",
-                                    "equidistant"])
+                                    "equidistant", "signed_zero",
+                                    "overflow"])
 @pytest.mark.parametrize("n,f", [(8, 2), (11, 2), (12, 1), (16, 3)])
 def test_bulyan_coord_plain_matches_jax(n, f, hazard):
     theta = n - 2 * f
