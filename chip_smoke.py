@@ -248,6 +248,27 @@ register capacity from theta, a fast path beside the exact law) adds:
                case bitwise equal to its plain version (NaN to NaN) and to
                a repeat.
 
+The scaled coordinate statistics redesigned (K18, K19: one template, a
+fast path beside the exact law) add:
+
+2e. each timed full-width K18 / K19 case with its predicted ms on its
+               line, and the compressed aggregation (spec.aggregate_flat on
+               the codes: median and trimmed, sync and 6 of 8 arrived, int8
+               and fp8) timed on a line of its own; then the scaled sweep:
+               K18 and K19 at n = 1..17, 24, 32, 33, 48 and 64 in int8 and
+               fp8, median and trimmed (b = min(2, (n - 1) // 2)), K19 at
+               masks of n, n - 2, 1 and 0 arrived, widths and strides (1,
+               1), (127, 127), (4099, 4112) and a view offset by one byte
+               (the byte loads), every one of the 256 codes in some column,
+               fp8 NaN codes and +-0 codes in some columns, and on the
+               (4099, 4112) stack an inf scale, a NaN scale, a zero scale
+               and a scale that overflows the largest codes to +-inf;
+               medians equal to the plain version NaN to NaN (-0 == +0, the
+               one allowance, counted), trimmed means within 3e-6, each
+               case bitwise equal to a repeat; then K18 and K19 timed at
+               full width on int8 codes at n = 16, 33 and 64 (the 16-,
+               32- and 64-row capacities) against the bytes' bound.
+
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
 not available.
@@ -630,6 +651,14 @@ BULYAN_PREDICTED_MS = {
     ("bulyan_coord", "bfloat16", 8): (0.5, 0.9),
     ("masked_bulyan_coord", "float32", 11): (1.2, 1.8),
     ("masked_bulyan_coord", "bfloat16", 11): (0.7, 1.1),
+}
+# the predicted ms of the timed full-width K18 / K19 cases (kernel, code
+# dtype), written before the redesigned kernels' first run (PERF.md §6)
+SCALED_PREDICTED_MS = {
+    ("scaled_coord_stat", "int8"): (0.50, 0.80),
+    ("scaled_coord_stat", "float8_e4m3fn"): (0.50, 0.85),
+    ("scaled_masked_coord_stat", "int8"): (0.42, 0.70),
+    ("scaled_masked_coord_stat", "float8_e4m3fn"): (0.42, 0.75),
 }
 
 
@@ -1784,7 +1813,9 @@ def scaled_kernel_checks(num_params):
                         10, 2, N * P + 4 * N + 4 * P,
                         N * (N - 1) // 2 * 2 * P + N * P)
             check("scaled_coord_stat", ok, stat=stat, dtype=qdt,
-                  shape=[N, P], max_abs_diff=err, exact=err == 0.0, **kw)
+                  shape=[N, P], max_abs_diff=err, exact=err == 0.0,
+                  predicted_ms=SCALED_PREDICTED_MS[
+                      ("scaled_coord_stat", qdt)], **kw)
             note(summary, "scaled_coord_stat", err,
                  main and stat == "median" and kw)
         for arrived in (6, 1, 0):
@@ -1810,6 +1841,9 @@ def scaled_kernel_checks(num_params):
                         codes, qs, m, wn, stat, b),
                     10, 2, arrived * P + 8 * N + 4 * P,
                     N * (N - 1) // 2 * 2 * P + arrived * P) if timed else {}
+                if timed:
+                    kw["predicted_ms"] = SCALED_PREDICTED_MS[
+                        ("scaled_masked_coord_stat", qdt)]
                 check("scaled_masked_coord_stat", ok, stat=stat, dtype=qdt,
                       shape=[N, P], arrived=arrived, max_abs_diff=err,
                       exact=err == 0.0, **kw)
@@ -1843,6 +1877,7 @@ def scaled_kernel_checks(num_params):
         check("sign_vote", err == 0.0, dtype=qdt, shape=[N, P],
               max_abs_diff=err, exact=err == 0.0, **kw)
         summary.setdefault("sign_vote_codes", {})[qdt] = kw
+        compressed_aggregation(codes, qs)
         dequant_copy_gate(codes, qs, P)
         del codes, qs
         torch.cuda.empty_cache()
@@ -1850,6 +1885,25 @@ def scaled_kernel_checks(num_params):
     torch.cuda.empty_cache()
     scaled_hazard_checks()
     return summary
+
+
+def compressed_aggregation(codes, qs):
+    """The compressed exchange's aggregation on the codes, on a line of
+    its own: ``spec.aggregate_flat(codes, scale=qs)`` of median and
+    trimmed_mean (one K18 a call) and with 6 of 8 arrived (one K19), each
+    call timed whole (the spec's own stages included)."""
+    from repro_torch.core.aggregators import make_spec
+    m = arrival_mask(6).bool()
+    w, _ = discount_weights(m.float())
+    agg = {}
+    for rule in ("coordinate_median", "trimmed_mean"):
+        spec = make_spec(rule, f=F, n=N)
+        agg[rule] = {
+            "sync": time_ms(lambda: spec.aggregate_flat(codes, scale=qs), 5),
+            "masked": time_ms(lambda: spec.aggregate_flat(
+                codes, mask=m, weights=w, scale=qs), 5)}
+    emit("compressed_aggregation", dtype=str(codes.dtype).replace(
+        "torch.", ""), shape=list(codes.shape), aggregation_ms=agg)
 
 
 def dequant_copy_gate(codes, qs, P):
@@ -1956,6 +2010,187 @@ def scaled_hazard_checks():
                                    if "trimmed" not in k)
                 check("scaled_hazards", ok, hazard=hazard, n=n, dtype=qdt,
                       shape=[n, d], max_abs_diff=errs)
+
+
+# the scaled sweep: its (d, leading stride, view offset) widths, and the
+# scale hazards of its (4099, 4112) stack
+SCALED_SWEEP_WIDTHS = ((1, 1, 0), (127, 127, 0), (4099, 4112, 0),
+                       (4099, 4112, 1))
+SCALED_HAZARDS = ("inf_scale", "nan_scale", "zero_scale", "overflow")
+FLT_MAX = 3.4028234663852886e38
+
+
+def scaled_stack(n, ld, qdt, gen, hazard):
+    """(codes (n, ld) int8 / fp8, scale (n,) fp32) on the card: random
+    codes (fp8 without NaN codes), every one of the 256 codes in row 0's
+    first 256 columns and row n - 1's next 256; past column 512, fp8 NaN
+    codes (0x7f, 0xff) in row n - 1 every 7th column, and +0 / -0 codes
+    (int8: 0) on most rows every 5th column.  ``hazard``: row 0's scale
+    inf (K19: live in the full mask), row n // 2's NaN (absent at n - 2
+    arrived), row n - 1's 0 (a negative code gives -0; the one row live at
+    1 arrived), or row 0's scale such that its largest codes (127, 448)
+    overflow to +-inf while the scale (times 2^8 for fp8) stays finite."""
+    fp8 = qdt == "float8_e4m3fn"
+    raw = torch.randint(0, 256, (n, ld), generator=gen, device=DEVICE,
+                        dtype=torch.int32).to(torch.uint8)
+    if fp8:
+        raw[(raw & 0x7f) == 0x7f] -= 1
+    every = torch.arange(256, device=DEVICE, dtype=torch.int32)
+    raw[0, :min(ld, 256)] = every[:ld].to(torch.uint8)
+    if ld > 256:
+        raw[n - 1, 256:512] = every.flip(0)[:ld - 256].to(torch.uint8)
+    if ld > 512:
+        if fp8:
+            raw[n - 1, 515::7], raw[n - 1, 517::7] = 0x7f, 0xff
+        z = raw[:n // 2 + 1, 514::5]
+        z[:] = torch.where(torch.rand(z.shape, generator=gen, device=DEVICE)
+                           < 0.5, 0x80 if fp8 else 0, 0).to(torch.uint8)
+    scale = torch.rand(n, generator=gen, device=DEVICE) * 2.0 + 0.05
+    if hazard == "inf_scale":
+        scale[0] = math.inf
+    elif hazard == "nan_scale":
+        scale[n // 2] = math.nan
+    elif hazard == "zero_scale":
+        scale[n - 1] = 0.0
+    elif hazard == "overflow":
+        scale[0] = FLT_MAX / (340.0 if fp8 else 100.0)
+        raw[0, ::3] = 0x7e if fp8 else 0x7f
+        raw[0, 1::3] = 0xfe if fp8 else 0x81
+    return raw.view(getattr(torch, qdt)), scale
+
+
+def scaled_masks(n):
+    """Masks of n, n - 2, 1 (row n - 1) and 0 arrived (fp32 on the card);
+    the n - 2 mask leaves out rows n // 2 and n // 2 + 1."""
+    out = []
+    for arrived in sorted({n, max(n - 2, 0), 1, 0}, reverse=True):
+        m = torch.zeros(n, device=DEVICE)
+        if arrived == n:
+            m[:] = 1.0
+        elif arrived == 1:
+            m[n - 1] = 1.0
+        elif arrived:
+            m[:] = 1.0
+            m[[n // 2, (n // 2 + 1) % n]] = 0.0
+        out.append(m)
+    return out
+
+
+def scaled_agrees(out, ref, stat):
+    """(ok, sign-of-zero differences, max |error|): NaN where the plain
+    version has NaN; medians equal elsewhere (-0 == +0: the differences
+    are counted), trimmed means within 3e-6."""
+    on, rn = torch.isnan(out), torch.isnan(ref)
+    if not torch.equal(on, rn):
+        return False, 0, math.inf
+    o, r = out[~on], ref[~rn]
+    err = max_abs_err(o, r)
+    if stat != "median":
+        return bool(torch.allclose(o, r, rtol=TOL, atol=TOL)), 0, err
+    eq = o == r
+    signs = int((eq & (torch.signbit(o) != torch.signbit(r))).sum())
+    return bool(eq.all()), signs, err
+
+
+def scaled_sweep_checks():
+    """K18 and K19 at every n of GRAM_SWEEP_N, int8 and fp8, median and
+    trimmed (b = min(2, (n - 1) // 2)), K19 at the scaled_masks, at the
+    SCALED_SWEEP_WIDTHS and, on the (4099, 4112) stack, each of
+    SCALED_HAZARDS (scaled_stack).  Each case agrees with its plain
+    version (scaled_agrees) and is bitwise equal to a repeat.  One line
+    per n, with its sign-of-zero differences in medians and the largest
+    error of each stat."""
+    from repro_torch import kernels
+    from repro_torch.kernels.masked import (scaled_coord_stat_plain,
+                                            scaled_masked_coord_stat_plain)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    for n in GRAM_SWEEP_N:
+        cases, signs = 0, 0
+        errs = {"median": 0.0, "trimmed_mean": 0.0}
+        b = min(2, (n - 1) // 2)
+        for qdt in QUANT:
+            for d, ld, off in SCALED_SWEEP_WIDTHS:
+                hazards = (None,) + (SCALED_HAZARDS if (d, ld, off) == (
+                    4099, 4112, 0) else ())
+                for hazard in hazards:
+                    codes, qs = scaled_stack(n, ld + off, qdt, gen, hazard)
+                    g = codes[:, off:off + d]
+                    for stat, bb in (("median", 0), ("trimmed_mean", b)):
+                        runs = [(None, lambda: kernels.scaled_coord_stat(
+                            g, qs, stat, bb),
+                            scaled_coord_stat_plain(g, qs, stat, bb))]
+                        for m in scaled_masks(n):
+                            runs.append((int(m.sum()),
+                                         lambda m=m: kernels
+                                         .scaled_masked_coord_stat(
+                                             g, qs, m, m, stat, bb),
+                                         scaled_masked_coord_stat_plain(
+                                             g, qs, m, m, stat, bb)))
+                        for arrived, fn, ref in runs:
+                            out = fn()
+                            ok, sz, err = scaled_agrees(out, ref, stat)
+                            ok = ok and same_bits(out, fn())
+                            if arrived == 0:
+                                ok = ok and not bool(out.any())
+                            cases += 1
+                            signs += sz
+                            errs[stat] = max(errs[stat], err)
+                            if not ok:
+                                check("scaled_sweep", False, n=n, dtype=qdt,
+                                      d=d, ld=ld, offset=off, hazard=hazard,
+                                      stat=stat, b=bb, arrived=arrived,
+                                      sign_of_zero=sz, max_abs_diff=err)
+        torch.cuda.synchronize()
+        check("scaled_sweep", True, n=n, cases=cases,
+              sign_of_zero_differences=signs, max_abs_diff=errs,
+              repeat_bitwise=True)
+
+
+def scaled_capacity_timings(num_params):
+    """K18 (median and trimmed, b = 2) and K19 (median, n - 2 arrived) at
+    full width on random int8 codes at n = 16, 33 and 64, the 16-, 32-
+    and 64-row capacities (no training path runs them): kernel ms against
+    the bytes' bound, checked against the plain version on the first
+    4099 columns (scaled_agrees)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.masked import (scaled_coord_stat_plain,
+                                            scaled_masked_coord_stat_plain)
+
+    P = num_params
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    for n in (16, 33, 64):
+        codes = torch.randint(-127, 128, (n, P), generator=gen,
+                              device=DEVICE, dtype=torch.int8)
+        qs = torch.rand(n, generator=gen, device=DEVICE) + 0.5
+        m = scaled_masks(n)[1]
+        head = codes[:, :4099]
+        for name, stat, b, mask in (
+                ("scaled_coord_stat", "median", 0, None),
+                ("scaled_coord_stat", "trimmed_mean", 2, None),
+                ("scaled_masked_coord_stat", "median", 0, m)):
+            if mask is None:
+                def fn(x):
+                    return kernels.scaled_coord_stat(x, qs, stat, b)
+                ref = scaled_coord_stat_plain(head, qs, stat, b)
+                rows = n
+            else:
+                def fn(x):
+                    return kernels.scaled_masked_coord_stat(x, qs, mask,
+                                                            mask, stat, b)
+                ref = scaled_masked_coord_stat_plain(head, qs, mask, mask,
+                                                     stat, b)
+                rows = int(mask.sum())
+            ok, _, err = scaled_agrees(fn(head), ref, stat)
+            emit("kernels", capacity_timing=name, stat=stat, ok=ok, n=n,
+                 shape=[n, P], max_abs_diff=err,
+                 kernel_ms=time_ms(lambda: fn(codes), 5),
+                 bound_ms=bound(rows * P + 4 * P + 8 * n, 0)[0])
+            if not ok:
+                fail(f"{name} {stat} at n = {n} disagrees with its plain "
+                     "version")
+        del codes
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3513,6 +3748,8 @@ def main():
     for name, err in bulyan_sweep_checks().items():
         note(summary, name, err)
     summary.update(scaled_kernel_checks(num_params(cfg)))
+    scaled_sweep_checks()
+    scaled_capacity_timings(num_params(cfg))
     arena = real_arena(cfg)
     summary.update(sparse_kernel_checks(arena))
     sort_summary, sort_counts = sort_checks(arena)

@@ -105,38 +105,6 @@ __device__ __forceinline__ void bulyan_store_vec(float* p,
   }
 }
 
-// Batcher's odd-even merge sort of v[LO .. HI] (both included) with fminf
-// / fmaxf: 19, 63, 191 and 543 compare-exchanges for 8, 16, 32 and 64
-// values, all at compile-time positions.  Exact on NaN-free data only.
-__device__ __forceinline__ void bulyan_cx(float& a, float& b) {
-  const float lo = fminf(a, b);
-  b = fmaxf(a, b);
-  a = lo;
-}
-
-template <int CAP, int LO, int HI, int R>
-__device__ __forceinline__ void bulyan_merge(float (&v)[CAP]) {
-  constexpr int STEP = 2 * R;
-  if constexpr (STEP < HI - LO) {
-    bulyan_merge<CAP, LO, HI, STEP>(v);
-    bulyan_merge<CAP, LO + R, HI, STEP>(v);
-#pragma unroll
-    for (int i = LO + R; i < HI - R; i += STEP) bulyan_cx(v[i], v[i + R]);
-  } else {
-    bulyan_cx(v[LO], v[LO + R]);
-  }
-}
-
-template <int CAP, int LO, int HI>
-__device__ __forceinline__ void bulyan_sort(float (&v)[CAP]) {
-  if constexpr (HI - LO >= 1) {
-    constexpr int MID = LO + (HI - LO) / 2;
-    bulyan_sort<CAP, LO, MID>(v);
-    bulyan_sort<CAP, MID + 1, HI>(v);
-    bulyan_merge<CAP, LO, HI, 1>(v);
-  }
-}
-
 // A block's list of the selected rows, in ascending row order: each entry
 // the pointer its values are read from (K14: the mean for an absent row)
 // and its row; row 0 as the all-inf round reads it; the median's ranks.
@@ -261,7 +229,7 @@ __device__ __forceinline__ void bulyan_chunk(const BulyanList<T>& L,
     float xs[CAP], v[CAP];
 #pragma unroll
     for (int e = 0; e < CAP; ++e) v[e] = xs[e] = bulyan_value<T>(w[e], c);
-    bulyan_sort<CAP, 0, CAP - 1>(v);
+    batcher_sort<CAP, 0, CAP - 1>(v);
     const float a = v[CAP / 2 - 1];
     const float b = (L.theta & 1) ? a : v[CAP / 2];
     // never contracted into the subtractions below: the plain version

@@ -3,5 +3,5 @@
 // and dtype: they compile in parallel).
 #include "coord_stat.cuh"
 
-template RT_CS_LAUNCH(32, __nv_bfloat16, false, false);
-template RT_CS_LAUNCH(32, __nv_bfloat16, true, false);
+template RT_CS_LAUNCH(32, __nv_bfloat16, false);
+template RT_CS_LAUNCH(32, __nv_bfloat16, true);

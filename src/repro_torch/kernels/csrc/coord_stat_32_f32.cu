@@ -3,5 +3,5 @@
 // and dtype: they compile in parallel).
 #include "coord_stat.cuh"
 
-template RT_CS_LAUNCH(32, float, false, false);
-template RT_CS_LAUNCH(32, float, true, false);
+template RT_CS_LAUNCH(32, float, false);
+template RT_CS_LAUNCH(32, float, true);

@@ -492,34 +492,43 @@ def test_cuda_masked_compositions_count_their_launches(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("qdt", ["int8", "float8_e4m3fn"])
-@pytest.mark.parametrize("hazard", [None, "nan", "inf", "zeros"])
-@pytest.mark.parametrize("n", [3, 8, 12, 33])
+@pytest.mark.parametrize("hazard", [None, "nan", "inf", "zeros",
+                                    "signed_zero"])
+@pytest.mark.parametrize("n", [1, 3, 8, 9, 12, 17, 33, 64])
 def test_cuda_scaled_kernels_match_plain(cuda_device, n, hazard, qdt):
     """K18, K19 (masks of n - 2, 1, 0 and all arrived), K20 and K15 on the
     codes against their plain versions, on codes and scales from
     quantize_rows on the card (an inf row has scale inf; a zero row scale
-    1)."""
+    1; tiny negative values quantize to -0 fp8 codes beside +0 values),
+    and K18 / K19 again on a view of the codes offset by one byte (rows
+    not aligned for the vector loads)."""
     g = torch.randn((n, 4099), generator=torch.Generator().manual_seed(n))
     if hazard == "nan":
-        g[1, ::3] = math.nan
+        g[1 % n, ::3] = math.nan
     elif hazard == "inf":
         g[0, ::4], g[0, 1::4] = math.inf, -math.inf
     elif hazard == "zeros":
         g[n - 1] = 0.0
+    elif hazard == "signed_zero":
+        g[1 % n, ::2], g[(2 % n), 1::2] = -1e-30, 0.0
     codes, qs = quantize_rows(g.to(cuda_device), qdt)
+    wide = torch.zeros((n, 4100), dtype=torch.uint8, device=cuda_device)
+    wide[:, 1:] = codes.view(torch.uint8)
+    offset = wide[:, 1:].view(codes.dtype)
     b = min(2, (n - 1) // 2)
-    for stat, bb in (("median", 0), ("trimmed_mean", b)):
-        tol = 0 if stat == "median" else TOL
-        torch.testing.assert_close(
-            kernels.scaled_coord_stat(codes, qs, stat, bb),
-            scaled_coord_stat_plain(codes, qs, stat, bb), rtol=tol,
-            atol=tol, equal_nan=True)
-        for case in MASKS:
-            m = mask_of(n, case, cuda_device)
+    for x in (codes, offset):
+        for stat, bb in (("median", 0), ("trimmed_mean", b)):
+            tol = 0 if stat == "median" else TOL
             torch.testing.assert_close(
-                kernels.scaled_masked_coord_stat(codes, qs, m, m, stat, bb),
-                scaled_masked_coord_stat_plain(codes, qs, m, m, stat, bb),
-                rtol=tol, atol=tol, equal_nan=True)
+                kernels.scaled_coord_stat(x, qs, stat, bb),
+                scaled_coord_stat_plain(x, qs, stat, bb), rtol=tol,
+                atol=tol, equal_nan=True)
+            for case in MASKS:
+                m = mask_of(n, case, cuda_device)
+                torch.testing.assert_close(
+                    kernels.scaled_masked_coord_stat(x, qs, m, m, stat, bb),
+                    scaled_masked_coord_stat_plain(x, qs, m, m, stat, bb),
+                    rtol=tol, atol=tol, equal_nan=True)
     for case in MASKS:
         m = mask_of(n, case, cuda_device)
         assert_same(kernels.scaled_masked_sign_vote(codes, qs, m, m),

@@ -53,19 +53,32 @@ TOL = 3e-6
 NS = [3, 4, 8, 12]
 QDTYPES = ["int8", "float8_e4m3fn"]
 HAZARDS = [None, "nan", "inf"]
+# the coordinate statistics' cases (n, qdt, hazard): every hazard at NS,
+# with the fast path's: ``signed_zero`` and ``zero_row``; and n = 17 and 33
+# (the kernels' 32- and 64-row capacities)
+STAT_CASES = ([(n, q, h) for n in NS for q in QDTYPES
+               for h in HAZARDS + ["signed_zero", "zero_row"]]
+              + [(n, q, None) for n in (17, 33) for q in QDTYPES])
 SCALED_RULES = ["coordinate_median", "trimmed_mean", "sign_sgd"]
 
 
 def quantized(n, seed, qdt, hazard=None, d=D_):
     """(torch codes, torch scale, jax codes, jax scale) of seeded fp32
     rows; ``nan``: row 1 NaN in every 3rd value; ``inf``: row 0 holds +inf
-    and -inf (its scale is inf)."""
+    and -inf (its scale is inf); ``signed_zero``: row 1 holds tiny
+    negative values every 2nd value (fp8 codes -0) beside +0 values in
+    row 2; ``zero_row``: row 1 is all zero (scale 1, every code 0)."""
     g = (np.random.default_rng(seed).normal(size=(n, d)) * 2.0).astype(
         np.float32)
     if hazard == "nan":
         g[min(1, n - 1), ::3] = np.nan
     elif hazard == "inf":
         g[0, ::4], g[0, 1::4] = np.inf, -np.inf
+    elif hazard == "signed_zero":
+        g[min(1, n - 1), ::2] = -1e-30
+        g[min(2, n - 1), 1::2] = 0.0
+    elif hazard == "zero_row":
+        g[min(1, n - 1)] = 0.0
     tc, ts = quantize_rows(torch.from_numpy(g), qdt)
     raw = tc.view(torch.uint8).numpy()
     jc = jnp.asarray(raw.view(np.int8) if qdt == "int8"
@@ -92,9 +105,7 @@ def check(ours, ref, stat):
         np.testing.assert_array_equal(ours.numpy(), ref)
 
 
-@pytest.mark.parametrize("hazard", HAZARDS)
-@pytest.mark.parametrize("qdt", QDTYPES)
-@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("n,qdt,hazard", STAT_CASES)
 def test_scaled_coord_stat_plain_matches_jax(n, qdt, hazard):
     tc, ts, jc, js = quantized(n, n, qdt, hazard)
     for stat in ("median", "trimmed_mean"):
@@ -104,9 +115,7 @@ def test_scaled_coord_stat_plain_matches_jax(n, qdt, hazard):
 
 
 @pytest.mark.parametrize("absent", [False, True])
-@pytest.mark.parametrize("hazard", HAZARDS)
-@pytest.mark.parametrize("qdt", QDTYPES)
-@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("n,qdt,hazard", STAT_CASES)
 def test_scaled_masked_coord_stat_plain_matches_jax(n, qdt, hazard, absent):
     """The arrived-window law over the dequantized rows; ``absent``: the
     hazard row is among the absent ones (then it is never a statistic)."""
