@@ -253,8 +253,9 @@ fast path beside the exact law) add:
 
 2e. each timed full-width K18 / K19 case with its predicted ms on its
                line, and the compressed aggregation (spec.aggregate_flat on
-               the codes: median and trimmed, sync and 6 of 8 arrived, int8
-               and fp8) timed on a line of its own; then the scaled sweep:
+               the codes: median, trimmed and sparse_mean, sync and 6 of 8
+               arrived, int8 and fp8) timed on a line of its own; then the
+               scaled sweep:
                K18 and K19 at n = 1..17, 24, 32, 33, 48 and 64 in int8 and
                fp8, median and trimmed (b = min(2, (n - 1) // 2)), K19 at
                masks of n, n - 2, 1 and 0 arrived, widths and strides (1,
@@ -268,6 +269,32 @@ fast path beside the exact law) add:
                case bitwise equal to a repeat; then K18 and K19 timed at
                full width on int8 codes at n = 16, 33 and 64 (the 16-,
                32- and 64-row capacities) against the bytes' bound.
+
+K1 and K21 redesigned (K1 on the order-statistic template of K18 / K19,
+K21 with vector loads of its live rows) add:
+
+2.  each timed full-width K1 case with its predicted ms on its line; then
+               the K1 sweep: K1 at n = 1..17, 24, 32, 33, 48 and 64 in
+               bf16 and fp32, median and trimmed (b = min(2, (n - 1) //
+               2)), widths and strides (1, 1), (127, 127), (4099, 4112)
+               and a view offset by one element (the element loads), and
+               in the rows of 4112 the hazard columns (order_stack): NaN
+               (in the first and the last row among others), +-inf,
+               columns of +inf or -inf only, tied +-0, one value in every
+               row, +-3e38, subnormals; medians equal to the plain version
+               NaN to NaN (the sign-of-zero differences counted), trimmed
+               means within 3e-6, each case bitwise equal to a repeat;
+               then K1 timed at full width in bf16 at n = 16, 33 and 64
+               (the 16-, 32- and 64-row capacities) against the bytes'
+               bound;
+2f. K1 on the real sign_flip arena (median and trimmed, timed; its zero
+               and -0 shares and the sign-of-zero differences), each timed
+               K21 case with its predicted ms; then the K21 sweep: n =
+               1..17, 24, 32, 33, 48 and 64, int8 and fp8, the scaled
+               sweep's widths, codes and scale hazards, masks of n, n - 2,
+               1 and 0 live, weights all ones, the raw staleness discounts
+               and those with a live row's weight 0; each case bitwise
+               equal to its plain version (NaN to NaN) and to a repeat.
 
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
@@ -544,7 +571,8 @@ def kernel_checks(num_params):
             check("coord_stat", ok, stat=stat, dtype=dname, shape=[N, P],
                   max_abs_diff=err, exact=err == 0.0, kernel_ms=ms,
                   plain_ms=pms, library_ms=lms, library="torch.sort(dim=0)",
-                  bound_ms=bms, bound_by=by)
+                  bound_ms=bms, bound_by=by,
+                  predicted_ms=K1_PREDICTED_MS[dname])
             summary["coord_stat"]["max_abs_err"] = max(
                 summary["coord_stat"]["max_abs_err"], err)
             if main and stat == "median":
@@ -661,6 +689,13 @@ SCALED_PREDICTED_MS = {
     ("scaled_masked_coord_stat", "float8_e4m3fn"): (0.42, 0.75),
 }
 
+# the predicted ms of the timed full-width K1 cases (dtype; median and
+# trimmed alike) and K21 cases (code dtype, live rows), written before the
+# redesigned kernels' first run (PERF.md §6)
+K1_PREDICTED_MS = {"bfloat16": (0.85, 1.05), "float32": (1.42, 1.60)}
+K21_PREDICTED_MS = {("int8", N): (0.50, 0.62), ("int8", 6): (0.42, 0.52),
+                    ("float8_e4m3fn", N): (0.50, 0.68),
+                    ("float8_e4m3fn", 6): (0.42, 0.57)}
 
 # the Gram kernels beyond the main path's n = 8: the sweep's n, its (d,
 # leading stride, hazard) cases, and the width of the compute-bound probe
@@ -1890,13 +1925,14 @@ def scaled_kernel_checks(num_params):
 def compressed_aggregation(codes, qs):
     """The compressed exchange's aggregation on the codes, on a line of
     its own: ``spec.aggregate_flat(codes, scale=qs)`` of median and
-    trimmed_mean (one K18 a call) and with 6 of 8 arrived (one K19), each
-    call timed whole (the spec's own stages included)."""
+    trimmed_mean (one K18 a call) and with 6 of 8 arrived (one K19), and
+    of sparse_mean (one K21 a call, sync and masked), each call timed whole
+    (the spec's own stages included)."""
     from repro_torch.core.aggregators import make_spec
     m = arrival_mask(6).bool()
     w, _ = discount_weights(m.float())
     agg = {}
-    for rule in ("coordinate_median", "trimmed_mean"):
+    for rule in ("coordinate_median", "trimmed_mean", "sparse_mean"):
         spec = make_spec(rule, f=F, n=N)
         agg[rule] = {
             "sync": time_ms(lambda: spec.aggregate_flat(codes, scale=qs), 5),
@@ -2193,6 +2229,117 @@ def scaled_capacity_timings(num_params):
         torch.cuda.empty_cache()
 
 
+# K1's sweep: its (d, leading stride, offset in elements) cases, and the
+# column ranges of the hazards in the rows of 4112 (order_stack)
+ORDER_SWEEP_WIDTHS = ((1, 1, 0), (127, 127, 0), (4099, 4112, 0),
+                      (4099, 4112, 1))
+
+
+def order_stack(n, ld, dtype, gen):
+    """(n, ld) bf16 / fp32 on the card: normal values and, for ld > 2400,
+    hazard columns: NaN in row i of column 300 + i (the first and the last
+    row among them) and in row (j // 7) % n of every 7th column of 400-700;
+    +inf / -inf in one row of each column of 800-899, and +inf in half the
+    rows and -inf in the others of every 3rd; columns of +inf only (900-909)
+    and -inf only (910-919); +-0 in every row of the even columns of
+    1000-1999 and in half the rows of the odd ones; columns of one value in
+    every row (2000-2099); +-3e38 (2100-2199: the trimmed sums overflow);
+    subnormals (2200-2299)."""
+    g = torch.randn((n, ld), generator=gen, device=DEVICE)
+    if ld > 2400:
+        rows = torch.arange(n, device=DEVICE)
+        g[rows, 300 + rows] = math.nan
+        j = torch.arange(400, 701, 7, device=DEVICE)
+        g[(j // 7) % n, j] = math.nan
+        j = torch.arange(800, 900, device=DEVICE)
+        g[j % n, j] = math.inf
+        g[(j + 1) % n, j] = -math.inf
+        half = torch.rand((n, 34), generator=gen, device=DEVICE) < 0.5
+        g[:, 800:900:3] = torch.where(half, math.inf, -math.inf)
+        g[:, 900:910], g[:, 910:920] = math.inf, -math.inf
+        z = torch.where(torch.rand((n, 1000), generator=gen, device=DEVICE)
+                        < 0.4, -0.0, 0.0)
+        g[:, 1000:2000:2] = z[:, ::2]
+        part = torch.rand((n, 500), generator=gen, device=DEVICE) < 0.5
+        g[:, 1001:2000:2] = torch.where(part, z[:, 1::2], g[:, 1001:2000:2])
+        g[:, 2000:2100] = g[0, 2000:2100].clone()
+        g[:, 2100:2200] = torch.sign(g[:, 2100:2200]) * 3e38
+        g[:, 2200:2300] *= 1e-40
+    return g.to(dtype)
+
+
+def order_sweep_checks():
+    """K1 at every n of GRAM_SWEEP_N, bf16 and fp32, median and trimmed (b
+    = min(2, (n - 1) // 2)), at the ORDER_SWEEP_WIDTHS with the hazard
+    columns of order_stack: medians equal to the plain version NaN to NaN
+    (-0 == +0, the differences counted), trimmed means within 3e-6, each
+    case bitwise equal to a repeat.  One line per n; returns the largest
+    median error."""
+    from repro_torch import kernels
+    from repro_torch.kernels.coord_stats import coord_stat_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    worst = 0.0
+    for n in GRAM_SWEEP_N:
+        cases, signs = 0, 0
+        errs = {"median": 0.0, "trimmed_mean": 0.0}
+        b = min(2, (n - 1) // 2)
+        for dtype in (torch.bfloat16, torch.float32):
+            for d, ld, off in ORDER_SWEEP_WIDTHS:
+                g = order_stack(n, ld + off, dtype, gen)[:, off:off + d]
+                for stat, bb in (("median", 0), ("trimmed_mean", b)):
+                    out = kernels.coord_stat(g, stat, bb)
+                    ok, sz, err = scaled_agrees(
+                        out, coord_stat_plain(g, stat, bb), stat)
+                    ok = ok and same_bits(out, kernels.coord_stat(g, stat,
+                                                                  bb))
+                    cases += 1
+                    signs += sz
+                    errs[stat] = max(errs[stat], err)
+                    if not ok:
+                        check("coord_stat_sweep", False, n=n,
+                              dtype=str(dtype).replace("torch.", ""), d=d,
+                              ld=ld, offset=off, stat=stat, b=bb,
+                              sign_of_zero=sz, max_abs_diff=err)
+        torch.cuda.synchronize()
+        worst = max(worst, errs["median"])
+        check("coord_stat_sweep", True, n=n, cases=cases,
+              sign_of_zero_differences=signs, max_abs_diff=errs,
+              repeat_bitwise=True)
+    return worst
+
+
+def order_capacity_timings(num_params):
+    """K1 (median and trimmed, b = 2) at full width on a bf16 stack at n =
+    16, 33 and 64, the 16-, 32- and 64-row capacities of the order-
+    statistic template (no training path runs them): kernel ms against the
+    bytes' bound, checked against the plain version on the first 4099
+    columns (scaled_agrees).  The network kernel K1 ran before is timed
+    beside it by ``python -m repro_torch.kernels.compare``."""
+    from repro_torch import kernels
+    from repro_torch.kernels.coord_stats import coord_stat_plain
+
+    P = num_params
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    for n in (16, 33, 64):
+        x = (torch.randn((n, P), generator=gen, device=DEVICE)
+             * 1e-3).bfloat16()
+        head = x[:, :4099]
+        for stat, b in (("median", 0), ("trimmed_mean", 2)):
+            ok, _, err = scaled_agrees(kernels.coord_stat(head, stat, b),
+                                       coord_stat_plain(head, stat, b), stat)
+            emit("kernels", capacity_timing="coord_stat", stat=stat, ok=ok,
+                 n=n, dtype="bfloat16", shape=[n, P], max_abs_diff=err,
+                 kernel_ms=time_ms(lambda: kernels.coord_stat(x, stat, b),
+                                   5),
+                 bound_ms=bound(2 * n * P + 4 * P, 0)[0])
+            if not ok:
+                fail(f"coord_stat {stat} at n = {n} disagrees with its "
+                     "plain version")
+        del x, head
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 2f
 
@@ -2269,6 +2416,8 @@ def sparse_kernel_checks(x):
                                   / torch.count_nonzero(g, 0))
                                  if name == K17 else None),
                         label=SPARSE_YARDSTICK if name == K17 else None)
+            if name == K21:
+                kw["predicted_ms"] = K21_PREDICTED_MS[(extra["dtype"], live)]
         check(name, ok, case=label, shape=[N, P], live=live,
               max_abs_diff=err, exact=err == 0.0, **extra, **kw)
         summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
@@ -2393,6 +2542,100 @@ def sparse_hazard_checks():
 
 # ---------------------------------------------------------------------------
 # phase 2g
+
+
+def coord_stat_arena_checks(x):
+    """K1 (median and trimmed, b = 2) at full width on the real sign_flip
+    arena ``x`` of real_arena (bf16, n = 8): the sign_flip rows negate the
+    zero gradients of the embedding rows a batch does not touch, so tied
+    +-0 fill whole columns.  Medians equal to the plain version NaN to NaN
+    with the sign-of-zero differences counted, trimmed means within 3e-6;
+    kernel ms against the bound.  Returns the largest median error."""
+    from repro_torch import kernels
+    from repro_torch.kernels.coord_stats import coord_stat_plain
+
+    N_, P = x.shape
+    zeros = x == 0
+    neg_zero_share = float((zeros & torch.signbit(x)).float().mean())
+    zero_share = float(zeros.float().mean())
+    del zeros
+    worst = 0.0
+    for stat, b in (("median", 0), ("trimmed_mean", 2)):
+        out = kernels.coord_stat(x, stat, b)
+        ok, signs, err = scaled_agrees(out, coord_stat_plain(x, stat, b),
+                                       stat)
+        zero_out = float((out == 0).float().mean())
+        del out
+        if stat == "median":
+            worst = err
+        check("coord_stat", ok, case="real sign_flip arena", stat=stat,
+              dtype="bfloat16", shape=[N_, P], max_abs_diff=err,
+              sign_of_zero_differences=signs, zero_share=zero_share,
+              neg_zero_share=neg_zero_share, zero_output_share=zero_out,
+              kernel_ms=time_ms(lambda: kernels.coord_stat(x, stat, b), 10),
+              bound_ms=bound(2 * N_ * P + 4 * P, 0)[0],
+              predicted_ms=K1_PREDICTED_MS["bfloat16"])
+    return worst
+
+
+# K21's sweep: the weights of each mask (all ones, the raw staleness
+# discounts, and those with the first live row's weight 0)
+SPARSE_SWEEP_WEIGHTS = ("ones", "raw", "zero_live")
+
+
+def sparse_sweep_weights(m, kind):
+    n = m.shape[0]
+    if kind == "ones":
+        return torch.ones(n, device=DEVICE)
+    w, _ = discount_weights(m)
+    if kind == "zero_live":
+        live = torch.nonzero(m > 0.5).flatten()
+        w[live[:1]] = 0.0
+    return w
+
+
+def sparse_sweep_checks():
+    """K21 at every n of GRAM_SWEEP_N, int8 and fp8, at the SCALED_SWEEP_
+    WIDTHS (a view offset by one byte among them: the byte loads) and, on
+    the (4099, 4112) stack, each of SCALED_HAZARDS (scaled_stack: every
+    code, NaN and -0 codes, inf / NaN / zero / overflowing scales), the
+    scaled_masks (n, n - 2, 1 and 0 live) and SPARSE_SWEEP_WEIGHTS: each
+    case bitwise equal to its plain version (NaN to NaN) and to a repeat.
+    One line per n."""
+    from repro_torch import kernels
+    from repro_torch.kernels.wsum import (
+        scaled_sparse_masked_weighted_mean_plain)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    for n in GRAM_SWEEP_N:
+        cases = 0
+        for qdt in QUANT:
+            for d, ld, off in SCALED_SWEEP_WIDTHS:
+                hazards = (None,) + (SCALED_HAZARDS if (d, ld, off) == (
+                    4099, 4112, 0) else ())
+                for hazard in hazards:
+                    codes, qs = scaled_stack(n, ld + off, qdt, gen, hazard)
+                    g = codes[:, off:off + d]
+                    for m in scaled_masks(n):
+                        for kind in SPARSE_SWEEP_WEIGHTS:
+                            w = sparse_sweep_weights(m, kind)
+                            out = kernels.scaled_sparse_masked_weighted_mean(
+                                g, qs, m, w)
+                            ref = scaled_sparse_masked_weighted_mean_plain(
+                                g, qs, m, w)
+                            rep = kernels.scaled_sparse_masked_weighted_mean(
+                                g, qs, m, w)
+                            ok = same_bits_nan(out, ref) and same_bits(out,
+                                                                       rep)
+                            cases += 1
+                            if not ok:
+                                check("sparse_sweep", False, n=n, dtype=qdt,
+                                      d=d, ld=ld, offset=off, hazard=hazard,
+                                      live=int(m.sum()), weights=kind,
+                                      max_abs_diff=max_abs_err(out, ref))
+        torch.cuda.synchronize()
+        check("sparse_sweep", True, n=n, cases=cases, exact=True,
+              repeat_bitwise=True)
 
 
 def sort_checks(x):
@@ -3617,13 +3860,16 @@ def mixed_tree_checks():
                  f"(kernel impl expected {want}), warnings {warned}")
 
 
-OUR_KERNELS = ("coord_stat_kernel", "gram_mma_kernel", "gram_finish_kernel",
-               "krum_select_kernel", "wsum_kernel", "masked_wsum_kernel",
-               "cge_select_kernel", "multi_krum_order_kernel",
-               "iterative_order_kernel", "ordered_apply_kernel",
-               "bulyan_coord_kernel",
+# the port's kernels by name: K1, K18 and K19 run order_stat_kernel, K5
+# coord_stat_kernel, K17 sparse_wmean_kernel, K21 scaled_sparse_kernel
+OUR_KERNELS = ("order_stat_kernel", "coord_stat_kernel", "gram_mma_kernel",
+               "gram_finish_kernel", "krum_select_kernel", "wsum_kernel",
+               "masked_wsum_kernel", "cge_select_kernel",
+               "multi_krum_order_kernel", "iterative_order_kernel",
+               "ordered_apply_kernel", "bulyan_coord_kernel",
                "sign_vote_kernel", "sparse_wmean_kernel",
-               "coord_sort_kernel", "clipped_wsum_kernel")
+               "scaled_sparse_kernel", "coord_sort_kernel",
+               "clipped_wsum_kernel")
 
 
 def device_busy(prof):
@@ -3750,8 +3996,12 @@ def main():
     summary.update(scaled_kernel_checks(num_params(cfg)))
     scaled_sweep_checks()
     scaled_capacity_timings(num_params(cfg))
+    note(summary, "coord_stat", order_sweep_checks())
+    order_capacity_timings(num_params(cfg))
     arena = real_arena(cfg)
+    note(summary, "coord_stat", coord_stat_arena_checks(arena))
     summary.update(sparse_kernel_checks(arena))
+    sparse_sweep_checks()
     sort_summary, sort_counts = sort_checks(arena)
     summary.update(sort_summary)
     del arena

@@ -3,11 +3,15 @@ the full per-coordinate sorted stack.
 
 * K1 :func:`coord_stat` replaces the Pallas TPU kernel
   ``repro/kernels/coord_stats.py:coord_stat`` with the CUDA kernel
-  ``csrc/coord_stat.cu`` (its source note says what bounds it on the H100
-  and what the design does about that).
+  ``csrc/coord_stat.cu`` on the order-statistic template
+  ``csrc/order_stat.cuh`` (K18's and K19's): 16-byte loads of each row,
+  Batcher's network on NaN-free coordinates and the odd-even network's
+  law on the others (the source notes say what bounds it on the H100 and
+  what the design does about that).
 * K23 :func:`coord_sort` replaces ``repro/kernels/coord_stats.py:
-  coord_sort`` with ``csrc/coord_sort.cu``: the same network, every rank
-  written (the legacy ``ops`` statistics read it).
+  coord_sort`` with ``csrc/coord_sort.cu``: the odd-even network of
+  ``csrc/coord_stat.cuh`` (K5's), every rank written (the legacy ``ops``
+  statistics read it).
 
 Each wrapper runs its plain PyTorch version (:func:`coord_stat_plain`,
 :func:`coord_sort_plain`) for a CPU tensor; for a CUDA tensor it checks

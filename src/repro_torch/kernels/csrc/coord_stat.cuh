@@ -1,14 +1,15 @@
-// The coord_stat kernel template and its launcher, shared by K1
-// (coord_stat.cu) and K5 (masked_coord_stat.cu), and K23's coord_sort
-// kernel (coord_sort.cu: the same network, writing every rank); see those
-// files for the design notes.  (K18 and K19 run scaled_coord_stat.cuh.)
-// MASKED = false: every one of the n rows is read and the window is fixed
-// by n.  MASKED = true: each block reads the (n,) mask once, an absent row
-// becomes a +inf sentinel (and is never read), and the kept rank window
-// follows the arrived count.  The load, the network and the window sum
-// are shared.  Each register capacity MAXN above 16 is instantiated in
-// its own translation unit (coord_stat_{32,64}_*.cu,
-// coord_sort_{32,64}_*.cu), so nvcc compiles them in parallel.
+// The odd-even network kernel template and its launcher, shared by K5
+// (masked_coord_stat.cu, MASKED = true) and K23's coord_sort kernel
+// (coord_sort.cu: the same network, writing every rank); see those files
+// for the design notes.  K1, K18 and K19 run order_stat.cuh, which beat
+// this kernel at every register capacity on the card (PERF.md §6); the
+// MASKED = false form (every one of the n rows read, the window fixed by
+// n) is no longer instantiated.  MASKED = true: each block reads the (n,)
+// mask once, an absent row becomes a +inf sentinel (and is never read),
+// and the kept rank window follows the arrived count.  Each register
+// capacity MAXN above 16 is instantiated in its own translation unit
+// (coord_stat_{32,64}_*.cu, coord_sort_{32,64}_*.cu), so nvcc compiles
+// them in parallel.
 #pragma once
 
 #include <math.h>
@@ -192,13 +193,9 @@ int coord_sort_dispatch(const void* x, float* out, int n, long long d,
   void coord_stat_launch<N, T, M>(const void*, const float*, float*, int,  \
                                   long long, long long, int, int,          \
                                   cudaStream_t)
-extern template RT_CS_LAUNCH(32, float, false);
 extern template RT_CS_LAUNCH(32, float, true);
-extern template RT_CS_LAUNCH(32, __nv_bfloat16, false);
 extern template RT_CS_LAUNCH(32, __nv_bfloat16, true);
-extern template RT_CS_LAUNCH(64, float, false);
 extern template RT_CS_LAUNCH(64, float, true);
-extern template RT_CS_LAUNCH(64, __nv_bfloat16, false);
 extern template RT_CS_LAUNCH(64, __nv_bfloat16, true);
 
 // K23's 32- and 64-row instances (coord_sort_{32,64}_{f32,bf16}.cu).

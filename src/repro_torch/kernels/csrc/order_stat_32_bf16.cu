@@ -1,0 +1,6 @@
+// The order-statistic template for a 32-row register capacity,
+// bf16 rows (K1) (one translation unit per capacity and type:
+// they compile in parallel).
+#include "order_stat.cuh"
+
+template RT_OS_LAUNCH(32, __nv_bfloat16, false);

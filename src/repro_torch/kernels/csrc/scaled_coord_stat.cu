@@ -11,17 +11,17 @@
 // byte each) and writes (d,) fp32, 12 bytes a coordinate at n = 8, fewer
 // than the dequantization and the sort cost to issue.
 //
-// Design: scaled_coord_stat.cuh with MASKED = false (every row listed, in
+// Design: order_stat.cuh with MASKED = false (every row listed, in
 // row order): 16-byte loads of each row up to n = 8, an exact dequantizing
-// byte permute (int8) or fp16 bit placement (fp8) and one __fmul_rn by
-// the row's scale, Batcher's network of fminf / fmaxf over the register
+// byte permute (int8) or the e4m3x2 -> f16x2 conversion (fp8) and one
+// __fmul_rn by the row's scale, Batcher's network of fminf / fmaxf over the register
 // capacity with +-inf pads that keep the median's ranks and the trimmed
 // window at fixed registers, and K1's odd-even network with the
 // NaN-propagating min / max (the reference's law) for the coordinates with
 // a NaN code and the blocks with a non-finite scale.  The median is 0.5 *
 // (s[(n-1)//2] + s[n//2]); the trimmed mean sums ranks [b, n - b) in
 // ascending order from +0 and divides by n - 2b.
-#include "scaled_coord_stat.cuh"
+#include "order_stat.cuh"
 
 // stat: 0 = median, 1 = trimmed mean with b per side; dtype RT_I8 or
 // RT_F8; scale: (n,) fp32.
@@ -29,14 +29,14 @@ RT_EXPORT int rt_scaled_coord_stat(const void* x, int dtype,
                                    const float* scale, float* out, int n,
                                    long long d, long long ld, int stat,
                                    int b, void* stream) {
-  if (n < 1 || n > kScaledMaxN || b < 0) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > kOrderMaxN || b < 0) return (int)cudaErrorInvalidValue;
   if (d <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == RT_I8)
-    return scaled_stat_dispatch<int8_t, false>(x, nullptr, scale, out, n, d,
+    return order_stat_dispatch<int8_t, false>(x, nullptr, scale, out, n, d,
                                                ld, stat, b, s);
   if (dtype == RT_F8)
-    return scaled_stat_dispatch<__nv_fp8_e4m3, false>(x, nullptr, scale, out,
+    return order_stat_dispatch<__nv_fp8_e4m3, false>(x, nullptr, scale, out,
                                                       n, d, ld, stat, b, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,7 +12,7 @@
 // codes once (1 byte each; an absent row is never read) and writes (d,)
 // fp32, fewer bytes than the dequantization and the sort cost to issue.
 //
-// Design: scaled_coord_stat.cuh with MASKED = true.  Each block reads the
+// Design: order_stat.cuh with MASKED = true.  Each block reads the
 // (n,) mask and scales once, lists the arrived rows (the rank window
 // follows their count cnt, computed on the card with no host sync: median
 // lo = (cnt-1)//2, trimmed lo = min(b, (cnt-1)//2), hi = cnt - lo) and
@@ -24,7 +24,7 @@
 // the blocks with a non-finite live scale.  The window sums in ascending
 // rank order from +0 and divides by max(hi - lo, 1); cnt == 0 writes
 // exactly 0.
-#include "scaled_coord_stat.cuh"
+#include "order_stat.cuh"
 
 // stat: 0 = median, 1 = trimmed mean with b per side (clamped to the
 // arrived count inside the kernel); dtype RT_I8 or RT_F8; scale: (n,)
@@ -34,14 +34,14 @@ RT_EXPORT int rt_scaled_masked_coord_stat(const void* x, int dtype,
                                           const float* mask, float* out,
                                           int n, long long d, long long ld,
                                           int stat, int b, void* stream) {
-  if (n < 1 || n > kScaledMaxN || b < 0) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > kOrderMaxN || b < 0) return (int)cudaErrorInvalidValue;
   if (d <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == RT_I8)
-    return scaled_stat_dispatch<int8_t, true>(x, mask, scale, out, n, d, ld,
+    return order_stat_dispatch<int8_t, true>(x, mask, scale, out, n, d, ld,
                                               stat, b, s);
   if (dtype == RT_F8)
-    return scaled_stat_dispatch<__nv_fp8_e4m3, true>(x, mask, scale, out, n,
+    return order_stat_dispatch<__nv_fp8_e4m3, true>(x, mask, scale, out, n,
                                                      d, ld, stat, b, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -27,9 +27,10 @@ mean over the rows that sent each coordinate.
   that sent it (x != 0), weighted by the raw row weights, an exact 0
   where nobody sent it (sparse_mean, sync and masked).
 * K21 :func:`scaled_sparse_masked_weighted_mean` replaces
-  ``repro/kernels/wsum.py:scaled_sparse_masked_weighted_mean`` with the
-  same kernel under its ``SCALED`` switch: int8 / fp8 codes dequantized
-  in registers (the compressed exchange).
+  ``repro/kernels/wsum.py:scaled_sparse_masked_weighted_mean`` with a
+  kernel of its own in the same file: int8 / fp8 codes read 8 bytes a
+  row at a time and dequantized exactly in registers (the compressed
+  exchange).
 * K22 :func:`clipped_weighted_sum` replaces
   ``repro/kernels/wsum.py:clipped_weighted_sum`` with
   ``csrc/clipped_wsum.cu``: one centered-clip step, (1 - sum lam) v +

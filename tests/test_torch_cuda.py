@@ -108,6 +108,53 @@ def test_cuda_kernels_match_plain(cuda_device, n, hazard, dtype):
     torch.cuda.synchronize()
 
 
+# K1's hazards at any n: tied +-0 (every even column +0 or -0 in each
+# row); NaN every 3rd column of row 1 % n and in the first and last row;
+# +inf every 4th column of row 0, -inf every 4th (offset 1) of row n - 1,
+# and columns of +inf only
+ORDER_HAZARDS = ["signed_zero", "nan", "inf"]
+
+
+def order_stack(n, d, hazard, device, dtype):
+    gen = torch.Generator().manual_seed(n)
+    g = torch.randn((n, d), generator=gen) * 2.0
+    if hazard == "signed_zero":
+        neg = torch.rand((n, d), generator=gen) < 0.4
+        g[:, ::2] = torch.where(neg[:, ::2], -0.0, 0.0)
+    elif hazard == "nan":
+        g[1 % n, ::3] = math.nan
+        g[0, 5], g[n - 1, 7] = math.nan, math.nan
+    elif hazard == "inf":
+        g[0, ::4], g[n - 1, 1::4] = math.inf, -math.inf
+        g[:, 2::17] = math.inf
+    return g.to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hazard", ORDER_HAZARDS)
+@pytest.mark.parametrize("n", [1, 4, 8, 9, 16, 17, 33, 64])
+def test_cuda_coord_stat_matches_plain_at_every_width(cuda_device, n,
+                                                      hazard, dtype):
+    """K1 at every register capacity (the order-statistic template or the
+    network kernel, as rt_coord_stat routes n): median exact, NaN where
+    the plain version has it, trimmed mean (b = min(2, (n - 1) // 2))
+    within 3e-6; again on a view offset by one element (rows not aligned
+    for the vector loads)."""
+    d = 4099
+    g = order_stack(n, d, hazard, cuda_device, dtype)
+    wide = torch.zeros((n, d + 1), dtype=dtype, device=cuda_device)
+    wide[:, 1:] = g
+    b = min(2, (n - 1) // 2)
+    for x in (g, wide[:, 1:]):
+        for stat, bb in (("median", 0), ("trimmed_mean", b)):
+            tol = 0 if stat == "median" else TOL
+            torch.testing.assert_close(kernels.coord_stat(x, stat, bb),
+                                       coord_stat_plain(x, stat, bb),
+                                       rtol=tol, atol=tol, equal_nan=True)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_cuda_launch_counters_count_launches(cuda_device):
     kernels.reset_launch_counts()
@@ -602,27 +649,39 @@ def test_cuda_sparse_mean_kernel_matches_plain(cuda_device, n, hazard,
 @pytest.mark.cuda
 @pytest.mark.parametrize("qdt", ["int8", "float8_e4m3fn"])
 @pytest.mark.parametrize("hazard", [None, "nan", "inf", "zeros"])
-@pytest.mark.parametrize("n", [3, 8, 12])
+@pytest.mark.parametrize("n", [1, 3, 8, 9, 12, 17, 64])
 def test_cuda_scaled_sparse_mean_kernel_matches_plain(cuda_device, n,
                                                       hazard, qdt):
-    """K21 on codes, exact; a live inf row (scale inf) makes every column
-    NaN (its 0 codes decode to 0 * inf)."""
+    """K21 on codes, exact, at every mask case with unit weights, raw
+    staleness weights and a zero weight on a live row, and again on a
+    view of the codes offset by one byte (rows not aligned for the vector
+    loads); a live inf row (scale inf) of non-zero weight makes every
+    column NaN (its 0 codes decode to 0 * inf)."""
     g = sparse(torch.randn((n, 4099),
                            generator=torch.Generator().manual_seed(n)), n)
     if hazard == "nan":
-        g[1, ::3] = math.nan
+        g[1 % n, ::3] = math.nan
     elif hazard == "inf":
         g[0, 8::4], g[0, 9::4] = math.inf, -math.inf
     elif hazard == "zeros":
         g[n - 1] = 0.0
     codes, qs = quantize_rows(g.to(cuda_device), qdt)
+    wide = torch.zeros((n, 4100), dtype=torch.uint8, device=cuda_device)
+    wide[:, 1:] = codes.view(torch.uint8)
+    offset = wide[:, 1:].view(codes.dtype)
     for case in MASKS:
         m = mask_of(n, case, cuda_device)
-        ours = kernels.scaled_sparse_masked_weighted_mean(codes, qs, m, m)
-        assert_same(ours, scaled_sparse_masked_weighted_mean_plain(codes, qs,
-                                                                   m, m))
-        if hazard == "inf" and float(m[0]) > 0.5:
-            assert bool(torch.isnan(ours).all())
+        raw = m * torch.tensor([1.0, 0.5, 1.0 / 3.0],
+                               device=cuda_device).repeat(n)[:n]
+        zero = raw.clone()
+        zero[torch.nonzero(m > 0.5).flatten()[-1:]] = 0.0
+        for w in (m, raw, zero):
+            for x in (codes, offset):
+                ours = kernels.scaled_sparse_masked_weighted_mean(x, qs, m, w)
+                assert_same(ours, scaled_sparse_masked_weighted_mean_plain(
+                    x, qs, m, w))
+                if hazard == "inf" and float(w[0]) > 0:
+                    assert bool(torch.isnan(ours).all())
     torch.cuda.synchronize()
 
 

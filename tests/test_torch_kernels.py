@@ -38,26 +38,36 @@ F = 2
 
 
 def stack(n, d, seed, hazard=None):
-    """(n, d) fp32 numpy stack, normal * 2, with an optional hazard:
+    """(n, d) fp32 numpy stack, normal * 2, with an optional hazard (its
+    rows taken modulo n):
     ``nan`` (a NaN row), ``inf`` (a +inf row and a -inf row), ``ties``
     (rows 0-2 equal, two rows of integers: repeated values in every
-    column), ``spots`` (isolated NaN and +-inf coordinates)."""
+    column), ``spots`` (isolated NaN and +-inf coordinates),
+    ``signed_zero`` (tied zeros: every even column +0 or -0 in each row,
+    every fourth odd column half +-0)."""
     g = (np.random.default_rng(seed).normal(size=(n, d)) * 2.0).astype(
         np.float32)
     if hazard == "nan":
         g[1] = np.nan
     elif hazard == "inf":
         g[1] = np.inf
-        g[4] = -np.inf
+        g[4 % n] = -np.inf
     elif hazard == "ties":
         g[1] = g[0]
         g[2] = g[0]
-        g[5] = np.round(g[5])
-        g[6] = np.round(g[6])
+        g[5 % n] = np.round(g[5 % n])
+        g[6 % n] = np.round(g[6 % n])
     elif hazard == "spots":        # isolated non-finite coordinates
         g[1, 7] = np.nan
         g[3, 7] = np.inf
-        g[5, 11] = -np.inf
+        g[5 % n, 11] = -np.inf
+    elif hazard == "signed_zero":
+        rng = np.random.default_rng(seed + 1)
+        z = np.where(rng.random((n, d)) < 0.4, np.float32(-0.0),
+                     np.float32(0.0))
+        g[:, ::2] = z[:, ::2]
+        g[:, 1::4] = np.where(rng.random((n, d))[:, 1::4] < 0.5, z[:, 1::4],
+                              g[:, 1::4])
     return g
 
 
@@ -73,20 +83,35 @@ HAZARDS = [None, "nan", "inf", "ties", "spots"]
 # K1 coord_stat
 
 
-@pytest.mark.parametrize("hazard", HAZARDS)
-@pytest.mark.parametrize("n", [8, 9])
+# ROADMAP.md P17: the medians whose sign of zero differs from JAX's, by
+# (hazard, n); none elsewhere (jnp.minimum orders -0 below +0,
+# torch.minimum on the CPU keeps one operand of a tied pair)
+SIGN_FLIPS = {("signed_zero", 4): 147, ("signed_zero", 8): 190,
+              ("signed_zero", 9): 184, ("signed_zero", 16): 205,
+              ("signed_zero", 17): 221, ("ties", 8): 1, ("ties", 9): 1,
+              ("ties", 16): 1}
+
+
+@pytest.mark.parametrize("hazard", HAZARDS + ["signed_zero"])
+@pytest.mark.parametrize("n", [4, 8, 9, 16, 17])
 def test_coord_stat_plain_matches_jax(n, hazard):
-    """Median exact (NaN where the JAX network spreads NaN); trimmed mean
-    (b = 2) within 3e-6, NaN and inf at the same places."""
+    """Median exact (NaN where the JAX network spreads NaN; the sign of a
+    zero median as JAX's but for SIGN_FLIPS, all at zero
+    medians); trimmed mean (b = min(2, (n - 1) // 2)) within 3e-6, NaN
+    and inf at the same places."""
     g = stack(n, 771, seed=n, hazard=hazard)
     gp, d = jax_pad(g)
     med = np.asarray(jax_coord_stat(gp, "median", interpret=True))[:d]
-    np.testing.assert_array_equal(
-        coord_stat_plain(torch.from_numpy(g), "median").numpy(), med)
-    tm = np.asarray(jax_coord_stat(gp, "trimmed_mean", b=2,
+    ours = coord_stat_plain(torch.from_numpy(g), "median").numpy()
+    np.testing.assert_array_equal(ours, med)
+    flips = (np.signbit(ours) != np.signbit(med)) & ~np.isnan(med)
+    assert not (flips & (med != 0)).any()
+    assert int(flips.sum()) == SIGN_FLIPS.get((hazard, n), 0)
+    b = min(2, (n - 1) // 2)
+    tm = np.asarray(jax_coord_stat(gp, "trimmed_mean", b=b,
                                    interpret=True))[:d]
     np.testing.assert_allclose(
-        kernels.coord_stat(torch.from_numpy(g), "trimmed_mean", b=2).numpy(),
+        kernels.coord_stat(torch.from_numpy(g), "trimmed_mean", b=b).numpy(),
         tm, rtol=TOL, atol=TOL)
 
 

@@ -152,12 +152,15 @@ def test_sparse_kernel_plain_matches_jax_law(dtype, hazard):
                 assert torch.isfinite(ours).all(), msg
 
 
-@pytest.mark.parametrize("hazard", [None, "nan", "inf", "zero_row"])
+@pytest.mark.parametrize("hazard", [None, "nan", "inf", "zero_row",
+                                    "neg_zero", "zero_scale"])
 @pytest.mark.parametrize("qdt", QDTYPES)
 def test_scaled_sparse_kernel_plain_matches_jax_law(qdt, hazard):
     """K21 on int8 / fp8 codes against the JAX law on the dequantized
     rows; an inf row (scale inf) poisons every column where it is live
-    and changes nothing where it is dead."""
+    and changes nothing where it is dead; a -0 code (fp8: tiny negative
+    values) and a row of scale 0 (its codes decode to +-0) are not
+    sent."""
     g = sparse_stack(2)
     if hazard == "nan":
         g[1, ::3] = np.nan
@@ -165,7 +168,13 @@ def test_scaled_sparse_kernel_plain_matches_jax_law(qdt, hazard):
         g[0, 8::4], g[0, 9::4] = np.inf, -np.inf
     elif hazard == "zero_row":
         g[N - 1] = 0.0
+    elif hazard == "neg_zero":
+        g[2, 8::3] = -1e-30
     tc, ts = quantize_rows(torch.from_numpy(g), qdt)
+    if hazard == "neg_zero" and qdt == "float8_e4m3fn":
+        assert (tc.view(torch.uint8)[2, 8::3] == 0x80).all()
+    elif hazard == "zero_scale":
+        ts[N - 2] = 0.0
     jc = jax_codes(tc, qdt)
     for k, live in enumerate(LIVE):
         mask = mask_of(live, 20 + k)
