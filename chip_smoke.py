@@ -74,7 +74,9 @@ The selection family (ROADMAP.md slice 3) adds:
                (f = 2): 1 warm-up step, then 2 timed steps per rule; the
                launch counts must show K2, K8, K4 (cge), K2, K9, K11
                (multi_krum), K2, K10, K11 (m_krum), K2, K11 (mda) and K2,
-               K10, K13 (bulyan) once per step; a traced step per rule;
+               K10, K13 (bulyan) once per step; a traced step of cge,
+               multi_krum and bulyan (m_krum and mda launch no kernel
+               that those leave out);
 4c. selection kernel vs gather — one full-width step per rule with
                impl="kernel" against impl="gather" from the same state and
                batch: the same arena, equal losses, the selected set and
@@ -253,8 +255,9 @@ fast path beside the exact law) add:
 
 2e. each timed full-width K18 / K19 case with its predicted ms on its
                line, and the compressed aggregation (spec.aggregate_flat on
-               the codes: median, trimmed and sparse_mean, sync and 6 of 8
-               arrived, int8 and fp8) timed on a line of its own; then the
+               the codes: median, trimmed, sign_sgd and sparse_mean, sync
+               and 6 of 8 arrived, int8 and fp8) timed on a line of its
+               own; then the
                scaled sweep:
                K18 and K19 at n = 1..17, 24, 32, 33, 48 and 64 in int8 and
                fp8, median and trimmed (b = min(2, (n - 1) // 2)), K19 at
@@ -295,6 +298,24 @@ K21 with vector loads of its live rows) add:
                1 and 0 live, weights all ones, the raw staleness discounts
                and those with a live row's weight 0; each case bitwise
                equal to its plain version (NaN to NaN) and to a repeat.
+
+K15 and K20 redesigned (one template: signs read from the bits of
+whole words, a fast path beside the exact law) add:
+
+2 / 2e. each timed full-width K15 / K20 case with its predicted ms on its
+               line;
+2f. K15 on the real sign_flip arena (bf16; its zero and -0 shares) and
+               K15 and K20 (8 and 6 of 8 arrived) on its int8 and fp8
+               codes, bitwise equal to the plain versions and timed
+               against the bound and a partial yardstick; then the vote
+               sweep: K15 and K20 at n = 1..17, 24, 32, 33, 48 and 64 on
+               int8 and fp8 codes at the scaled sweep's widths (a view
+               offset by one byte among them), every code, NaN and +-0
+               codes, and the inf / NaN / zero / overflowing / tiny
+               (2^-142) / negative scales, K20 at masks of n, n - 2, 1 and
+               0 arrived, and K15 on bf16 and fp32 at K1's sweep widths
+               with its hazard columns; each case bitwise equal to its
+               plain version (NaN to NaN) and to a repeat.
 
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
@@ -443,8 +464,14 @@ SPARSE_QUANT = {"sparse_mean": (N, {}, (K21,))}
 SPARSE_AQUANT = {"sparse_mean": (N, 6, {}, (K21,))}
 
 
+T0 = time.time()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line of ``phase``, with the seconds since the script
+    started (``t``)."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t": round(time.time() - T0, 1)}), flush=True)
 
 
 def fail(msg):
@@ -650,7 +677,8 @@ def kernel_checks(num_params):
               max_abs_diff=err, exact=err == 0.0, kernel_ms=ms,
               plain_ms=pms, library_ms=lms,
               library="torch.sign(torch.sign(g).sum(0)), a partial "
-                      "yardstick (three calls)", bound_ms=bms, bound_by=by)
+                      "yardstick (three calls)", bound_ms=bms, bound_by=by,
+              predicted_ms=VOTE_PREDICTED_MS[("sign_vote", dname)])
         summary["sign_vote"]["max_abs_err"] = max(
             summary["sign_vote"]["max_abs_err"], err)
         if main:
@@ -696,6 +724,17 @@ K1_PREDICTED_MS = {"bfloat16": (0.85, 1.05), "float32": (1.42, 1.60)}
 K21_PREDICTED_MS = {("int8", N): (0.50, 0.62), ("int8", 6): (0.42, 0.52),
                     ("float8_e4m3fn", N): (0.50, 0.68),
                     ("float8_e4m3fn", 6): (0.42, 0.57)}
+# the predicted ms of the timed full-width K15 and K20 cases (kernel,
+# dtype; K20 at 6 of 8 arrived), written before the redesigned kernels'
+# first run (PERF.md §6)
+VOTE_PREDICTED_MS = {
+    ("sign_vote", "bfloat16"): (0.78, 0.90),
+    ("sign_vote", "float32"): (1.38, 1.50),
+    ("sign_vote", "int8"): (0.47, 0.56),
+    ("sign_vote", "float8_e4m3fn"): (0.47, 0.56),
+    ("scaled_masked_sign_vote", "int8"): (0.40, 0.48),
+    ("scaled_masked_sign_vote", "float8_e4m3fn"): (0.40, 0.48),
+}
 
 # the Gram kernels beyond the main path's n = 8: the sweep's n, its (d,
 # leading stride, hazard) cases, and the width of the compute-bound probe
@@ -1895,6 +1934,9 @@ def scaled_kernel_checks(num_params):
                 lambda: scaled_masked_sign_vote_plain(codes, qs, m, wn),
                 10, 2, arrived * P + 8 * N + 4 * P,
                 3 * arrived * P) if timed else {}
+            if timed:
+                kw["predicted_ms"] = VOTE_PREDICTED_MS[(
+                    "scaled_masked_sign_vote", qdt)]
             check("scaled_masked_sign_vote", ok, dtype=qdt, shape=[N, P],
                   arrived=arrived, max_abs_diff=err, exact=err == 0.0, **kw)
             note(summary, "scaled_masked_sign_vote", err, main and kw)
@@ -1910,7 +1952,8 @@ def scaled_kernel_checks(num_params):
                     label="torch.sign(torch.sign(codes.float()).sum(0)), a "
                           "partial yardstick (four calls)")
         check("sign_vote", err == 0.0, dtype=qdt, shape=[N, P],
-              max_abs_diff=err, exact=err == 0.0, **kw)
+              max_abs_diff=err, exact=err == 0.0,
+              predicted_ms=VOTE_PREDICTED_MS[("sign_vote", qdt)], **kw)
         summary.setdefault("sign_vote_codes", {})[qdt] = kw
         compressed_aggregation(codes, qs)
         dequant_copy_gate(codes, qs, P)
@@ -1925,14 +1968,16 @@ def scaled_kernel_checks(num_params):
 def compressed_aggregation(codes, qs):
     """The compressed exchange's aggregation on the codes, on a line of
     its own: ``spec.aggregate_flat(codes, scale=qs)`` of median and
-    trimmed_mean (one K18 a call) and with 6 of 8 arrived (one K19), and
-    of sparse_mean (one K21 a call, sync and masked), each call timed whole
-    (the spec's own stages included)."""
+    trimmed_mean (one K18 a call) and with 6 of 8 arrived (one K19), of
+    sign_sgd (one K15 on the codes; one K20) and of sparse_mean (one K21
+    a call, sync and masked), each call timed whole (the spec's own
+    stages included)."""
     from repro_torch.core.aggregators import make_spec
     m = arrival_mask(6).bool()
     w, _ = discount_weights(m.float())
     agg = {}
-    for rule in ("coordinate_median", "trimmed_mean", "sparse_mean"):
+    for rule in ("coordinate_median", "trimmed_mean", "sign_sgd",
+                 "sparse_mean"):
         spec = make_spec(rule, f=F, n=N)
         agg[rule] = {
             "sync": time_ms(lambda: spec.aggregate_flat(codes, scale=qs), 5),
@@ -2065,7 +2110,10 @@ def scaled_stack(n, ld, qdt, gen, hazard):
     inf (K19: live in the full mask), row n // 2's NaN (absent at n - 2
     arrived), row n - 1's 0 (a negative code gives -0; the one row live at
     1 arrived), or row 0's scale such that its largest codes (127, 448)
-    overflow to +-inf while the scale (times 2^8 for fp8) stays finite."""
+    overflow to +-inf while the scale (times 2^8 for fp8) stays finite;
+    K15 / K20's sweep adds ``tiny_scale`` (row 0's scale 2^-142; fp8: its
+    codes +-2^-9 and 0, so every product of the row rounds to +-0) and
+    ``neg_scale`` (the even rows' scales negated)."""
     fp8 = qdt == "float8_e4m3fn"
     raw = torch.randint(0, 256, (n, ld), generator=gen, device=DEVICE,
                         dtype=torch.int32).to(torch.uint8)
@@ -2092,6 +2140,13 @@ def scaled_stack(n, ld, qdt, gen, hazard):
         scale[0] = FLT_MAX / (340.0 if fp8 else 100.0)
         raw[0, ::3] = 0x7e if fp8 else 0x7f
         raw[0, 1::3] = 0xfe if fp8 else 0x81
+    elif hazard == "tiny_scale":
+        scale[0] = 2.0 ** -142
+        if fp8:
+            raw[0] = torch.where(raw[0] >= 0x80, 0x81, 0x01).to(torch.uint8)
+            raw[0, 2::5] = 0
+    elif hazard == "neg_scale":
+        scale[::2] = -scale[::2]
     return raw.view(getattr(torch, qdt)), scale
 
 
@@ -2636,6 +2691,132 @@ def sparse_sweep_checks():
         torch.cuda.synchronize()
         check("sparse_sweep", True, n=n, cases=cases, exact=True,
               repeat_bitwise=True)
+
+
+# K15 / K20's sweep: the scale hazards of the codes' (4099, 4112) stack
+VOTE_HAZARDS = SCALED_HAZARDS + ("tiny_scale", "neg_scale")
+
+
+def vote_sweep_checks():
+    """K15 and K20 at every n of GRAM_SWEEP_N: on int8 and fp8 codes at the
+    SCALED_SWEEP_WIDTHS (a view offset by one byte among them: the element
+    loads) and, on the (4099, 4112) stack, each of VOTE_HAZARDS
+    (scaled_stack: every code, NaN and +-0 codes; inf / NaN / zero /
+    overflowing / tiny / negative scales), K20 at the scaled_masks (n, n -
+    2, 1 and 0 arrived); K15 also on bf16 and fp32 at the
+    ORDER_SWEEP_WIDTHS with the hazard columns of order_stack (NaN, +-inf,
+    +-0, subnormals).  Each case bitwise equal to its plain version (NaN
+    to NaN) and to a repeat.  One line per n."""
+    from repro_torch import kernels
+    from repro_torch.kernels.masked import (scaled_masked_sign_vote_plain,
+                                            sign_vote_plain)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    for n in GRAM_SWEEP_N:
+        cases = 0
+        runs = []
+        for qdt in QUANT:
+            for d, ld, off in SCALED_SWEEP_WIDTHS:
+                hazards = (None,) + (VOTE_HAZARDS if (d, ld, off) == (
+                    4099, 4112, 0) else ())
+                for hazard in hazards:
+                    codes, qs = scaled_stack(n, ld + off, qdt, gen, hazard)
+                    g = codes[:, off:off + d]
+                    case = dict(dtype=qdt, d=d, ld=ld, offset=off,
+                                hazard=hazard)
+                    runs.append(({**case, "kernel": "sign_vote"},
+                                 lambda g=g: kernels.sign_vote(g),
+                                 lambda g=g: sign_vote_plain(g)))
+                    for m in scaled_masks(n):
+                        runs.append((
+                            {**case, "kernel": "scaled_masked_sign_vote",
+                             "arrived": int(m.sum())},
+                            lambda g=g, qs=qs, m=m:
+                                kernels.scaled_masked_sign_vote(g, qs, m, m),
+                            lambda g=g, qs=qs, m=m:
+                                scaled_masked_sign_vote_plain(g, qs, m, m)))
+        for dtype in (torch.bfloat16, torch.float32):
+            for d, ld, off in ORDER_SWEEP_WIDTHS:
+                g = order_stack(n, ld + off, dtype, gen)[:, off:off + d]
+                runs.append((dict(kernel="sign_vote", dtype=str(dtype)[6:],
+                                  d=d, ld=ld, offset=off),
+                             lambda g=g: kernels.sign_vote(g),
+                             lambda g=g: sign_vote_plain(g)))
+        for case, fn, plain in runs:
+            out, ref = fn(), plain()
+            ok = same_bits_nan(out, ref) and same_bits(out, fn())
+            if case.get("arrived") == 0:
+                ok = ok and not bool(out.any())
+            cases += 1
+            if not ok:
+                check("vote_sweep", False, n=n, **case,
+                      max_abs_diff=max_abs_err(out, ref))
+        torch.cuda.synchronize()
+        check("vote_sweep", True, n=n, cases=cases, exact=True,
+              repeat_bitwise=True)
+
+
+def vote_arena_checks(x):
+    """K15 on the real sign_flip arena ``x`` of real_arena (bf16, n = 8:
+    whole columns of +-0 where the batch touches no embedding row), and
+    K15 and K20 (8 and 6 of 8 arrived) on its int8 and fp8 codes: bitwise
+    equal to the plain versions (NaN to NaN), timed against the bound and
+    the partial yardstick, with the predicted ms."""
+    from repro_torch import kernels
+    from repro_torch.core.flat import quantize_rows
+    from repro_torch.kernels.masked import (scaled_masked_sign_vote_plain,
+                                            sign_vote_plain)
+
+    P = x.shape[1]
+    zeros = x == 0
+    emit("vote_arena", shape=[N, P], zero_share=float(zeros.float().mean()),
+         neg_zero_share=float((zeros & torch.signbit(x)).float().mean()))
+    del zeros
+
+    def case(name, fn, plain, bytes_moved, library, label, **kw):
+        out, ref = fn(), plain()
+        ok = same_bits_nan(out, ref) and same_bits(out, fn())
+        err = max_abs_err(out, ref)
+        zero_out = float((out == 0).float().mean())
+        del out, ref
+        check(name, ok, case="real sign_flip arena", shape=[N, P],
+              max_abs_diff=err, exact=ok, zero_output_share=zero_out,
+              **timing(fn, plain, 10, 2, bytes_moved, 0, library=library,
+                       label=label), **kw)
+
+    case("sign_vote", lambda: kernels.sign_vote(x),
+         lambda: sign_vote_plain(x), 2 * N * P + 4 * P,
+         lambda: torch.sign(torch.sign(x).sum(0)),
+         "torch.sign(torch.sign(g).sum(0)), a partial yardstick (three "
+         "calls)", dtype="bfloat16",
+         predicted_ms=VOTE_PREDICTED_MS[("sign_vote", "bfloat16")])
+    xf = x.float()
+    for qdt in QUANT:
+        codes, qs = quantize_rows(xf, qdt)
+        case("sign_vote", lambda: kernels.sign_vote(codes),
+             lambda: sign_vote_plain(codes), N * P + 4 * P,
+             lambda: torch.sign(torch.sign(codes.float()).sum(0)),
+             "torch.sign(torch.sign(codes.float()).sum(0)), a partial "
+             "yardstick (four calls)", dtype=qdt,
+             predicted_ms=VOTE_PREDICTED_MS[("sign_vote", qdt)])
+        for live in (N, 6):
+            m = arrival_mask(live)
+            case("scaled_masked_sign_vote",
+                 lambda: kernels.scaled_masked_sign_vote(codes, qs, m, m),
+                 lambda: scaled_masked_sign_vote_plain(codes, qs, m, m),
+                 live * P + 8 * N + 4 * P,
+                 lambda: torch.sign((torch.sign(codes.float()
+                                                * qs[:, None])
+                                     * m[:, None]).sum(0)),
+                 "torch.sign((torch.sign(codes.float() * scale) * "
+                 "mask).sum(0)), a partial yardstick (five calls)",
+                 dtype=qdt, arrived=live,
+                 predicted_ms=VOTE_PREDICTED_MS[(
+                     "scaled_masked_sign_vote", qdt)] if live == 6 else None)
+        del codes, qs
+        torch.cuda.empty_cache()
+    del xf
+    torch.cuda.empty_cache()
 
 
 def sort_checks(x):
@@ -4002,6 +4183,8 @@ def main():
     note(summary, "coord_stat", coord_stat_arena_checks(arena))
     summary.update(sparse_kernel_checks(arena))
     sparse_sweep_checks()
+    vote_arena_checks(arena)
+    vote_sweep_checks()
     sort_summary, sort_counts = sort_checks(arena)
     summary.update(sort_summary)
     del arena
@@ -4029,8 +4212,12 @@ def main():
                                           agg_dtype="int8")
     sparse_totals += [asparse_totals, asq_totals, sort_counts]
     memory_totals, memory_step_ms = phase_memory(cfg)
+    # m_krum and mda run no kernel that multi_krum's and bulyan's traced
+    # steps leave out (K2, K10, K11), so they are not traced
     phase_profile(cfg, {"trimmed_mean": (N, {}, ()), "krum": (N, {}, ()),
-                        **SEL_RULES, "sparse_mean": (N, {}, ())})
+                        **{r: SEL_RULES[r] for r in ("cge", "multi_krum",
+                                                     "bulyan")},
+                        "sparse_mean": (N, {}, ())})
     phase_profile_async(cfg, {**{r: (N, 6, {}) for r in RULES},
                               "multi_krum": (N, 6, {"m": 3}),
                               "sparse_mean": (N, 6, {}),

@@ -1,21 +1,35 @@
-"""Time this checkout's K1 and K21 against another checkout's, on the same
+"""Time this checkout's kernels against another checkout's, on the same
 inputs, on the card (a host with the CUDA toolkit and an NVIDIA GPU):
 
-    python -m repro_torch.kernels.compare --csrc DIR [--units GLOB ...]
+    python -m repro_torch.kernels.compare --csrc DIR [--kernels NAME ...]
+        [--units GLOB ...]
 
 ``DIR`` is the ``csrc`` of the other checkout (unpack it with ``git
-archive`` under the git-ignored ``build/``).  The units of ``DIR`` that
-match a ``GLOB`` (by default the ones that hold K1 and K21 and K1's
-instances) are compiled with ``build.py``'s flags into one library of
-their own; this checkout's kernels come from :func:`build.lib`.  Each
-case, at the full width of paper-100m (P = 124,668,672): K1 on a bf16
-stack at n = 8, 16, 33 and 64 and on fp32 at n = 8 (median, trimmed b =
-2); K21 on the int8 and fp8 codes of a sparse stack with 8 and 6 of 8
-rows live.  The other library and this one run in turns (other, this,
-this, other; CUDA events over ``--reps`` launches after a warm-up), their
-outputs are compared (medians and K21 equal NaN to NaN, trimmed means
-within 3e-6), and one JSON line a case gives both times, the bytes'
-bound and the card.
+archive`` under the git-ignored ``build/``).  ``--kernels`` picks rows of
+:data:`KERNELS` (all by default); the units of ``DIR`` that hold them (or
+those matching ``--units``) are compiled with ``build.py``'s flags into
+one library of their own, and this checkout's kernels come from
+:func:`build.lib`.  The cases, at the full width of paper-100m (P =
+124,668,672):
+
+* ``coord_stat`` (K1): a bf16 stack at n = 8, 16, 33 and 64 and fp32 at
+  n = 8, median and trimmed (b = 2);
+* ``scaled_sparse_masked_weighted_mean`` (K21): the int8 and fp8 codes of
+  a sparse stack, 8 and 6 of 8 rows live;
+* ``sign_vote`` (K15): n = 8 in bf16, fp32, int8 and fp8 codes, and int8
+  codes at n = 16, 33 and 64;
+* ``scaled_masked_sign_vote`` (K20): int8 and fp8 codes at 8 and 6 of 8
+  arrived, and int8 at n = 16, 33 and 64 with n - 2 arrived;
+* ``masked_sign_vote`` (K16): fp32 and bf16 at 6 of 8 arrived;
+* ``sign_sgd_aggregation``: sign_sgd's ``spec.aggregate_flat`` on a bf16
+  arena (one K15), on int8 and fp8 codes (one K15) and on those codes
+  with 6 of 8 arrived (one K20), its kernels taken from either library.
+
+The other library and this one run in turns (other, this, this, other;
+CUDA events over ``--reps`` launches after a warm-up), their outputs are
+compared (medians, K21 and the votes equal NaN to NaN, trimmed means
+within 3e-6), and one JSON line a case gives both times, the bytes' bound
+and the card.
 """
 from __future__ import annotations
 
@@ -35,11 +49,21 @@ from .coord_stats import STATS
 
 P = 124_668_672
 MEM_BPS = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
-UNITS = ("coord_stat*.cu", "order_stat_*.cu", "sparse_wmean.cu")
+VP, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the C entry points of the compared kernels and their argtypes
+ENTRIES = {
+    "rt_coord_stat": [VP, I32, VP, I32, I64, I64, I32, I32, VP],
+    "rt_scaled_sparse_masked_weighted_mean": [VP, I32, VP, VP, VP, VP, I32,
+                                              I64, I64, VP],
+    "rt_sign_vote": [VP, I32, VP, I32, I64, I64, VP],
+    "rt_scaled_masked_sign_vote": [VP, I32, VP, VP, VP, I32, I64, I64, VP],
+    "rt_masked_sign_vote": [VP, I32, VP, VP, I32, I64, I64, VP],
+}
 
 
-def other_lib(csrc: Path, globs, out_dir: Path):
-    """The units of ``csrc`` matching ``globs`` in one shared library."""
+def other_lib(csrc: Path, globs, entries, out_dir: Path):
+    """The units of ``csrc`` matching ``globs`` in one shared library, with
+    the argtypes of ``entries`` set."""
     units = sorted({u for g in globs for u in csrc.glob(g)})
     if not units:
         raise SystemExit(f"no unit of {csrc} matches {list(globs)}")
@@ -59,17 +83,19 @@ def other_lib(csrc: Path, globs, out_dir: Path):
         subprocess.run([nvcc, *build.ARCH, "-shared", "-o", str(lib),
                         *[str(o) for _, o in procs]], check=True)
     L = ctypes.CDLL(str(lib))
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    L.rt_coord_stat.argtypes = [vp, i32, vp, i32, i64, i64, i32, i32, vp]
-    L.rt_scaled_sparse_masked_weighted_mean.argtypes = [
-        vp, i32, vp, vp, vp, vp, i32, i64, i64, vp]
-    L.rt_coord_stat.restype = i32
-    L.rt_scaled_sparse_masked_weighted_mean.restype = i32
+    for name in entries:
+        fn = getattr(L, name)
+        fn.argtypes = ENTRIES[name]
+        fn.restype = I32
     return L
 
 
+def _out(x):
+    return torch.empty(x.shape[1], device=x.device)
+
+
 def coord_stat(L, x, stat, b):
-    out = torch.empty(x.shape[1], device=x.device)
+    out = _out(x)
     build.check(L.rt_coord_stat(x.data_ptr(), build.dtype_code(x),
                                 out.data_ptr(), x.shape[0], x.shape[1],
                                 x.stride(0), STATS[stat], b,
@@ -78,13 +104,198 @@ def coord_stat(L, x, stat, b):
 
 
 def sparse_mean(L, codes, scale, mask, w):
-    out = torch.empty(codes.shape[1], device=codes.device)
+    out = _out(codes)
     build.check(L.rt_scaled_sparse_masked_weighted_mean(
         codes.data_ptr(), build.dtype_code(codes, build.QUANT_CODES),
         scale.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr(),
         codes.shape[0], codes.shape[1], codes.stride(0),
         build.stream_ptr(codes)), "scaled_sparse_masked_weighted_mean")
     return out
+
+
+def sign_vote(L, x):
+    out = _out(x)
+    build.check(L.rt_sign_vote(
+        x.data_ptr(), build.dtype_code(x, {**build.FLOAT_CODES,
+                                           **build.QUANT_CODES}),
+        out.data_ptr(), x.shape[0], x.shape[1], x.stride(0),
+        build.stream_ptr(x)), "sign_vote")
+    return out
+
+
+def scaled_vote(L, codes, scale, mask):
+    out = _out(codes)
+    build.check(L.rt_scaled_masked_sign_vote(
+        codes.data_ptr(), build.dtype_code(codes, build.QUANT_CODES),
+        scale.data_ptr(), mask.data_ptr(), out.data_ptr(), codes.shape[0],
+        codes.shape[1], codes.stride(0), build.stream_ptr(codes)),
+        "scaled_masked_sign_vote")
+    return out
+
+
+def masked_vote(L, x, mask):
+    out = _out(x)
+    build.check(L.rt_masked_sign_vote(
+        x.data_ptr(), build.dtype_code(x), mask.data_ptr(), out.data_ptr(),
+        x.shape[0], x.shape[1], x.stride(0), build.stream_ptr(x)),
+        "masked_sign_vote")
+    return out
+
+
+def _mask(n, live):
+    m = torch.ones(n, device="cuda")
+    m[live:] = 0.0
+    return m
+
+
+def _floats(gen, n, dtype):
+    return (torch.randn((n, P), generator=gen, device="cuda")
+            * 1e-3).to(dtype)
+
+
+def _name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+# Each row: the entry points, the units that hold them, and the cases: a
+# generator of (case, call(L) -> output, bytes moved, tolerance).  A
+# generator's inputs live while its cases run.
+
+def coord_stat_cases(gen):
+    for dtype, ns in ((torch.bfloat16, (8, 16, 33, 64)),
+                      (torch.float32, (8,))):
+        for n in ns:
+            x = _floats(gen, n, dtype)
+            for stat, b in (("median", 0), ("trimmed_mean", 2)):
+                yield ({"dtype": _name(dtype), "n": n, "stat": stat,
+                        "b": b},
+                       lambda L, stat=stat, b=b: coord_stat(L, x, stat, b),
+                       n * P * x.element_size() + 4 * P,
+                       0.0 if stat == "median" else 3e-6)
+            del x
+            torch.cuda.empty_cache()
+
+
+def sparse_mean_cases(gen):
+    g = torch.randn((8, P), generator=gen, device="cuda") * 1e-3
+    g[torch.rand((8, P), generator=gen, device="cuda") < 0.5] = 0.0
+    for qdt in ("int8", "float8_e4m3fn"):
+        codes, scale = quantize_rows(g, qdt)
+        for live in (8, 6):
+            m = _mask(8, live)
+            w = m * torch.tensor([1.0, 0.5, 1.0 / 3.0] * 3,
+                                 device="cuda")[:8] if live < 8 else m
+            yield ({"dtype": qdt, "n": 8, "live": live},
+                   lambda L, m=m, w=w: sparse_mean(L, codes, scale, m, w),
+                   live * P + 4 * P + 12 * 8, 0.0)
+        del codes, scale
+
+
+def sign_vote_cases(gen):
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _floats(gen, 8, dtype)
+        yield ({"dtype": _name(dtype), "n": 8},
+               lambda L: sign_vote(L, x), 8 * P * x.element_size() + 4 * P,
+               0.0)
+        del x
+    g = torch.randn((8, P), generator=gen, device="cuda")
+    for qdt in ("int8", "float8_e4m3fn"):
+        codes, _ = quantize_rows(g, qdt)
+        yield ({"dtype": qdt, "n": 8}, lambda L: sign_vote(L, codes),
+               8 * P + 4 * P, 0.0)
+        del codes
+    del g
+    for n in (16, 33, 64):
+        codes = torch.randint(-127, 128, (n, P), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        yield ({"dtype": "int8", "n": n}, lambda L: sign_vote(L, codes),
+               n * P + 4 * P, 0.0)
+        del codes
+        torch.cuda.empty_cache()
+
+
+def scaled_vote_cases(gen):
+    g = torch.randn((8, P), generator=gen, device="cuda")
+    for qdt in ("int8", "float8_e4m3fn"):
+        codes, scale = quantize_rows(g, qdt)
+        for live in (8, 6):
+            m = _mask(8, live)
+            yield ({"dtype": qdt, "n": 8, "live": live},
+                   lambda L, m=m: scaled_vote(L, codes, scale, m),
+                   live * P + 8 * 8 + 4 * P, 0.0)
+        del codes, scale
+    del g
+    for n in (16, 33, 64):
+        codes = torch.randint(-127, 128, (n, P), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        scale = torch.rand(n, generator=gen, device="cuda") + 0.5
+        m = _mask(n, n - 2)
+        yield ({"dtype": "int8", "n": n, "live": n - 2},
+               lambda L: scaled_vote(L, codes, scale, m),
+               (n - 2) * P + 8 * n + 4 * P, 0.0)
+        del codes
+        torch.cuda.empty_cache()
+
+
+def masked_vote_cases(gen):
+    m = _mask(8, 6)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _floats(gen, 8, dtype)
+        yield ({"dtype": _name(dtype), "n": 8, "live": 6},
+               lambda L: masked_vote(L, x, m),
+               6 * P * x.element_size() + 4 * 8 + 4 * P, 0.0)
+        del x
+        torch.cuda.empty_cache()
+
+
+def aggregated(L, spec, x, **kw):
+    """``spec.aggregate_flat(x, **kw)`` with the kernels of library L."""
+    saved = build._LIB
+    build._LIB = L
+    try:
+        return spec.aggregate_flat(x, **kw)
+    finally:
+        build._LIB = saved
+
+
+def sign_sgd_cases(gen):
+    from ..core.aggregators import make_spec
+    spec = make_spec("sign_sgd", f=2, n=8)
+    x = _floats(gen, 8, torch.bfloat16)
+    yield ({"dtype": "bfloat16", "n": 8}, lambda L: aggregated(L, spec, x),
+           8 * P * 2 + 4 * P, 0.0)
+    del x
+    g = torch.randn((8, P), generator=gen, device="cuda")
+    m = _mask(8, 6).bool()
+    for qdt in ("int8", "float8_e4m3fn"):
+        codes, scale = quantize_rows(g, qdt)
+        yield ({"dtype": qdt, "n": 8},
+               lambda L: aggregated(L, spec, codes, scale=scale),
+               8 * P + 4 * P, 0.0)
+        yield ({"dtype": qdt, "n": 8, "live": 6},
+               lambda L: aggregated(L, spec, codes, mask=m,
+                                    weights=m.float(), scale=scale),
+               6 * P + 8 * 8 + 4 * P, 0.0)
+        del codes, scale
+    del g
+    torch.cuda.empty_cache()
+
+
+KERNELS = {
+    "coord_stat": (("rt_coord_stat",), ("coord_stat*.cu",
+                                         "order_stat_*.cu"),
+                   coord_stat_cases),
+    "scaled_sparse_masked_weighted_mean": (
+        ("rt_scaled_sparse_masked_weighted_mean",), ("sparse_wmean.cu",),
+        sparse_mean_cases),
+    "sign_vote": (("rt_sign_vote",), ("sign_vote.cu",), sign_vote_cases),
+    "scaled_masked_sign_vote": (("rt_scaled_masked_sign_vote",),
+                                ("sign_vote.cu",), scaled_vote_cases),
+    "masked_sign_vote": (("rt_masked_sign_vote",), ("sign_vote.cu",),
+                         masked_vote_cases),
+    "sign_sgd_aggregation": (("rt_sign_vote", "rt_scaled_masked_sign_vote"),
+                             ("sign_vote.cu",), sign_sgd_cases),
+}
 
 
 def time_ms(fn, reps):
@@ -124,8 +335,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--csrc", type=Path, required=True,
                     help="the csrc directory of the other checkout")
-    ap.add_argument("--units", nargs="+", default=list(UNITS),
-                    help="globs of the other checkout's units to compile")
+    ap.add_argument("--kernels", nargs="+", choices=list(KERNELS),
+                    default=list(KERNELS), help="the kernels to compare")
+    ap.add_argument("--units", nargs="+",
+                    help="globs of the other checkout's units to compile "
+                         "(by default those of the chosen kernels)")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -134,42 +348,19 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    other = other_lib(args.csrc.resolve(), args.units,
+    rows = [KERNELS[k] for k in args.kernels]
+    globs = args.units or [g for _, units, _ in rows for g in units]
+    other = other_lib(args.csrc.resolve(), sorted(set(globs)),
+                      sorted({e for entries, _, _ in rows for e in entries}),
                       build.build_root() / "other")
     this = build.lib()
     gen = torch.Generator(device="cuda").manual_seed(0)
     ok = True
-    for dtype, ns in ((torch.bfloat16, (8, 16, 33, 64)),
-                      (torch.float32, (8,))):
-        for n in ns:
-            x = (torch.randn((n, P), generator=gen, device="cuda")
-                 * 1e-3).to(dtype)
-            for stat, b in (("median", 0), ("trimmed_mean", 2)):
-                ok &= run_case(
-                    card, {"kernel": "coord_stat", "dtype": str(dtype)[6:],
-                           "n": n, "stat": stat, "b": b},
-                    lambda: coord_stat(other, x, stat, b),
-                    lambda: coord_stat(this, x, stat, b),
-                    n * P * x.element_size() + 4 * P,
-                    0.0 if stat == "median" else 3e-6, args.reps)
-            del x
-            torch.cuda.empty_cache()
-    g = torch.randn((8, P), generator=gen, device="cuda") * 1e-3
-    g[torch.rand((8, P), generator=gen, device="cuda") < 0.5] = 0.0
-    for qdt in ("int8", "float8_e4m3fn"):
-        codes, scale = quantize_rows(g, qdt)
-        for live in (8, 6):
-            m = torch.ones(8, device="cuda")
-            m[live:] = 0.0
-            w = m * torch.tensor([1.0, 0.5, 1.0 / 3.0] * 3,
-                                 device="cuda")[:8] if live < 8 else m
-            ok &= run_case(
-                card, {"kernel": "scaled_sparse_masked_weighted_mean",
-                       "dtype": qdt, "n": 8, "live": live},
-                lambda: sparse_mean(other, codes, scale, m, w),
-                lambda: sparse_mean(this, codes, scale, m, w),
-                live * P + 4 * P + 12 * 8, 0.0, args.reps)
-        del codes, scale
+    for name in args.kernels:
+        for case, call, bytes_moved, tol in KERNELS[name][2](gen):
+            ok &= run_case(card, {"kernel": name, **case},
+                           lambda: call(other), lambda: call(this),
+                           bytes_moved, tol, args.reps)
     if not ok:
         raise SystemExit("compare: the two checkouts disagree")
 

@@ -306,6 +306,22 @@ def assert_same(a, b):
     torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
+def assert_bits(a, b):
+    """Bitwise equality, the sign of zero included; NaN equal to NaN."""
+    an, bn = torch.isnan(a), torch.isnan(b)
+    assert torch.equal(an, bn)
+    assert torch.equal(a[~an].view(torch.int32), b[~bn].view(torch.int32))
+
+
+def offset_by_one(x):
+    """A copy of ``x`` in a view whose rows start one element past a
+    16-byte boundary (rows not aligned for the vector loads)."""
+    n, d = x.shape
+    wide = torch.zeros((n, d + 1), dtype=x.dtype, device=x.device)
+    wide[:, 1:] = x
+    return wide[:, 1:]
+
+
 # Bulyan's hazards beyond stack()'s (K13, K14 and the K11 / K12 beside
 # them): +-0 on most rows every 5th column (a +-0 median); +-3e38 / +-1e38
 # / 2e38 every 3rd column (|x - med| overflows, the all-inf rounds take
@@ -488,18 +504,28 @@ def test_cuda_masked_selection_kernels_match_plain(cuda_device, n, hazard,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hazard", HAZARDS + ["zeros", "absent"])
-@pytest.mark.parametrize("n", [3, 8, 11, 33])
+@pytest.mark.parametrize("hazard", HAZARDS + ["zeros", "absent",
+                                             "subnormal"])
+@pytest.mark.parametrize("n", [1, 3, 8, 11, 33, 64])
 def test_cuda_sign_votes_match_plain(cuda_device, n, hazard, dtype):
     """K15 and K16 exact (NaN where the plain version has NaN); an absent
-    row's NaN never shows in K16 (ROADMAP.md P10)."""
-    g = stack(max(n, 8), 4099, 8, None if hazard in ("zeros", "absent")
-              else hazard, cuda_device, torch.float32)[:n].contiguous()
+    row's NaN never shows in K16 (ROADMAP.md P10).  K15 also on a view
+    offset by one element (rows not aligned for the vector loads),
+    bitwise (the sign of a zero vote included) and repeated bit for
+    bit."""
+    own = hazard in ("zeros", "absent", "subnormal")
+    g = stack(max(n, 8), 4099, 8, None if own else hazard, cuda_device,
+              torch.float32)[:n].contiguous()
     if hazard == "zeros":
         g[:, ::2] = 0.0
         g[: n // 2, ::4] = -0.0
+    elif hazard == "subnormal":
+        g[:, ::3] *= 1e-40 if dtype == torch.float32 else 1e-39
     g = g.to(dtype)
-    assert_same(kernels.sign_vote(g), sign_vote_plain(g))
+    for x in (g, offset_by_one(g)):
+        out = kernels.sign_vote(x)
+        assert_bits(out, sign_vote_plain(x))
+        assert_bits(out, kernels.sign_vote(x))
     for case in MASKS:
         m = mask_of(n, case, cuda_device)
         gm = masked_hazard(g.clone(), m, hazard)
@@ -581,6 +607,71 @@ def test_cuda_scaled_kernels_match_plain(cuda_device, n, hazard, qdt):
         assert_same(kernels.scaled_masked_sign_vote(codes, qs, m, m),
                     scaled_masked_sign_vote_plain(codes, qs, m, m))
     assert_same(kernels.sign_vote(codes), sign_vote_plain(codes))
+    torch.cuda.synchronize()
+
+
+# the classes of row 0's scale that K20's fast path folds in (None,
+# negative, overflowing the largest codes to +-inf) or hands to its exact
+# law (inf, NaN, 0, tiny)
+SIGN_SCALES = [None, "inf_scale", "nan_scale", "zero_scale", "tiny_scale",
+               "neg_scale", "overflow"]
+SIGN_NS = [1, 3, 8, 11, 33, 64]
+
+
+def sign_codes(n, qdt, scale_class, device):
+    """(codes, scale) of quantize_rows on the card, d = 4099: normal rows
+    with +0 / -0 values every 5th column (fp8 -0 codes), fp8 NaN codes
+    in row n - 1 every 7th column, and row 0's scale of ``scale_class``
+    (``tiny_scale``: 2^-142, and for fp8 row 0's codes +-2^-9 and 0, so
+    every product of the row rounds to +-0; ``overflow``: the largest
+    codes of row 0 times its scale overflow to +-inf)."""
+    g = torch.randn((n, 4099), generator=torch.Generator().manual_seed(n))
+    g[:, ::5] = torch.where(g[:, ::5] < 0, -1e-30, 0.0)
+    codes, qs = quantize_rows(g.to(device), qdt)
+    fp8 = qdt == "float8_e4m3fn"
+    raw = codes.view(torch.uint8)
+    if fp8:
+        raw[n - 1, 3::7] = 0x7f
+    if scale_class == "inf_scale":
+        qs[0] = math.inf
+    elif scale_class == "nan_scale":
+        qs[0] = math.nan
+    elif scale_class == "zero_scale":
+        qs[0] = 0.0
+    elif scale_class == "neg_scale":
+        qs[0] = -qs[0]
+    elif scale_class == "tiny_scale":
+        qs[0] = 2.0 ** -142
+        if fp8:
+            raw[0] = torch.where(g[0].to(device) < 0, 0x81, 0x01).to(
+                torch.uint8)
+            raw[0, 1::4] = 0
+    elif scale_class == "overflow":
+        qs[0] = 3.4028234663852886e38 / (340.0 if fp8 else 100.0)
+        raw[0, ::3] = 0x7e if fp8 else 0x7f
+        raw[0, 1::3] = 0xfe if fp8 else 0x81
+    return codes, qs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt", ["int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("scale_class", SIGN_SCALES)
+@pytest.mark.parametrize("n", SIGN_NS)
+def test_cuda_sign_votes_on_codes_match_plain_at_every_scale(
+        cuda_device, n, scale_class, qdt):
+    """K15 on the codes and K20 at every mask case, on aligned rows and on
+    a view offset by one byte, bitwise equal to their plain versions (NaN
+    to NaN) and to a repeat."""
+    codes, qs = sign_codes(n, qdt, scale_class, cuda_device)
+    for x in (codes, offset_by_one(codes)):
+        out = kernels.sign_vote(x)
+        assert_bits(out, sign_vote_plain(x))
+        assert_bits(out, kernels.sign_vote(x))
+        for case in MASKS:
+            m = mask_of(n, case, cuda_device)
+            out = kernels.scaled_masked_sign_vote(x, qs, m, m)
+            assert_bits(out, scaled_masked_sign_vote_plain(x, qs, m, m))
+            assert_bits(out, kernels.scaled_masked_sign_vote(x, qs, m, m))
     torch.cuda.synchronize()
 
 

@@ -59,7 +59,16 @@ HAZARDS = [None, "nan", "inf"]
 STAT_CASES = ([(n, q, h) for n in NS for q in QDTYPES
                for h in HAZARDS + ["signed_zero", "zero_row"]]
               + [(n, q, None) for n in (17, 33) for q in QDTYPES])
+# the sign votes' cases: every hazard at NS, the fast path's value
+# hazards, and the classes of row 0's scale that K20's fast path hands to
+# its exact law (0, tiny, NaN) or folds in (negative); and n = 33 and 64
+SCALE_HAZARDS = ["zero_scale", "tiny_scale", "neg_scale", "nan_scale"]
+SIGN_CASES = ([(n, q, h) for n in NS for q in QDTYPES
+               for h in HAZARDS + ["signed_zero", "zero_row"]
+               + SCALE_HAZARDS]
+              + [(n, q, None) for n in (33, 64) for q in QDTYPES])
 SCALED_RULES = ["coordinate_median", "trimmed_mean", "sign_sgd"]
+TINY = 2.0 ** -142            # a subnormal fp32 scale
 
 
 def quantized(n, seed, qdt, hazard=None, d=D_):
@@ -67,7 +76,11 @@ def quantized(n, seed, qdt, hazard=None, d=D_):
     rows; ``nan``: row 1 NaN in every 3rd value; ``inf``: row 0 holds +inf
     and -inf (its scale is inf); ``signed_zero``: row 1 holds tiny
     negative values every 2nd value (fp8 codes -0) beside +0 values in
-    row 2; ``zero_row``: row 1 is all zero (scale 1, every code 0)."""
+    row 2; ``zero_row``: row 1 is all zero (scale 1, every code 0).  Row
+    0's scale after quantize_rows: ``zero_scale`` 0, ``neg_scale``
+    negated, ``nan_scale`` NaN, ``tiny_scale`` 2^-142 (fp8: row 0's codes
+    then hold +-2^-9, the smallest code, and 0, so every product rounds to
+    +-0)."""
     g = (np.random.default_rng(seed).normal(size=(n, d)) * 2.0).astype(
         np.float32)
     if hazard == "nan":
@@ -80,6 +93,18 @@ def quantized(n, seed, qdt, hazard=None, d=D_):
     elif hazard == "zero_row":
         g[min(1, n - 1)] = 0.0
     tc, ts = quantize_rows(torch.from_numpy(g), qdt)
+    if hazard == "zero_scale":
+        ts[0] = 0.0
+    elif hazard == "neg_scale":
+        ts[0] = -ts[0]
+    elif hazard == "nan_scale":
+        ts[0] = np.nan
+    elif hazard == "tiny_scale":
+        ts[0] = TINY
+        if qdt == "float8_e4m3fn":
+            smallest = np.where(g[0] < 0, 0x81, 0x01).astype(np.uint8)
+            smallest[::5] = 0
+            tc[0] = torch.from_numpy(smallest).view(tc.dtype)
     raw = tc.view(torch.uint8).numpy()
     jc = jnp.asarray(raw.view(np.int8) if qdt == "int8"
                      else raw.view(ml_dtypes.float8_e4m3fn))
@@ -140,17 +165,23 @@ def test_scaled_masked_coord_stat_plain_matches_jax(n, qdt, hazard, absent):
                 np.testing.assert_array_equal(out.numpy(), 0.0)
 
 
-@pytest.mark.parametrize("hazard", HAZARDS)
-@pytest.mark.parametrize("qdt", QDTYPES)
-@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("n,qdt,hazard", SIGN_CASES)
 def test_sign_votes_on_codes_match_jax(n, qdt, hazard):
     """K15 on the raw codes (the synchronous compressed sign_sgd) and K20
     on the dequantized arrived rows.  An inf row: K15 reads its 0 codes as
     0 votes, K20 reads 0 * inf = NaN and poisons every column it votes in
-    (the JAX kernels alike).  Masks keep the hazard row live, or leave
-    it out where its values are finite: the JAX K20 leaks an absent NaN
-    (P10), the port's does not read the row."""
+    (the JAX kernels alike); so does a NaN scale, and a scale of 0 or one
+    so tiny that every product rounds to +-0 votes 0 there.  Masks keep
+    the hazard row live, or leave it out where its values are finite: the
+    JAX K20 leaks an absent NaN (P10), the port's does not read the row,
+    so there the port equals the JAX kernel on the arrived rows alone.
+
+    ``tiny_scale`` on int8 codes: a code times 2^-142 is a nonzero
+    subnormal of the code's sign, which XLA's CPU flushes to 0 (P13); the
+    JAX side votes that row with a scale of 1 (the same signs)."""
     tc, ts, jc, js = quantized(n, 30 + n, qdt, hazard)
+    if hazard == "tiny_scale" and qdt == "int8":
+        js = js.at[0].set(1.0)
     ref = jax_kernel(jax_sign_vote, jc)
     out = kernels.sign_vote(tc)
     np.testing.assert_array_equal(out.numpy(), ref)
@@ -167,8 +198,23 @@ def test_sign_votes_on_codes_match_jax(n, qdt, hazard):
         absent_nan = np.isnan(deq[m == 0]).any(axis=0)
         np.testing.assert_array_equal(out.numpy()[~absent_nan],
                                       ref[~absent_nan])
-        if hazard == "inf" and m[0]:
-            assert np.isnan(out.numpy()).all()    # the inf-scale column
+        if absent_nan.any() and arrived:
+            live = np.flatnonzero(m)
+            ones = jnp.ones(len(live), jnp.float32)
+            np.testing.assert_array_equal(out.numpy(), jax_kernel(
+                jax_scaled_masked_sign_vote, jc[live], js[live], ones,
+                ones / len(live)))
+        if hazard in ("inf", "nan_scale") and m[0]:
+            assert np.isnan(out.numpy()).all()    # the row's columns
+        if m[0] and (hazard == "zero_scale" or (hazard == "tiny_scale"
+                                                and qdt != "int8")):
+            # row 0 votes 0: the vote of the other arrived rows
+            rest = m.copy()
+            rest[0] = 0.0
+            np.testing.assert_array_equal(
+                out.numpy(), kernels.scaled_masked_sign_vote(
+                    tc, ts, torch.from_numpy(rest),
+                    torch.from_numpy(rest)).numpy())
         if arrived == 0:
             np.testing.assert_array_equal(out.numpy(), 0.0)
 
