@@ -317,6 +317,41 @@ whole words, a fast path beside the exact law) add:
                with its hazard columns; each case bitwise equal to its
                plain version (NaN to NaN) and to a repeat.
 
+The rules without a kernel, the composition wrappers and gradient
+coding (ROADMAP.md items 15 and 17) add:
+
+2.  the launch floor: an empty kernel (``csrc/empty.cu``) timed with the
+               same timer as every kernel, and the launch-bound K3 and
+               K8-K10 against max(their bytes' bound, that floor);
+2f. phocas, mean_around_median, cgc, geometric_median, rfa,
+               median_of_means, zeno (its validation gradient the arena's
+               mean), clipped(trimmed_mean), bucketed(krum) and
+               staleness_discounted(trimmed_mean) on the real sign_flip
+               arena: ``aggregate_flat`` synchronous on the bf16 arena and
+               masked on its fp32 copy (6 of 8), timed, with the peak
+               device memory of the call;
+3r. the same specs through ``train_loop``, 1 warm-up and 2 timed steps
+               each (zeno under the phase-3b stragglers;
+               staleness_discounted through ``make_train_step``, since the
+               loops refuse a ``staleness_aware`` spec); the launch
+               counts must show K1 (clipped), K2 K3 K4 on the bucket means
+               (bucketed(krum)), K5 (staleness_discounted: its weights take
+               the masked path) and no kernel for the rules without one;
+3k. gradient coding: the coded synchronous step (parallel regime, n =
+               8, r = 4, f = 1, large_value), 1 warm-up and 3 timed steps,
+               one K2 and one K7 a step and nothing else; the decode of
+               the last step's arena held against its plain version (the
+               same decode weights, the aggregate at max |error| 0.0), the
+               vote margins (the largest d2 / (tol * scale) over honest
+               pairs, the smallest over honest-against-Byzantine pairs)
+               and the winners (no Byzantine row); K2, K7 and the whole
+               decode timed.  Then ``coded_fallback_r = 4`` under
+               stragglers with crash / recover (6, 6, 5, 3 of 8 arrive,
+               quorum 6): the rule (K5) on the 2 rows that meet the quorum,
+               the code (K2, K7) on the 2 that miss it; and the elastic
+               coded run at 2 layers under the phase-3b churn (buckets 4,
+               6, 8; bucket 6's table ragged), one K2 and one K7 a step.
+
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
 not available.
@@ -4147,6 +4182,421 @@ def _clone(tree):
 
 
 # ---------------------------------------------------------------------------
+# the launch floor, gradient coding and the rules without a kernel
+# (ROADMAP.md items 15 and 17)
+
+LAUNCH_BOUND = ("krum_select", "cge_select", "multi_krum_order",
+                "iterative_order")
+
+
+def launch_floor(summary):
+    """The device time of one launch of an empty kernel under
+    :func:`time_ms` (the same timer as every kernel row), and each
+    launch-bound kernel's share of max(its bytes' bound, that floor)."""
+    from repro_torch.kernels import build
+    floor = time_ms(lambda: build.empty_launch(DEVICE), 1000)
+    rows = {}
+    for name in LAUNCH_BOUND:
+        s = summary[name]
+        b = max(s["bound_ms"], floor)
+        rows[name] = dict(ms=s["ms"], bytes_bound_ms=s["bound_ms"],
+                          bound_with_floor_ms=b, share=b / s["ms"])
+    emit("launch_floor", floor_ms=floor, kernels=rows)
+    return floor
+
+
+CODED_R, CODED_F = 4, 1
+CODED_STEPS = 3
+CODED_KERNELS = ("gram", "masked_weighted_sum")
+# stragglers and crash / recover at quorum 6, seed 0: 6, 6, 5 and 3 of 8
+# arrive, so rows 0-1 meet the quorum (the rule) and rows 2-3 miss it
+# (the code)
+CODED_TRACE = ([6, 6, 5, 3], [True, True, False, False])
+
+
+def coded_sim(fallback_r=CODED_R):
+    from repro_torch.simulator import CrashRecover, SimConfig, Straggler
+    return SimConfig(faults=(Straggler("lognormal", 0.8),
+                             CrashRecover(rate=0.2, mean_down=2.0)),
+                     quorum=6, max_staleness=3, seed=0,
+                     coded_fallback_r=fallback_r)
+
+
+class CodedCapture:
+    """Keeps the arguments of the training step's coded decode
+    (``training.step.flat_draco_aggregate``) while entered."""
+
+    def __enter__(self):
+        from repro_torch.training import step
+        self.mod, self.real, self.calls = step, step.flat_draco_aggregate, 0
+
+        def captured(x, r, **kw):
+            self.calls += 1
+            self.last = (x, r, kw)
+            return self.real(x, r, **kw)
+
+        step.flat_draco_aggregate = captured
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flat_draco_aggregate = self.real
+
+
+def run_counted(cfg, bz, steps, sim=None, ds=None):
+    """One untimed warm-up step, then ``steps`` timed steps through
+    ``train_loop``, the launch counts reset just before and read just
+    after: (history, counts, steps built, step ms, peak GB)."""
+    from repro_torch import kernels
+    from repro_torch.data import SyntheticLM
+    from repro_torch.obs.counters import counter_delta, snapshot
+    from repro_torch.optim import adamw, constant
+    from repro_torch.training import train_loop
+    ds = ds or SyntheticLM(cfg.vocab_size, SEQ, bz.n_agents, PER_AGENT)
+    train_loop(cfg, bz, adamw(constant(1e-4)), ds, steps=1, seed=0,
+               device=DEVICE, sim=sim, log_fn=lambda s: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = snapshot()
+    kernels.reset_launch_counts()
+    _, hist = train_loop(cfg, bz, adamw(constant(1e-4)), ds, steps=steps,
+                         seed=0, device=DEVICE, sim=sim, log_every=1,
+                         log_fn=lambda s: None)
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    built = counter_delta(before)
+    wall = [h["wall_s"] for h in hist]
+    step_ms = [1e3 * (b - a) for a, b in zip([0.0] + wall[:-1], wall)]
+    return (hist, counts, built, step_ms,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def run_direct(cfg, bz, steps):
+    """:func:`run_counted` through ``make_train_step`` itself: the loops
+    refuse a ``staleness_aware`` spec (they pass discounts, not rounds),
+    the synchronous step takes it."""
+    from repro_torch import kernels
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.models import init_params
+    from repro_torch.obs.counters import counter_delta, snapshot
+    from repro_torch.optim import adamw, constant
+    from repro_torch.training import make_train_step
+    gen = make_generator(0, DEVICE)
+    params = init_params(cfg, gen)
+    opt = adamw(constant(1e-4))
+    ost = opt.init(params)
+    ds = SyntheticLM(cfg.vocab_size, SEQ, bz.n_agents, PER_AGENT)
+    step = make_train_step(cfg, bz, opt, device=DEVICE)
+    params, ost, _, _ = step(params, ost, None, ds.batch(ds.draw_starts(gen)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = snapshot()
+    kernels.reset_launch_counts()
+    hist, step_ms = [], []
+    for _ in range(steps):
+        batch = ds.batch(ds.draw_starts(gen))
+        t0 = time.time()
+        params, ost, _, met = step(params, ost, None, batch)
+        hist.append({"loss": float(met["loss"])})
+        step_ms.append(1e3 * (time.time() - t0))
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    return (hist, counts, counter_delta(before), step_ms,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def vote_margins(gr, groups, byz, tol=1e-6):
+    """The vote's margins on the (n, n) Gram ``gr``: the largest d2 / (tol
+    * scale) over the honest pairs of a group (< 1: they agree) and the
+    smallest over its honest-against-Byzantine pairs (> 1: they do not),
+    scale the group's lower-median squared norm."""
+    sq = torch.diagonal(gr).double()
+    d2 = torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * gr.double(), 0.0)
+    honest_max, cross_min = 0.0, math.inf
+    for g in range(int(groups.max()) + 1):
+        rows = [int(i) for i in np.flatnonzero(groups == g)]
+        s = sorted(float(sq[i]) for i in rows)[(len(rows) - 1) // 2]
+        ratio = d2 / (tol * max(s, 1e-30))
+        for i in rows:
+            for j in rows:
+                if i == j:
+                    continue
+                v = float(ratio[i, j])
+                if not (byz[i] or byz[j]):
+                    honest_max = max(honest_max, v)
+                elif byz[i] != byz[j]:
+                    cross_min = min(cross_min, v)
+    return honest_max, cross_min
+
+
+def coded_decode_checks(x, mask, groups, byz):
+    """The coded decode on the arena ``x`` one coded step handed it: K2's
+    Gram and the plain Gram give the same decode weights, K7's aggregate
+    equals the plain masked weighted sum with them (max |error| 0.0), the
+    honest row wins every group, and the vote margins; K2, K7 and the
+    whole decode timed against their plain versions and bounds.  Returns
+    the (gram, masked_weighted_sum) errors and timing rows."""
+    from repro_torch import kernels
+    from repro_torch.core.redundancy.coding import (coded_vote_weights,
+                                                    flat_draco_aggregate)
+    from repro_torch.kernels.pairwise import gram_plain
+    from repro_torch.kernels.wsum import masked_weighted_sum_plain
+    n, P = x.shape
+    s = x.element_size()
+    gr, gp = kernels.gram(x), gram_plain(x)
+    gerr = max_abs_err(gr, gp)
+    w = coded_vote_weights(gr, CODED_R, mask=mask, groups=groups)
+    same_w = torch.equal(w, coded_vote_weights(gp, CODED_R, mask=mask,
+                                               groups=groups))
+    m = (torch.ones(n, device=x.device) if mask is None else mask.float())
+    zero = torch.zeros((P,), dtype=x.dtype, device=x.device)
+    out = kernels.masked_weighted_sum(w, x, m, zero)
+    werr = max_abs_err(out, masked_weighted_sum_plain(w, x, m, zero))
+    winners = [int(i) for i in torch.nonzero(w).flatten().tolist()]
+    honest_won = not any(byz[i] for i in winners)
+    hmax, cmin = vote_margins(gr, groups, byz)
+    n_win = len(winners)
+    g_kw = timing(lambda: kernels.gram(x), lambda: gram_plain(x), 10, 2,
+                  n * P * s + 4 * n * n, 2 * n * n * P,
+                  library=lambda: x @ x.T, label="x @ x.T")
+    w_kw = timing(lambda: kernels.masked_weighted_sum(w, x, m, zero),
+                  lambda: masked_weighted_sum_plain(w, x, m, zero), 10, 2,
+                  n_win * P * s + 4 * P, 2 * n_win * P,
+                  library=lambda: torch.mv(x.t().float(), w),
+                  label="torch.mv(x.t().float(), w) (an fp32 copy first)")
+    decode_ms = time_ms(lambda: flat_draco_aggregate(
+        x, CODED_R, mask=mask, groups=groups), 5)
+    check("gram", gerr <= TOL * float(torch.diagonal(gp).abs().max()),
+          case="coded decode arena", dtype=str(x.dtype)[6:], shape=[n, P],
+          max_abs_diff=gerr, **g_kw)
+    check("masked_weighted_sum", werr == 0.0 and same_w and honest_won
+          and hmax < 1.0 < cmin, case="coded decode", dtype=str(x.dtype)[6:],
+          shape=[n, P], max_abs_diff=werr, same_decode_weights=same_w,
+          winners=winners, honest_winners=honest_won,
+          honest_pair_max_ratio=hmax, honest_byzantine_min_ratio=cmin,
+          decode_ms=decode_ms, **w_kw)
+    return {"gram": (gerr, g_kw), "masked_weighted_sum": (werr, w_kw)}
+
+
+def phase_coded_sync(cfg):
+    """Phase 3k: the coded synchronous step at full width (parallel
+    regime, n = 8, r = 4, f = 1, large_value): 1 warm-up and 3 timed
+    steps; one K2 and one K7 a step and nothing else; then the decode of
+    the last step's arena held against its plain version."""
+    from repro_torch.core.aggregators import make_spec
+    from repro_torch.core.attacks import make_byzantine_mask
+    from repro_torch.core.redundancy.coding import coding_groups
+    from repro_torch.data import SyntheticLM
+    from repro_torch.training import ByzantineConfig
+    bz = ByzantineConfig(n_agents=N, f=CODED_F, aggregator=make_spec(
+        "trimmed_mean", f=CODED_F, n=N), attack="large_value", remat=True,
+        draco_r=CODED_R)
+    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT, regime="parallel")
+    with CodedCapture() as cap:
+        hist, counts, built, step_ms, peak = run_counted(cfg, bz,
+                                                         CODED_STEPS, ds=ds)
+    want = {k: (CODED_STEPS if k in CODED_KERNELS else 0) for k in SOURCES}
+    losses = [h["loss"] for h in hist]
+    emit("coded_train", loop="sync", n=N, r=CODED_R, f=CODED_F,
+         attack="large_value", steps=CODED_STEPS, losses=losses,
+         step_ms=step_ms, median_step_ms=statistics.median(step_ms),
+         peak_mem_gb=peak, launches=counts, steps_built=built)
+    if counts != want:
+        fail(f"coded sync: kernel launches {counts}, expected {want}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"coded sync: non-finite loss {losses}")
+    x, _, kw = cap.last
+    byz = make_byzantine_mask(N, CODED_F).tolist()
+    errs = coded_decode_checks(x, kw.get("mask"), coding_groups(N, CODED_R),
+                               byz)
+    del cap, x
+    torch.cuda.empty_cache()
+    return counts, errs
+
+
+def phase_coded_async(cfg):
+    """Phase 3k (async): trimmed_mean with ``coded_fallback_r = 4`` under
+    stragglers with crash / recover (rows 0-1 meet quorum 6, rows 2-3
+    miss it), 1 warm-up and 4 timed steps: one K5 a rule step, one K2 and
+    one K7 a coded step."""
+    from repro_torch.core.aggregators import make_spec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.simulator import plan_arrivals
+    from repro_torch.training import ByzantineConfig
+    sim = coded_sim()
+    tr = plan_arrivals(sim, N, len(CODED_TRACE[0]))
+    if (tr.contrib.sum(1).tolist(), tr.quorum_met.tolist()) != CODED_TRACE:
+        fail(f"coded trace changed: arrived {tr.contrib.sum(1)}, quorum "
+             f"met {tr.quorum_met}")
+    bz = ByzantineConfig(n_agents=N, f=CODED_F, aggregator=make_spec(
+        "trimmed_mean", f=CODED_F, n=N), attack="large_value", remat=True)
+    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT, regime="parallel")
+    steps = len(CODED_TRACE[0])
+    hist, counts, built, step_ms, peak = run_counted(cfg, bz, steps, sim,
+                                                     ds=ds)
+    coded = int((~tr.quorum_met).sum())
+    want = {k: 0 for k in SOURCES}
+    want.update(gram=coded, masked_weighted_sum=coded,
+                masked_coord_stat=steps - coded)
+    losses = [h["loss"] for h in hist]
+    emit("coded_train", loop="async fallback", n=N, r=CODED_R, f=CODED_F,
+         quorum=6, arrived=[h["arrived"] for h in hist],
+         rule_steps=steps - coded, coded_steps=coded, losses=losses,
+         step_ms=step_ms, median_step_ms=statistics.median(step_ms),
+         peak_mem_gb=peak, launches=counts, steps_built=built)
+    if counts != want:
+        fail(f"coded async: kernel launches {counts}, expected {want}")
+    if built != {"async_step": 1}:
+        fail(f"coded async: built {built}, expected one async step")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"coded async: non-finite loss {losses}")
+    return counts
+
+
+CODED_ELASTIC_LAYERS = 2
+
+
+def phase_coded_elastic(cfg):
+    """Phase 3k (elastic): the coded step under Churn at reduced depth
+    (2 layers, full width): buckets (4, 6, 8), live 8, 6, 4, 6, 6, 7, 4,
+    3; bucket 6 votes over a ragged table (0, 0, 0, 0, 1, 1).  One K2
+    and one K7 a step, 3 bucket steps and the synchronous step built."""
+    from repro_torch.core.aggregators import elastic, make_spec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.simulator import Churn, SimConfig
+    from repro_torch.training import ByzantineConfig
+    small = cfg.replace(num_layers=CODED_ELASTIC_LAYERS)
+    spec = make_spec("trimmed_mean", f=CODED_F, n=elastic(N, (4, 6, 8)))
+    bz = ByzantineConfig(n_agents=N, f=CODED_F, aggregator=spec,
+                         attack="large_value", remat=True, draco_r=CODED_R)
+    ds = SyntheticLM(cfg.vocab_size, SEQ, N, PER_AGENT, regime="parallel")
+    sim = SimConfig(faults=(Churn(rate=0.25, mean_out=2.0),), seed=0)
+    from repro_torch import kernels
+    from repro_torch.obs.counters import counter_delta, snapshot
+    from repro_torch.optim import adamw, constant
+    from repro_torch.training import train_loop
+    before = snapshot()
+    kernels.reset_launch_counts()
+    _, hist = train_loop(small, bz, adamw(constant(1e-4)), ds,
+                         steps=len(CHURN_LIVE), seed=0, device=DEVICE,
+                         sim=sim, log_every=1, log_fn=lambda s: None)
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    built = counter_delta(before)
+    live = [h["n_live"] for h in hist]
+    losses = [h["loss"] for h in hist]
+    wall = [h["wall_s"] for h in hist]
+    step_ms = [1e3 * (b - a) for a, b in zip([0.0] + wall[:-1], wall)]
+    want = {k: (len(CHURN_LIVE) if k in CODED_KERNELS else 0)
+            for k in SOURCES}
+    emit("coded_train", loop="elastic", layers=CODED_ELASTIC_LAYERS,
+         n_live=live, losses=losses, step_ms=step_ms, launches=counts,
+         steps_built=built)
+    if live != CHURN_LIVE:
+        fail(f"churn trace changed: live {live}")
+    if counts != want:
+        fail(f"coded elastic: kernel launches {counts}, expected {want}")
+    if built != {"async_step": 3, "train_step": 1}:
+        fail(f"coded elastic: built {built}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"coded elastic: non-finite loss {losses}")
+    return counts
+
+
+def rules15_specs():
+    """(label, spec, loop, the kernels of one step) of the seven rules
+    without a kernel and the three row-transform wrappers (zeno on the
+    async loop: it carries state)."""
+    from repro_torch.core.aggregators import (bucketed, clipped, make_spec,
+                                              staleness_discounted)
+    out = [(r, make_spec(r, f=F, n=N), "sync", {})
+           for r in ("phocas", "mean_around_median", "cgc",
+                     "geometric_median", "rfa", "median_of_means")]
+    out.append(("zeno", make_spec("zeno", f=F, n=N, ema=0.2), "async", {}))
+    tm = make_spec("trimmed_mean", f=F, n=N)
+    out += [
+        ("clipped(trimmed_mean)", clipped(tm, tau=1.0), "sync",
+         {"coord_stat": 1}),
+        ("bucketed(krum)", bucketed(make_spec("krum", f=F, n=N)), "sync",
+         {"gram": 1, "krum_select": 1, "weighted_sum": 1}),
+        ("staleness_discounted(trimmed_mean)", staleness_discounted(tm),
+         "sync", {"masked_coord_stat": 1})]
+    return out
+
+
+def rules15_aggregations(x):
+    """Each spec of :func:`rules15_specs` on the real sign_flip arena ``x``
+    (bf16, n = 8): ``aggregate_flat`` synchronous on the bf16 arena and
+    masked on its fp32 copy (6 of 8 arrived, staleness discounts; bucketed
+    refuses a mask), timed, with the peak device memory of the call
+    (and its rise above what was allocated before); each output finite."""
+    n, P = x.shape
+    m = arrival_mask(6, n)
+    w, _ = discount_weights(m)
+    xf = x.float()
+    rows = {}
+    for label, spec, _, _ in rules15_specs():
+        st = ({"server_grad": torch.mean(xf, dim=0)} if spec.stateful
+              else None)
+        for case, arena, kw in (("sync bf16", x, {}),
+                                ("masked fp32 6/8", xf,
+                                 {"mask": m > 0, "weights": w})):
+            if case.startswith("masked") and spec.name == "bucketed":
+                continue
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = spec.aggregate_flat(arena, state=st, **kw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            finite = bool(torch.isfinite(out).all())
+            del out
+            ms = time_ms(lambda: spec.aggregate_flat(arena, state=st, **kw),
+                         2)
+            rows[f"{label}, {case}"] = ms
+            emit("rules15_aggregation", spec=spec.describe(), case=case,
+                 shape=[n, P], ms=ms, peak_gb=peak / 1e9,
+                 rise_gb=(peak - base) / 1e9, finite=finite)
+            if not finite:
+                fail(f"{label} {case}: non-finite aggregate")
+    del xf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_rules15_train(cfg):
+    """Per spec of :func:`rules15_specs`: 1 warm-up and 2 timed steps of
+    the phase-3 configuration (zeno: under the phase-3b stragglers); the
+    launch counts must show the spec's kernels a step and no other."""
+    from repro_torch.training import ByzantineConfig
+    totals = {k: 0 for k in SOURCES}
+    step_ms_by = {}
+    for label, spec, loop, per_step in rules15_specs():
+        bz = ByzantineConfig(n_agents=N, f=F, aggregator=spec,
+                             attack="sign_flip", remat=True)
+        sim = straggler_sim() if loop == "async" else None
+        if spec.staleness_aware:
+            hist, counts, built, step_ms, peak = run_direct(cfg, bz, 2)
+        else:
+            hist, counts, built, step_ms, peak = run_counted(cfg, bz, 2,
+                                                             sim)
+        losses = [h["loss"] for h in hist]
+        want = {k: 2 * per_step.get(k, 0) for k in SOURCES}
+        step_ms_by[label] = statistics.median(step_ms)
+        emit("rules15_train", spec=spec.describe(), impl=spec.impl, loop=loop,
+             steps=2, losses=losses, step_ms=step_ms,
+             median_step_ms=step_ms_by[label], peak_mem_gb=peak,
+             launches=counts, steps_built=built)
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"{label}: non-finite loss {losses}")
+        if counts != want:
+            fail(f"{label}: kernel launches {counts}, expected {want}")
+        for k, v in counts.items():
+            totals[k] += v
+    return totals, step_ms_by
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -4171,6 +4621,7 @@ def main():
         for name, err in errs.items():
             note(summary, name, err)
     summary.update(selection_kernel_checks(num_params(cfg)))
+    floor_ms = launch_floor(summary)
     summary.update(masked_selection_kernel_checks(num_params(cfg)))
     for name, err in bulyan_sweep_checks().items():
         note(summary, name, err)
@@ -4187,6 +4638,7 @@ def main():
     vote_sweep_checks()
     sort_summary, sort_counts = sort_checks(arena)
     summary.update(sort_summary)
+    rules15_aggregations(arena)
     del arena
     torch.cuda.empty_cache()
     summary.update(cclip_kernel_checks(num_params(cfg)))
@@ -4212,6 +4664,12 @@ def main():
                                           agg_dtype="int8")
     sparse_totals += [asparse_totals, asq_totals, sort_counts]
     memory_totals, memory_step_ms = phase_memory(cfg)
+    rules15_totals, rules15_step_ms = phase_rules15_train(cfg)
+    coded_totals, coded_errs = phase_coded_sync(cfg)
+    for name, (err, _) in coded_errs.items():
+        note(summary, name, err)
+    coded_totals = [coded_totals, phase_coded_async(cfg),
+                    phase_coded_elastic(cfg)]
     # m_krum and mda run no kernel that multi_krum's and bulyan's traced
     # steps leave out (K2, K10, K11), so they are not traced
     phase_profile(cfg, {"trimmed_mean": (N, {}, ()), "krum": (N, {}, ()),
@@ -4241,7 +4699,9 @@ def main():
                                   + sum(t[name] for t in quant_totals)
                                   + aquant_totals[name]
                                   + sum(t[name] for t in sparse_totals)
-                                  + memory_totals[name]),
+                                  + memory_totals[name]
+                                  + rules15_totals[name]
+                                  + sum(t[name] for t in coded_totals)),
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": s["bound_by"],
@@ -4257,7 +4717,12 @@ def main():
                                       "int8": asq_step_ms},
          sign_vote_on_codes=summary["sign_vote_codes"],
          memory_median_step_ms=memory_step_ms,
-         centered_clip_stages=memory_stage_ms)
+         centered_clip_stages=memory_stage_ms, launch_floor_ms=floor_ms,
+         rules15_median_step_ms=rules15_step_ms,
+         coded_decode={k: {"max_abs_err": e, "ms": kw["kernel_ms"],
+                           "plain_ms": kw["plain_ms"],
+                           "bound_ms": kw["bound_ms"]}
+                       for k, (e, kw) in coded_errs.items()})
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

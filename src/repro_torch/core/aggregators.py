@@ -10,12 +10,16 @@ Counterpart of ``repro.core.aggregators`` for the rules ported so far:
 * ``spec.aggregate`` / ``spec.aggregate_flat`` — the engine over a
   pytree or a pre-raveled (n, P) arena, synchronous or masked.
 
-Registered so far: ``mean``, ``coordinate_median``, ``trimmed_mean``,
-``krum``, the selection family ``cge``, ``multi_krum``, ``m_krum``,
-``mda`` and ``bulyan``, the 1-bit vote ``sign_sgd``, the sparse /
-dropout-aware ``sparse_mean`` of the compressed exchange, and the
-defenses with memory ``centered_clip``, ``zeno_pp`` and the
-``server_momentum`` wrapper.  Impls:
+Registered: every rule of the JAX registry.  ``mean``,
+``coordinate_median``, ``trimmed_mean``, ``krum``, the selection family
+``cge``, ``multi_krum``, ``m_krum``, ``mda`` and ``bulyan``, the 1-bit
+vote ``sign_sgd`` and the sparse / dropout-aware ``sparse_mean`` of the
+compressed exchange run on kernels; ``phocas``, ``mean_around_median``,
+``cgc``, ``geometric_median``, ``rfa``, ``median_of_means`` and the
+stateful ``zeno`` have no kernel in either package and run their dense
+laws; the defenses with memory ``centered_clip`` and ``zeno_pp``; and
+the composition wrappers ``clipped``, ``bucketed``,
+``staleness_discounted`` and ``server_momentum``.  Impls:
 
 * ``kernel`` — the hand-written CUDA kernels (:mod:`repro_torch.kernels`),
   the JAX package's ``pallas``.  On a CPU tensor each kernel wrapper runs
@@ -28,7 +32,7 @@ defenses with memory ``centered_clip``, ``zeno_pp`` and the
   ported yet (ROADMAP.md slice 11, distribution); asking for it raises.
 
 Impl-only keys (``impl_keys`` of a rule): ``native_dtype`` on the
-coordinate-wise rules.  ``make_spec`` accepts it for those rules and
+coordinate-wise rules (phocas and mean_around_median among them).  ``make_spec`` accepts it for those rules and
 refuses it for the others, then drops it: only the JAX package's
 leaf-wise ``fused`` impl reads it (ROADMAP.md slice 11), and the flat
 path ignores it there too.
@@ -42,8 +46,10 @@ masked paths.
 Masked / staleness-weighted aggregation (``mask=``, ``weights=``): the
 coordinate-wise rules take the order statistic over the ARRIVED rows only
 (absent rows are +inf sort sentinels, the rank window follows the
-arrived count) and sign_sgd the vote of the arrived rows; krum and the
-selection family run on the mean-imputed stack; mean is the exact
+arrived count; phocas and mean_around_median then average the arrived
+values closest to that center) and sign_sgd the vote of the arrived
+rows; krum, the selection family, cgc, zeno and the geometric-median
+family run on the mean-imputed stack; mean is the exact
 weighted mean of the arrived rows; each but mean is then scaled by the
 mean arrived weight.  ``impl="kernel"`` runs the fused masked kernels
 (K5-K7, K12, K14, K16), which never build the masked (n, P) copy.  A
@@ -69,11 +75,22 @@ agg)`` after each aggregate); on the arena the port keeps ``server_grad``
 as ONE fp32 (P,) vector in the JAX leaf order, which the JAX state tree
 ravels onto exactly.  ``centered_clip`` (its flat law runs K22 under an
 explicit ``impl="kernel"``; ``auto`` keeps the dense body) and
-``zeno_pp`` are stateful rules; ``server_momentum(inner, beta)`` is a
-composition WRAPPER: it aggregates with its ``inner`` spec, and an inner
-rule's state nests under ``state["inner"]``.  ``clipped``, ``bucketed``
-and ``staleness_discounted`` come with ROADMAP.md item 15, selection
-telemetry with slice 7.
+``zeno_pp`` are stateful rules, and so is ``zeno`` (its validation
+gradient; ``ema > 0`` keeps it as an EMA of the aggregates, ``ema = 0``
+needs the caller's own ``state={"server_grad": v}``).
+
+Composition WRAPPERS aggregate with their ``inner`` spec, and an inner
+rule's state nests under ``state["inner"]``: ``server_momentum(inner,
+beta)`` (an fp32 momentum step on the inner aggregate), ``clipped(inner,
+tau)`` (each row scaled to norm <= tau, cast back to the arena's dtype),
+``bucketed(inner, group_size)`` (the means of consecutive buckets, the
+inner f capped at (k - 1) // 2 of the k buckets; synchronous only) and
+``staleness_discounted(inner, ...)`` (its ``weights`` are raw staleness
+ROUNDS, turned into discounts: ``staleness_aware``, so the async loop,
+which passes discounts, refuses it).  In JAX the wrappers and zeno run
+only on the tree engine; the port gives each a flat law (the loops take
+the arena) and a tree route that is the JAX tree law.  Selection
+telemetry comes with slice 7.
 """
 from __future__ import annotations
 
@@ -237,6 +254,8 @@ class AggregatorCaps:
     coordwise: bool = False           # per-coordinate rule
     pairwise: bool = False            # statistics derivable from the Gram
     stateful: bool = False            # carries init_state/update_state
+    staleness_aware: bool = False     # ``weights`` = raw staleness ROUNDS,
+    #                                   not discount multipliers
 
 
 @dataclass(frozen=True)
@@ -258,6 +277,9 @@ class AggregatorDef:
     # coordinate weights fit neither engine law)
     flat_fn: Optional[Callable] = None
     custom_fn: Optional[Callable] = None
+    # (spec, state, n_cols) -> extra dense_fn kwargs from the state
+    # (zeno's server_grad), for the gather impl
+    gather_state_fn: Optional[Callable] = None
     # the state protocol: keys that must arrive through ``state=``, never
     # as a hyper; (spec, proto) -> state and (spec, state, agg) -> state
     state_keys: frozenset = frozenset()
@@ -274,9 +296,9 @@ def register_aggregator(name: str, *, caps: AggregatorCaps,
                         hyper: tuple = (), gather: tuple = (),
                         impl_keys: tuple = (), dense_fn=None,
                         masked_fn=None, flat_fn=None, custom_fn=None,
-                        state_keys: tuple = (), init_state=None,
-                        update_state=None, is_wrapper: bool = False,
-                        tags: tuple = ()):
+                        gather_state=None, state_keys: tuple = (),
+                        init_state=None, update_state=None,
+                        is_wrapper: bool = False, tags: tuple = ()):
     """Register an aggregation rule (raises on a duplicate name)."""
     if name in REGISTRY:
         raise ValueError(f"aggregator {name!r} already registered")
@@ -284,7 +306,8 @@ def register_aggregator(name: str, *, caps: AggregatorCaps,
         name=name, caps=caps, hyper_keys=frozenset(hyper),
         gather_keys=frozenset(gather), impl_keys=frozenset(impl_keys),
         dense_fn=dense_fn, masked_fn=masked_fn, flat_fn=flat_fn,
-        custom_fn=custom_fn, state_keys=frozenset(state_keys),
+        custom_fn=custom_fn, gather_state_fn=gather_state,
+        state_keys=frozenset(state_keys),
         init_state_fn=init_state, update_state_fn=update_state,
         is_wrapper=is_wrapper, tags=tuple(tags))
     return REGISTRY[name]
@@ -332,6 +355,13 @@ class AggregatorSpec:
         state."""
         return self.caps.stateful or (self.inner is not None
                                       and self.inner.stateful)
+
+    @property
+    def staleness_aware(self) -> bool:
+        """True iff this rule, or any rule of its wrapper chain, reads
+        ``weights`` as raw staleness round counts."""
+        return self.caps.staleness_aware or (self.inner is not None
+                                             and self.inner.staleness_aware)
 
     @property
     def elastic_n(self) -> Optional[ElasticN]:
@@ -420,6 +450,9 @@ class AggregatorSpec:
             # tree takes its fp32 ravel
             return plan.unravel(self.aggregate_flat(
                 plan.ravel(grads), mask, weights, state))
+        if mask is None:
+            mask = torch.ones((_tree_rows(grads),), dtype=torch.bool,
+                              device=tree_leaves(grads)[0].device)
         return _masked_mixed_tree(self, d, grads, plan, mask, weights)
 
     def _check_state(self, state):
@@ -456,11 +489,11 @@ class AggregatorSpec:
         if d.flat_fn is not None:
             return d.flat_fn(self, stack, mask, weights, state, scale)
         if mask is None and weights is None:
-            return _flat_sync_vec(self, d, stack, scale)
+            return _flat_sync_vec(self, d, stack, scale, state)
         if mask is None:
             mask = torch.ones((stack.shape[0],), dtype=torch.bool,
                               device=stack.device)
-        return _flat_masked_vec(self, d, stack, mask, weights, scale)
+        return _flat_masked_vec(self, d, stack, mask, weights, scale, state)
 
 
 @functools.lru_cache(maxsize=None)
@@ -537,9 +570,10 @@ def _flat_dequant(spec, stack, qscale):
     return dequantize_rows(stack, qscale)
 
 
-def _flat_sync_vec(spec, d, stack, qscale=None):
+def _flat_sync_vec(spec, d, stack, qscale=None, state=None):
     """(n, P) arena -> (P,) fp32, synchronous.  ``qscale``: the row scales
-    of a quantized arena."""
+    of a quantized arena; ``state``: a stateful rule's, read by its
+    ``gather_state_fn``."""
     if qscale is not None:
         if _scaled_kernel(spec):
             from repro_torch.kernels import kernel_scaled_aggregate
@@ -551,6 +585,8 @@ def _flat_sync_vec(spec, d, stack, qscale=None):
         return kernel_aggregate(spec.name, stack, spec.f, spec.hyper)
     if spec.impl == "gather":
         hyper = {k: v for k, v in spec.hyper if k in d.gather_keys}
+        if d.gather_state_fn is not None:
+            hyper.update(d.gather_state_fn(spec, state, stack.shape[1]))
         return d.dense_fn(stack.float(), spec.f, **hyper)
     raise NotImplementedError(_FUSED_MSG)
 
@@ -570,25 +606,34 @@ def _masked_prelude(mask, weights):
 # the ARRIVED rows only (absent rows are +inf sort sentinels).  Imputing
 # them at the delivered mean is not robust: the mean is attack-
 # contaminated, so ghost rows land inside the trim window.  sign_sgd's
-# vote counts the arrived rows only.  The JAX package's phocas and
-# mean_around_median join with ROADMAP.md item 15.
-_ARRIVED_STAT_RULES = ("coordinate_median", "trimmed_mean", "sign_sgd")
+# vote counts the arrived rows only; phocas and mean_around_median take
+# the arrived-window center, then the cnt - f arrived values closest to
+# it (ref.arrived_mean_closest_ref).
+_ARRIVED_STAT_RULES = ("coordinate_median", "trimmed_mean", "sign_sgd",
+                       "phocas", "mean_around_median")
 
 
 def _arrived_coord_vec(spec, xf, mask):
     """(n, P) fp32 -> (P,) fp32: the statistic over the arrived rows
-    (the gather oracles :func:`repro_torch.kernels.ref.masked_stat_ref`
-    and :func:`~repro_torch.kernels.ref.masked_sign_vote_ref`)."""
+    (the gather oracles :func:`repro_torch.kernels.ref.masked_stat_ref`,
+    :func:`~repro_torch.kernels.ref.masked_sign_vote_ref` and
+    :func:`~repro_torch.kernels.ref.arrived_mean_closest_ref`)."""
     from repro_torch.kernels import ref
     if spec.name == "sign_sgd":
         return ref.masked_sign_vote_ref(xf, mask)
     if spec.name == "coordinate_median":
         return ref.masked_stat_ref(xf, mask, None, "median")
+    if spec.name == "phocas":
+        return ref.arrived_mean_closest_ref(xf, mask, "trimmed_mean",
+                                            spec.f)
+    if spec.name == "mean_around_median":
+        return ref.arrived_mean_closest_ref(xf, mask, "median", spec.f)
     b = trim_count(xf.shape[0], spec.f, spec.hp("beta"))
     return ref.masked_stat_ref(xf, mask, None, "trimmed_mean", b=b)
 
 
-def _flat_masked_vec(spec, d, stack, mask, weights, qscale=None):
+def _flat_masked_vec(spec, d, stack, mask, weights, qscale=None,
+                     state=None):
     """Masked/weighted flat path: the arrived-window law for the
     coordinate-wise rules, the impute-at-delivered-mean law for krum,
     each scaled by tot/cnt (an explicit 0 when no weight was delivered);
@@ -629,7 +674,12 @@ def _flat_masked_vec(spec, d, stack, mask, weights, qscale=None):
         return scaled(_arrived_coord_vec(spec, stack.float(), mask))
     from repro_torch.kernels import ref
     imputed = ref.masked_impute_ref(stack, mask, w / tot)
-    return scaled(_flat_sync_vec(spec, d, imputed))
+    return scaled(_flat_sync_vec(spec, d, imputed, state=state))
+
+
+def _tree_rows(grads) -> int:
+    """The agent count of a tree of (n, ...) leaves."""
+    return tree_leaves(grads)[0].shape[0]
 
 
 def _masked_mixed_tree(spec, d, grads, plan, mask, weights):
@@ -867,6 +917,36 @@ register_aggregator(
     "sign_sgd",
     caps=AggregatorCaps(coordwise=True),
     impl_keys=("native_dtype",), dense_fn=D.sign_sgd)
+# the rules without a kernel in either package: their dense laws
+register_aggregator(
+    "phocas",
+    caps=AggregatorCaps(coordwise=True),
+    impl_keys=("native_dtype",), dense_fn=D.phocas)
+register_aggregator(
+    "mean_around_median",
+    caps=AggregatorCaps(coordwise=True),
+    impl_keys=("native_dtype",), dense_fn=D.mean_around_median)
+register_aggregator(
+    "cgc",
+    caps=AggregatorCaps(),
+    hyper=("normalize",), gather=("normalize",), dense_fn=D.cgc)
+register_aggregator(
+    "geometric_median",
+    caps=AggregatorCaps(),
+    # "nu" is accepted as the legacy eps alias; as in the JAX gather impl
+    # only iters and eps reach the dense law (the JAX fused impl, which
+    # reads nu, is ROADMAP.md slice 11)
+    hyper=("iters", "eps", "nu"), gather=("iters", "eps"),
+    dense_fn=D.geometric_median)
+register_aggregator(
+    "rfa",
+    caps=AggregatorCaps(),
+    hyper=("iters", "nu", "eps"), gather=("iters", "nu"), dense_fn=D.rfa)
+register_aggregator(
+    "median_of_means",
+    caps=AggregatorCaps(),
+    hyper=("num_groups",), gather=("num_groups",),
+    dense_fn=D.median_of_means)
 
 
 # ---------------------------------------------------------------------------
@@ -1182,8 +1262,42 @@ register_aggregator(
 
 
 # ---------------------------------------------------------------------------
+# zeno (server validation): the dense law scores each row against the
+# carried validation gradient; the engine's laws (impute-then-scale under
+# a mask) apply as to any dense rule
+
+
+def _zeno_init_state(spec, proto):
+    if not spec.hp("ema", 0.0):
+        # with ema = 0 the zeros would never move and the defense would
+        # silently degrade to norm filtering
+        raise ValueError(
+            "zeno with ema=0 needs an externally maintained validation "
+            "gradient: pass state={'server_grad': v} yourself, or set "
+            "ema>0 to self-maintain it from past aggregates")
+    return _server_grad_zeros(proto)
+
+
+register_aggregator(
+    "zeno",
+    caps=AggregatorCaps(stateful=True),
+    hyper=("rho", "lr", "ema"), gather=("rho", "lr"),
+    state_keys=("server_grad",), dense_fn=D.zeno,
+    gather_state=lambda spec, state, p: {
+        "server_grad": _server_grad(state, p)},
+    init_state=_zeno_init_state,
+    update_state=lambda spec, state, agg: _server_grad_ema(
+        state, agg, spec.hp("ema", 0.0)))
+
+
+# ---------------------------------------------------------------------------
 # server momentum, a composition wrapper (the survey's history filter):
 # out_t = beta m_{t-1} + (1 - beta) inner(g_t), m_t = out_t
+
+
+def _inner_state(spec, state):
+    """A wrapper's inner rule's state (None for a stateless inner rule)."""
+    return (state or {}).get("inner") if spec.inner.stateful else None
 
 
 def _server_momentum_flat(spec, stack, mask, weights, state, qscale=None):
@@ -1191,9 +1305,8 @@ def _server_momentum_flat(spec, stack, mask, weights, state, qscale=None):
     arena's dtype, as the inner rule's tree aggregate is in JAX), then
     the fp32 momentum step."""
     beta = spec.hp("beta", 0.9)
-    inner = spec.inner.aggregate_flat(
-        stack, mask, weights,
-        state.get("inner") if spec.inner.stateful else None, qscale)
+    inner = spec.inner.aggregate_flat(stack, mask, weights,
+                                      _inner_state(spec, state), qscale)
     if qscale is None:
         inner = inner.to(stack.dtype).float()
     m = _server_grad(state, stack.shape[1])
@@ -1214,3 +1327,144 @@ register_aggregator(
 def server_momentum(inner: AggregatorSpec,
                     beta: float = 0.9) -> AggregatorSpec:
     return make_spec("server_momentum", f=inner.f, inner=inner, beta=beta)
+
+
+# ---------------------------------------------------------------------------
+# the row-transform wrappers: each has a flat law on the (n, P) arena (the
+# loops' route) and a tree route that is the JAX tree law
+
+
+def _clip_scale(sq, tau):
+    """(n,) row scales min(1, tau / ||g_i||) from the squared norms."""
+    return torch.clamp_max(tau / torch.sqrt(torch.clamp_min(sq, 1e-30)),
+                           1.0)
+
+
+def _clip_flat(spec, stack, mask, weights, state, qscale=None):
+    """clipped on the arena: each row scaled to norm <= tau in fp32 and
+    cast back to the arena's dtype (a quantized arena's decoded fp32
+    rows), then the inner rule.  The norm is one sum over the row (the
+    JAX tree law adds per-leaf sums: within the fp32 bar)."""
+    xf = _rows_f32(stack, qscale)
+    scale = _clip_scale(torch.sum(torch.square(xf), dim=1),
+                        spec.hp("tau", 1.0))
+    dt = torch.float32 if qscale is not None else stack.dtype
+    clipped = (xf * scale[:, None]).to(dt)
+    del xf
+    return spec.inner.aggregate_flat(clipped, mask, weights,
+                                     _inner_state(spec, state))
+
+
+def _clip_tree(spec, grads, mask, weights, state):
+    """clipped on a tree: the row norms summed leaf by leaf, each leaf
+    scaled in fp32 and cast back to its dtype, then the inner rule."""
+    leaves = tree_leaves(grads)
+    n = leaves[0].shape[0]
+    sq = sum(torch.sum(torch.square(l.reshape(n, -1).float()), dim=1)
+             for l in leaves)
+    scale = _clip_scale(sq, spec.hp("tau", 1.0))
+    plan = FlatPlan.for_tree(grads)
+    clipped = [(l.float() * scale.reshape((-1,) + (1,) * (l.dim() - 1))
+                ).to(l.dtype) for l in leaves]
+    return spec.inner.aggregate(tree_unflatten(plan.paths, clipped), mask,
+                                weights, _inner_state(spec, state))
+
+
+def _bucket_inner(spec, n):
+    """(k buckets, the inner spec at the k bucket means: f capped at
+    (k - 1) // 2, no pinned n)."""
+    gs = spec.hp("group_size", 2)
+    if n % gs:
+        raise ValueError(f"bucketed: n={n} not divisible by "
+                         f"group_size={gs}")
+    k = n // gs
+    f_eff = min(spec.inner.f, max((k - 1) // 2, 0))
+    return k, dataclasses.replace(spec.inner, f=f_eff, n=None)
+
+
+def _refuse_masked_buckets(mask, weights):
+    if mask is not None or weights is not None:
+        raise ValueError("bucketed: masked aggregation not supported "
+                         "(bucket membership is static)")
+
+
+def _bucket_flat(spec, stack, mask, weights, state, qscale=None):
+    """bucketed on the arena: the fp32 means of consecutive buckets of
+    ``group_size`` rows, cast to the arena's dtype (a quantized arena's
+    decoded fp32 rows), then the inner rule; synchronous only."""
+    _refuse_masked_buckets(mask, weights)
+    n, p = stack.shape
+    k, inner = _bucket_inner(spec, n)
+    dt = torch.float32 if qscale is not None else stack.dtype
+    means = torch.mean(_rows_f32(stack, qscale).reshape(k, n // k, p),
+                       dim=1).to(dt)
+    return inner.aggregate_flat(means, state=_inner_state(spec, state))
+
+
+def _bucket_tree(spec, grads, mask, weights, state):
+    _refuse_masked_buckets(mask, weights)
+    leaves = tree_leaves(grads)
+    n = leaves[0].shape[0]
+    k, inner = _bucket_inner(spec, n)
+    plan = FlatPlan.for_tree(grads)
+    means = [torch.mean(l.float().reshape((k, n // k) + l.shape[1:]),
+                        dim=1).to(l.dtype) for l in leaves]
+    return inner.aggregate(tree_unflatten(plan.paths, means),
+                           state=_inner_state(spec, state))
+
+
+def _staleness_w(spec, weights, n, device):
+    """The discounts of the raw staleness rounds ``weights`` (0 rounds
+    for every row when None)."""
+    s = (torch.zeros((n,), dtype=torch.float32, device=device)
+         if weights is None else weights.float())
+    return staleness_discount_table(s, spec.hp("weighting", "poly"),
+                                    spec.hp("power", 1.0),
+                                    spec.hp("gamma", 0.7))
+
+
+def _staleness_flat(spec, stack, mask, weights, state, qscale=None):
+    return spec.inner.aggregate_flat(
+        stack, mask, _staleness_w(spec, weights, stack.shape[0],
+                                  stack.device),
+        _inner_state(spec, state), qscale)
+
+
+def _staleness_tree(spec, grads, mask, weights, state):
+    lead = tree_leaves(grads)[0]
+    return spec.inner.aggregate(
+        grads, mask, _staleness_w(spec, weights, lead.shape[0], lead.device),
+        _inner_state(spec, state))
+
+
+register_aggregator(
+    "clipped",
+    caps=AggregatorCaps(),
+    hyper=("tau",), flat_fn=_clip_flat, custom_fn=_clip_tree,
+    is_wrapper=True)
+register_aggregator(
+    "bucketed",
+    caps=AggregatorCaps(),
+    hyper=("group_size",), flat_fn=_bucket_flat, custom_fn=_bucket_tree,
+    is_wrapper=True)
+register_aggregator(
+    "staleness_discounted",
+    caps=AggregatorCaps(staleness_aware=True),
+    hyper=("weighting", "power", "gamma"), flat_fn=_staleness_flat,
+    custom_fn=_staleness_tree, is_wrapper=True)
+
+
+def clipped(inner: AggregatorSpec, tau: float = 1.0) -> AggregatorSpec:
+    return make_spec("clipped", f=inner.f, inner=inner, tau=tau)
+
+
+def bucketed(inner: AggregatorSpec, group_size: int = 2) -> AggregatorSpec:
+    return make_spec("bucketed", f=inner.f, inner=inner,
+                     group_size=group_size)
+
+
+def staleness_discounted(inner: AggregatorSpec, weighting: str = "poly",
+                         power: float = 1.0,
+                         gamma: float = 0.7) -> AggregatorSpec:
+    return make_spec("staleness_discounted", f=inner.f, inner=inner,
+                     weighting=weighting, power=power, gamma=gamma)

@@ -1,14 +1,17 @@
 """Gradient filters on dense stacks ``g: (n, d)`` — the gather path.
 
-Counterpart of ``repro.core.filters.dense`` for the rules ported so far
-(mean, coordinate_median, trimmed_mean, krum, multi_krum, m_krum, mda,
-cge, bulyan, sign_sgd, sparse_mean) and their helpers.
+Counterpart of ``repro.core.filters.dense``: every rule of the survey's
+Table 2 (krum, multi_krum, m_krum, coordinate_median, trimmed_mean,
+phocas, mean_around_median, geometric_median, median_of_means, mda,
+cgc, cge, bulyan), the mean, zeno, rfa, sign_sgd and sparse_mean, their
+helpers, and the parallel ensemble :func:`compose`.
 Uniform signature ``filter(g, f, **hyper) -> (d,)``.  These are the
 paper-faithful dense laws, ``impl="gather"`` of the spec engine, and the
 oracle the kernel path is held against.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -21,6 +24,11 @@ def register(name):
         FILTERS[name] = fn
         return fn
     return deco
+
+
+def get_filter(name: str, **hyper):
+    fn = FILTERS[name]
+    return functools.partial(fn, **hyper) if hyper else fn
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +101,19 @@ def _ascending(values, k):
     """Indices of the k smallest values, ties by first index (the order
     of ``jax.lax.top_k(-values, k)``)."""
     return torch.sort(values, stable=True)[1][:k]
+
+
+def _top_k_order(values, k):
+    """Indices of the k largest of the (n,) ``values`` in the order of
+    ``jax.lax.top_k(values, k)``: descending in IEEE's total order, where a
+    NaN with its sign bit clear lies above +inf and one with it set below
+    -inf, equal values by the lower index."""
+    nan = torch.isnan(values)
+    cls = torch.where(nan, torch.where(torch.signbit(values), 0, 2), 1)
+    by_value = torch.sort(values.masked_fill(nan, 0.0), descending=True,
+                          stable=True).indices
+    by_class = torch.sort(cls[by_value], descending=True, stable=True).indices
+    return by_value[by_class][:k]
 
 
 def _take_row(g, i):
@@ -275,3 +296,138 @@ def _masked_median(g, mask):
     lo = torch.div(cnt - 1, 2, rounding_mode="floor")
     hi = torch.div(cnt, 2, rounding_mode="floor")
     return 0.5 * (_take_row(s, lo) + _take_row(s, hi))
+
+
+# ---------------------------------------------------------------------------
+# the closest-to-center means (Phocas, mean-around-median)
+
+_CLOSEST_CHUNK = 1 << 22    # columns per sort: (n, 4M) keys and indices
+
+
+@register("phocas")
+def phocas(g, f):
+    """Phocas: the mean of the n-f values per coordinate closest to the
+    trimmed mean."""
+    return _mean_closest(g, trimmed_mean(g, f), g.shape[0] - f)
+
+
+@register("mean_around_median")
+def mean_around_median(g, f):
+    """The per-coordinate mean of the n-f values closest to the median."""
+    return _mean_closest(g, coordinate_median(g), g.shape[0] - f)
+
+
+def _mean_closest(g, center, k):
+    """Per-coordinate mean of the k values closest to ``center``, in the
+    order of ``jax.lax.top_k(-dist, k)``: the distances ascending, equal
+    distances by the lower row (a stable sort; equal distances on the two
+    sides of the center hold different values, so the tie order is part
+    of the law), a NaN distance last (|NaN| has its sign bit clear, so
+    its negation sorts below -inf in top_k's total order); the k values
+    summed in that order.  Sorted a column chunk at a time, so that no
+    (n, P) sort (and its int64 indices) exists at once; columns are
+    independent, so the chunks change no bit."""
+    out = torch.empty((g.shape[1],), dtype=g.dtype, device=g.device)
+    for c in range(0, g.shape[1], _CLOSEST_CHUNK):
+        x = g[:, c:c + _CLOSEST_CHUNK]
+        dist = torch.abs(x - center[None, c:c + _CLOSEST_CHUNK])
+        idx = torch.sort(dist, dim=0, stable=True).indices[:k]
+        out[c:c + _CLOSEST_CHUNK] = row_sum(torch.gather(x, 0, idx)) / k
+    return out
+
+
+def row_sum(x):
+    """The (d,) sum of the rows of an (n, d) stack, added in row order
+    from row 0: the same bits whatever the width and device (a library
+    reduction's order may depend on both)."""
+    acc = x[0].clone()
+    for i in range(1, x.shape[0]):
+        acc += x[i]
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# median based
+
+
+@register("geometric_median")
+def geometric_median(g, f=0, iters: int = 32, eps: float = 1e-8):
+    """Weiszfeld's fixed-point iteration for the geometric median, from
+    the mean: y <- sum_i w_i g_i / sum_i w_i, w_i = 1 / max(||g_i - y||,
+    eps)."""
+    y = torch.mean(g, dim=0)
+    for _ in range(iters):
+        diff = g - y[None]
+        d = torch.sqrt(torch.sum(diff.square_(), dim=-1))
+        del diff
+        w = 1.0 / torch.clamp_min(d, eps)
+        y = torch.sum(w[:, None] * g, dim=0) / torch.sum(w)
+    return y
+
+
+@register("rfa")
+def rfa(g, f=0, iters: int = 32, nu: float = 1e-6):
+    """RFA: the smoothed Weiszfeld iteration (federated robust
+    aggregation)."""
+    return geometric_median(g, f, iters=iters, eps=nu)
+
+
+@register("median_of_means")
+def median_of_means(g, f, num_groups: int | None = None):
+    """Partition the rows into k > 2f consecutive groups (k grown until
+    it divides n), then the geometric median of the group means."""
+    n = g.shape[0]
+    k = num_groups if num_groups else min(n, 2 * f + 1) if f else n
+    while n % k:
+        k += 1
+    means = torch.mean(g.reshape(k, n // k, -1), dim=1)
+    return geometric_median(means, 0)
+
+
+# ---------------------------------------------------------------------------
+# norm based
+
+
+@register("cgc")
+def cgc(g, f, normalize: bool = True):
+    """Comparative gradient clipping: scale the f largest norms down to
+    the (n-f)-th smallest norm and keep every row (survey eq. 24); the
+    raw sum (normalize=False) or divided by n."""
+    n = g.shape[0]
+    norms = torch.linalg.vector_norm(g, dim=-1)
+    tau = torch.sort(norms).values[n - f - 1]
+    scale = torch.clamp_max(tau / torch.clamp_min(norms, 1e-30), 1.0)
+    out = torch.sum(scale[:, None] * g, dim=0)
+    return out / n if normalize else out
+
+
+# ---------------------------------------------------------------------------
+# Zeno (server-validation based)
+
+
+@register("zeno")
+def zeno(g, f, server_grad=None, rho: float = 1e-3, lr: float = 1.0):
+    """Zeno: the suspicion score of a server-held validation gradient v,
+    score_i = lr <v, g_i> - rho ||g_i||^2; the mean of the n-f highest, in
+    ``jax.lax.top_k`` order (:func:`_top_k_order`)."""
+    if server_grad is None:
+        raise ValueError("zeno requires server_grad")
+    n = g.shape[0]
+    score = lr * (g @ server_grad) - rho * torch.sum(torch.square(g), dim=-1)
+    return torch.mean(g[_top_k_order(score, n - f)], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# filter combinators
+
+
+def compose(*names_or_fns, f_each=None):
+    """The parallel ensemble (sequential composition is ill-typed, (n, d)
+    -> (d,)): run each filter, then the coordinate-wise median of their
+    outputs."""
+    fns = [FILTERS[x] if isinstance(x, str) else x for x in names_or_fns]
+
+    def ensemble(g, f):
+        return coordinate_median(torch.stack([fn(g, f) for fn in fns],
+                                             dim=0))
+    return ensemble

@@ -153,6 +153,7 @@ def lib():
         L.rt_coord_sort.argtypes = [vp, i32, vp, i32, i64, i64, vp]
         L.rt_clipped_weighted_sum.argtypes = [vp, vp, i32, vp, vp, i32, i64,
                                               i64, vp]
+        L.rt_empty.argtypes = [vp]
         for fn in ("rt_coord_stat", "rt_gram", "rt_gram_scratch_blocks",
                    "rt_krum_select", "rt_weighted_sum", "rt_masked_coord_stat",
                    "rt_masked_gram", "rt_masked_weighted_sum",
@@ -165,10 +166,17 @@ def lib():
                    "rt_scaled_masked_sign_vote",
                    "rt_sparse_masked_weighted_mean",
                    "rt_scaled_sparse_masked_weighted_mean", "rt_coord_sort",
-                   "rt_clipped_weighted_sum"):
+                   "rt_clipped_weighted_sum", "rt_empty"):
             getattr(L, fn).restype = i32
         _LIB = L
     return _LIB
+
+
+def empty_launch(device="cuda"):
+    """Launch the empty kernel (``csrc/empty.cu``) on ``device``'s current
+    stream: the floor of a launch, for timing."""
+    check(lib().rt_empty(torch.cuda.current_stream(device).cuda_stream),
+          "empty")
 
 
 def check(rc: int, name: str):

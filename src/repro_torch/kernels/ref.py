@@ -12,6 +12,9 @@ plain versions are held to.
   only, absent rows being +inf sort sentinels;
 * :func:`masked_sign_vote_ref` — the sign family's law: the majority vote
   of the arrived rows only;
+* :func:`arrived_mean_closest_ref` — phocas' and mean_around_median's
+  law: the mean of the arrived values closest to the arrived-window
+  center;
 * :func:`coord_sort_ref`, :func:`median_from_sorted`,
   :func:`trimmed_mean_from_sorted` — the library sort, and the statistics
   the legacy ``ops`` paths read off a sorted (n, d) stack (K23's).
@@ -22,7 +25,7 @@ import math
 
 import torch
 
-from repro_torch.core.filters.dense import nan_sign
+from repro_torch.core.filters.dense import nan_sign, row_sum
 from repro_torch.kernels.coord_stats import stat_from_sorted
 
 
@@ -119,6 +122,54 @@ def masked_stat_ref(g, mask, wn, stat: str, b: int = 0):
                        torch.full((), math.inf, device=g.device))
     s, _ = torch.sort(sent, dim=0)
     return arrived_stat_from_sorted(s, mask, stat, b)
+
+
+_CLOSEST_CHUNK = 1 << 22    # columns per pass: (n, 4M) sorts and ranks
+
+
+def arrived_mean_closest_ref(g, mask, stat: str, f: int):
+    """(d,) fp32: the phocas / mean_around_median trust window over the
+    ARRIVED rows only, in two count-windowed stages:
+
+      1. the center: :func:`arrived_stat_from_sorted` on the +inf-sentinel
+         sort (``trimmed_mean`` with b = f for phocas, ``median`` for
+         mean_around_median);
+      2. the window: per coordinate, the mean of the k = clip(cnt - f, 1,
+         cnt) arrived values closest to the center.  Absent rows get +inf
+         distances, the ranks come from a stable argsort (equal distances
+         by the lower row; a NaN distance after every other), and the kept
+         values are selected with a where, so an absent row's inf or NaN
+         never enters.
+
+    Below f + 1 arrivals the window is the single closest arrived value;
+    zero arrivals give an exact 0.  Computed a column chunk at a time, so
+    that no (n, P) sort or rank array exists at once; columns are
+    independent and every sum runs in row order
+    (:func:`~repro_torch.core.filters.dense.row_sum`), so the chunks
+    change no bit."""
+    mb = mask.to(torch.bool)
+    n, d = g.shape
+    cnt = torch.sum(mask.float() > 0.5).to(torch.int64)
+    k = torch.minimum(torch.clamp_min(cnt - f, 1), torch.clamp_min(cnt, 1))
+    b = f if stat == "trimmed_mean" else 0
+    inf = torch.full((), math.inf, device=g.device)
+    zero = torch.zeros((), device=g.device)
+    keep, width, _ = arrived_window(mask, n, stat, b)
+    rows = torch.arange(n, device=g.device)[:, None]
+    out = torch.empty((d,), dtype=torch.float32, device=g.device)
+    for c in range(0, d, _CLOSEST_CHUNK):
+        xf = g[:, c:c + _CLOSEST_CHUNK].float()
+        s = torch.sort(torch.where(mb[:, None], xf, inf), dim=0).values
+        center = row_sum(torch.where(keep, s, zero)) / width
+        del s
+        dist = torch.where(mb[:, None], torch.abs(xf - center[None]), inf)
+        order = torch.sort(dist, dim=0, stable=True).indices
+        del dist
+        ranks = torch.empty_like(order).scatter_(0, order,
+                                                 rows.expand_as(order))
+        out[c:c + _CLOSEST_CHUNK] = row_sum(
+            torch.where(ranks < k, xf, zero)) / k.float()
+    return torch.where(cnt > 0, out, zero)
 
 
 def masked_sign_vote_ref(g, mask):

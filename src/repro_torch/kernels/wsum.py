@@ -111,8 +111,10 @@ def masked_weighted_sum(w, g, mask, mean):
     ``w >= 0`` is the caller's precondition, as in the JAX kernel: the
     kernel gates rows on w > 0, so a negative weight would be dropped, not
     subtracted.  The plain version (a CPU tensor) refuses one; on the card
-    the check would cost a host sync, and the one caller (Krum's one-hot
-    from K3) is {0,1} by construction."""
+    the check would cost a host sync, and the callers' weights are non-
+    negative by construction: Krum's one-hot from K3, CGE's keep-set, and
+    the coded decode's 1/k on each group winner
+    (``core.redundancy.coding.flat_draco_aggregate``)."""
     if g.dim() != 2 or w.shape != (g.shape[0],) or mask.shape != w.shape:
         raise ValueError(f"masked_weighted_sum: shapes w {tuple(w.shape)}, "
                          f"g {tuple(g.shape)}, mask {tuple(mask.shape)}")

@@ -1,5 +1,5 @@
 """Training launcher (counterpart of ``repro.launch.train``, without its
-coding, checkpoint and recorder flags, which come with later slices).
+checkpoint and recorder flags, which come with later slices).
 
 On the card (the default device):
   python -m repro_torch.launch.train --arch paper-100m --steps 20 \
@@ -12,6 +12,9 @@ On the CPU, at the smoke size:
 ``--quorum k`` runs the asynchronous loop (the server steps as soon as k
 gradients are in); ``--sample-policy`` samples clients into the roster
 each round and makes the spec elastic (``--elastic-buckets`` buckets).
+``--draco-r r`` aggregates with the repetition code (Draco, groups of r
+agents computing the same shard), which forces ``--regime parallel``.
+``--filter`` takes any registered rule that needs no inner spec.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ def main(argv=None):
     ap.add_argument("--attack", default="none")
     ap.add_argument("--attack-scale", type=float, default=None)
     ap.add_argument("--momentum-alpha", type=float, default=0.0)
+    ap.add_argument("--draco-r", type=int, default=0)
     # client sampling: the roster as a CHOSEN schedule (simulator
     # SamplingPolicy) — the spec goes elastic so the aggregation runs the
     # sampled roster's per-bucket plans
@@ -66,6 +70,8 @@ def main(argv=None):
     from repro_torch.training import ByzantineConfig, train_loop
 
     cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
+    if args.draco_r and args.regime != "parallel":
+        args.regime = "parallel"       # coding needs identical shards
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                      n_agents=args.n_agents,
                      per_agent_batch=args.per_agent_batch,
@@ -87,7 +93,8 @@ def main(argv=None):
     spec = make_spec(args.filter, f=args.f, impl=args.impl, n=n_spec)
     bz = ByzantineConfig(n_agents=args.n_agents, f=args.f, aggregator=spec,
                          attack=args.attack, attack_hyper=ah,
-                         momentum_alpha=args.momentum_alpha)
+                         momentum_alpha=args.momentum_alpha,
+                         draco_r=args.draco_r)
     _, history = train_loop(cfg, bz, opt, ds, steps=args.steps,
                             seed=args.seed, device=args.device,
                             poison_labels=args.poison_labels, sim=sim)

@@ -37,6 +37,16 @@ delivered fp32 rows per row (the buffer itself stays fp32) and the masked
 engine aggregates codes and scales (K19 / K20 dequantize in registers);
 a float dtype casts them, and the aggregate unravels to that dtype.
 
+Gradient coding: with ``bz.draco_r`` every row aggregates with the
+repetition code's decode over the delivered rows (its vote needs no
+quorum); with ``SimConfig.coded_fallback_r`` a row that missed its quorum
+takes the coded aggregate in place of the rule's.  JAX computes both and
+selects with ``jnp.where``; the host knows here which one the row uses,
+so only that one is computed.  Under a quantized exchange the coded paths
+see the fake-quantized fp32 rows (with a fallback, the rule too, as in
+JAX).  The group tables of the elastic buckets are built when the run
+starts, so a bad r fails before any step.
+
 The synchronous loop is the degenerate case: a "pure" row (the full
 roster dispatches and delivers with zero staleness) runs the exact
 synchronous step of :mod:`repro_torch.training.step`, so ``train_loop``
@@ -61,13 +71,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.aggregators import (get_aggregator_def,
-                                          staleness_discount_table)
+from repro_torch.core.aggregators import staleness_discount_table
 from repro_torch.core.attacks import (get_attack, is_adaptive_attack,
                                       make_adaptive_attack,
                                       make_byzantine_mask)
-from repro_torch.core.flat import FlatPlan, dtype_name, quantize_rows
+from repro_torch.core.flat import (FlatPlan, dtype_name, fake_quantize,
+                                   quantize_rows)
 from repro_torch.core.momentum import init_momentum, worker_momentum
+from repro_torch.core.redundancy.coding import (coding_groups,
+                                                flat_draco_aggregate)
 from repro_torch.data import label_flip
 from repro_torch.device import make_generator, resolve_device
 from repro_torch.models import init_params, loss_fn
@@ -120,12 +132,40 @@ def _host_bools(x, n: int) -> np.ndarray:
     return x
 
 
+def _refuse_staleness_aware(spec):
+    if spec.staleness_aware:                 # recurses through wrappers
+        # this loop already turns staleness into discount multipliers
+        # (SimConfig.staleness_weighting): a staleness_aware spec would
+        # read those multipliers as round counts and invert the discounts
+        raise ValueError(
+            f"{spec.name} consumes raw staleness counts, but the async "
+            "loop passes discount multipliers — configure "
+            "SimConfig.staleness_weighting and use the inner spec instead")
+
+
+# wrappers whose aggregate is their inner rule's, in its dtype
+_DELEGATING_WRAPPERS = ("clipped", "bucketed", "staleness_discounted")
+
+
+def _fp32_aggregate(spec) -> bool:
+    """True iff the rule chain ends its aggregate in fp32 whatever the
+    exchange dtype (the JAX tree law of server_momentum's momentum
+    step)."""
+    while spec.name in _DELEGATING_WRAPPERS:
+        spec = spec.inner
+    return spec.name == "server_momentum"
+
+
 def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
                     bucket: int | None = None, telemetry: bool = False):
     """Returns ``async_step(params, opt_state, momentum, buffer, agg_state,
     batch, gen, refresh, contrib_w, use_coded=False, roster_idx=None,
     roster_valid=None) -> (params, opt_state, momentum, buffer,
     agg_state, metrics)``.
+
+    ``fallback_r`` > 0 builds the coded fallback: a step called with
+    ``use_coded=True`` (its row missed the quorum) aggregates with the
+    repetition code's decode of the delivered rows instead of the rule.
 
     ``buffer``    (n, P) fp32 in-flight gradients, updated in place;
     ``agg_state`` the aggregator's state (``spec.init_state``; {} for a
@@ -147,10 +187,6 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
     from repro_torch.training.step import (attack_arena, exchange_dtype,
                                            unsupported)
     dev = resolve_device(device)
-    if fallback_r:
-        raise NotImplementedError(
-            "the coded fallback (coded_fallback_r) comes with ROADMAP.md "
-            "slice 5")
     why = unsupported(bz, telemetry)
     if why:
         raise NotImplementedError(why)
@@ -160,15 +196,22 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
     agg_dtype = dtype_name(xdt) if xdt is not None and not quant else (
         "float32")
     spec = bz.resolve_spec()
+    _refuse_staleness_aware(spec)
     if bucket is not None or spec.elastic_n is not None:
         spec = spec.respecialize(bucket if bucket is not None
                                  else bz.n_agents)
     if not spec.flat_capable:
         raise NotImplementedError(f"{spec.describe()} has no flat path")
-    if get_aggregator_def(spec.name).is_wrapper:
-        # a wrapper is the JAX package's tree path, whose fp32 momentum
-        # step leaves fp32 leaves whatever the exchange dtype
+    if _fp32_aggregate(spec) and not bz.draco_r:
+        # server_momentum's fp32 momentum step (the JAX tree law) leaves
+        # fp32 leaves whatever the exchange dtype; the coded decode
+        # unravels to the exchange dtype
         agg_dtype = "float32"
+    # the group table of the code in use, built here, once per (bucket, r)
+    r_code = bz.draco_r if bz.draco_r > 0 else fallback_r
+    groups = (coding_groups(bucket if bucket is not None else bz.n_agents,
+                            r_code, allow_ragged=bucket is not None)
+              if r_code > 0 else None)
     stateful = spec.stateful
     # a defense-aware attack is built against the spec this step runs
     adaptive = (make_adaptive_attack(bz.attack, spec, **bz.attack_hyper)
@@ -183,9 +226,9 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
     def async_step(params, opt_state, momentum, buffer, agg_state, batch,
                    gen, refresh, contrib_w, use_coded=False,
                    roster_idx=None, roster_valid=None):
-        if use_coded:
-            raise NotImplementedError(
-                "the coded fallback comes with ROADMAP.md slice 5")
+        if use_coded and not fallback_r:
+            raise ValueError("use_coded=True needs a step built with "
+                             "fallback_r > 0")
         if (roster_idx is None) != (bucket is None):
             raise ValueError("roster_idx/roster_valid go with bucket=")
         refresh = _host_bools(refresh, n)
@@ -244,9 +287,13 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
                         else None)
                 sent, atk_state = adaptive(gen, buffer, byz_mask,
                                            atk_state, dvec)
-            # the exchange: per-row codes and scales, or a cast
+            # the exchange: per-row codes and scales, or a cast; the
+            # coded paths (and the rule beside a coded fallback) take the
+            # fake-quantized fp32 rows
             qs = None
-            if quant:
+            if quant and r_code:
+                sent = fake_quantize(sent, xdt)
+            elif quant:
                 sent, qs = quantize_rows(sent, xdt)
             elif xdt is not None:
                 sent = sent.to(xdt)
@@ -260,9 +307,14 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
                 rqs = None if qs is None else qs[roster_idx]
             else:
                 rows, rmask, rw, rqs = sent, cw > 0, cw, qs
-            vec = spec.aggregate_flat(rows, mask=rmask, weights=rw,
-                                      scale=rqs,
-                                      state=agg_state if stateful else None)
+            if bz.draco_r or use_coded:
+                # the repetition code votes among the delivered rows
+                vec = flat_draco_aggregate(rows, r_code, mask=rmask,
+                                           groups=groups)
+            else:
+                vec = spec.aggregate_flat(
+                    rows, mask=rmask, weights=rw, scale=rqs,
+                    state=agg_state if stateful else None)
             del rows, sent, qs, rqs
             agg = plan.as_dtype(agg_dtype).unravel(vec)
             # the state advances from the aggregate as unraveled (with
@@ -326,20 +378,25 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
             "ROADMAP.md slice 7")
     dev = resolve_device(device)
     sim = sim if sim is not None else SimConfig()
-    if sim.coded_fallback_r:
-        raise NotImplementedError(
-            "the coded fallback (coded_fallback_r) comes with ROADMAP.md "
-            "slice 5")
     n = bz.n_agents
     spec = bz.resolve_spec()
+    _refuse_staleness_aware(spec)
     atrace = plan_arrivals(sim, n, steps)
     roster = atrace.roster                 # (steps, n) bool | None
     el = spec.elastic_n                    # a wrapper chain delegates
+    r_code = bz.draco_r if bz.draco_r > 0 else sim.coded_fallback_r
+    if r_code:
+        coding_groups(n, r_code)           # the full roster: r must divide n
     if el is not None:
         if el.n_max != n:
             raise ValueError(
                 f"elastic aggregator {spec.describe()} was built for "
                 f"n_max={el.n_max} but the config declares n_agents={n}")
+        if r_code:
+            # every bucket's group table now, so that a bad r fails
+            # before any step runs
+            for b in el.buckets:
+                coding_groups(int(b), r_code, allow_ragged=True)
         if roster is None:
             # membership never changes: the n_max bucket's concrete spec
             bz = dataclasses.replace(bz, aggregator=spec.respecialize(n))
@@ -375,6 +432,7 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
             else:
                 built[key] = make_async_step(
                     cfg, bz, optimizer, device=dev,
+                    fallback_r=sim.coded_fallback_r,
                     bucket=None if key == "async" else key)
         return built[key]
 
@@ -393,7 +451,7 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
     # than failing mid-run or quietly running the gather law
     masked_rows = ~pure & atrace.contrib.any(1)
     missing = _masked_kernel_missing(spec)
-    if masked_rows.any() and missing:
+    if masked_rows.any() and missing and not bz.draco_r:
         raise NotImplementedError(
             f"{missing} (trace rows "
             f"{np.flatnonzero(masked_rows)[:8].tolist()} are not "
@@ -424,6 +482,8 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
         else:
             refresh = atrace.refresh[step] | pending_refresh
             pending_refresh = np.zeros(n, bool)
+            use_coded = bool(not atrace.quorum_met[step]
+                             and sim.coded_fallback_r > 0)
             if buffer is None:
                 buffer = torch.zeros((n, total), dtype=torch.float32,
                                      device=dev)
@@ -435,14 +495,14 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
                 (params, opt_state, momentum, buffer, agg_state,
                  metrics) = step_fn(int(b))(
                     params, opt_state, momentum, buffer, agg_state, batch,
-                    gen, refresh, cw, False,
+                    gen, refresh, cw, use_coded,
                     torch.as_tensor(idx, dtype=torch.int64).to(dev),
                     torch.as_tensor(valid).to(dev))
             else:
                 (params, opt_state, momentum, buffer, agg_state,
                  metrics) = step_fn("async")(
                     params, opt_state, momentum, buffer, agg_state, batch,
-                    gen, refresh, cw)
+                    gen, refresh, cw, use_coded)
         if step % log_every == 0 or step == steps - 1:
             if metrics is None:
                 m = {"loss": float("nan"), "loss_all": float("nan"),

@@ -29,11 +29,20 @@ stack (``roster_idx``, padded by repeating a live slot, and
 spec.  Each build counts once as ``"train_step"``
 (:mod:`repro_torch.obs.counters`).
 
-Restricted to ``draco_r=0``, ``group_size=1`` and ``reshard=False``
-(each of those raises ``NotImplementedError`` naming the ROADMAP.md slice
-that brings it).  Stateful specs and the defense-aware attacks raise as
-in the JAX step: they run through the async loop, which threads their
-state.
+``draco_r`` (gradient coding, Draco): the aggregate is the repetition
+code's decode instead of the rule's
+(:func:`repro_torch.core.redundancy.coding.flat_draco_aggregate`: the
+vote on K2's Gram, the winners applied by K7).  The group table is built
+once per (bucket, r) when the step is built; an elastic bucket votes over
+the packed live rows with ``roster_valid`` as the mask, its table ragged
+where r does not divide the bucket; a quantized exchange hands the coded
+path the fake-quantized stack (codes and scales have no coded kernel), in
+the parameters' dtype, as the JAX step does.
+
+Restricted to ``group_size=1`` and ``reshard=False`` (each raises
+``NotImplementedError`` naming the ROADMAP.md slice that brings it).
+Stateful specs and the defense-aware attacks raise as in the JAX step:
+they run through the async loop, which threads their state.
 """
 from __future__ import annotations
 
@@ -44,8 +53,10 @@ from repro_torch.core.aggregators import AggregatorSpec
 from repro_torch.core.attacks import (get_attack, is_adaptive_attack,
                                       make_byzantine_mask)
 from repro_torch.core.flat import (QUANT_DTYPES, FlatPlan, dtype_name,
-                                   quantize_rows)
+                                   fake_quantize, quantize_rows)
 from repro_torch.core.momentum import worker_momentum
+from repro_torch.core.redundancy.coding import (coding_groups,
+                                                flat_draco_aggregate)
 from repro_torch.device import resolve_device
 from repro_torch.models import loss_fn
 from repro_torch.obs.counters import count_trace
@@ -61,11 +72,16 @@ class ByzantineConfig:
     attack: str = "none"
     attack_hyper: dict = field(default_factory=dict)
     momentum_alpha: float = 0.0         # 0 = raw gradients
-    draco_r: int = 0
+    draco_r: int = 0                    # > 0: coded aggregation instead
     remat: bool = False                 # per-layer activation checkpointing
     group_size: int = 1
     agg_dtype: str = ""
     reshard: bool = False
+
+    def __post_init__(self):
+        # the repetition code's shape contract, checked at config time
+        if self.draco_r:
+            coding_groups(self.n_agents, self.draco_r)
 
     def resolve_spec(self) -> AggregatorSpec:
         """The ``aggregator``, checked against the config's f and n."""
@@ -84,8 +100,6 @@ class ByzantineConfig:
 def unsupported(bz: ByzantineConfig, telemetry=False):
     """Why ``bz`` cannot run on the port yet (naming the ROADMAP.md slice),
     or None."""
-    if bz.draco_r:
-        return "coded aggregation (draco_r) comes with ROADMAP.md slice 5"
     if bz.group_size > 1 or bz.reshard:
         return ("group_size / reshard come with ROADMAP.md slice 11 "
                 "(distribution)")
@@ -157,6 +171,12 @@ def make_train_step(cfg, bz: ByzantineConfig, optimizer, device=None,
                                  else bz.n_agents)
     if not spec.flat_capable:
         raise NotImplementedError(f"{spec.describe()} has no flat path")
+    # the bucket's group table, built here, once per (bucket, r); the
+    # packed live rows are regrouped by position (exact in the parallel
+    # regime, where every agent computes the same shard)
+    groups = (coding_groups(bucket if bucket is not None else bz.n_agents,
+                            bz.draco_r, allow_ragged=bucket is not None)
+              if bz.draco_r else None)
     attack_fn = (get_attack(bz.attack, **bz.attack_hyper)
                  if bz.attack != "none" else None)
     n = bz.n_agents
@@ -200,18 +220,27 @@ def make_train_step(cfg, bz: ByzantineConfig, optimizer, device=None,
                 attack_arena(attack_fn, gen, plan, arena, byz_mask)
 
             # (4) robust aggregation on the arena (the live roster packed
-            # into its bucket under elastic membership), one unravel.  A
+            # into its bucket under elastic membership), or the coded
+            # decode, then one unravel.  A
             # quantized exchange sends per-row codes and an fp32 scale
             # per row, quantized from the fp32 arena; a cast exchange
             # sends the arena in agg_dtype, and its aggregate unravels to
-            # leaves of that dtype
+            # leaves of that dtype.  The coded path takes the fake-
+            # quantized stack in the parameters' dtype
             qs = None
-            if quant:
+            if quant and bz.draco_r:
+                arena = fake_quantize(arena, xdt).to(arena.dtype)
+            elif quant:
                 arena, qs = quantize_rows(arena, xdt)
             elif xdt is not None:
                 arena = arena.to(xdt)
                 plan = plan.as_dtype(dtype_name(xdt))
-            if bucket is not None:
+            if bz.draco_r and bucket is not None:
+                vec = flat_draco_aggregate(arena[roster_idx], bz.draco_r,
+                                           mask=roster_valid, groups=groups)
+            elif bz.draco_r:
+                vec = flat_draco_aggregate(arena, bz.draco_r, groups=groups)
+            elif bucket is not None:
                 vec = spec.aggregate_flat(
                     arena[roster_idx], mask=roster_valid,
                     scale=None if qs is None else qs[roster_idx])

@@ -195,10 +195,13 @@ def test_the_attack_rewrites_a_copy_of_the_buffer():
 def test_unported_loop_options_raise_and_name_the_roadmap():
     cfg, ds, bz = setup()
     opt = adamw(constant(1e-3))
-    for kw in ({"sim": SimConfig(coded_fallback_r=2)}, {"ckpt_dir": "x"},
-               {"telemetry": True}):
+    for kw in ({"ckpt_dir": "x"}, {"telemetry": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             async_train_loop(cfg, bz, opt, ds, 1, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.make_async_step(cfg, bz, opt, device="cpu", fallback_r=2)
+    # the coded fallback is ported: the step builds, and a code that does
+    # not divide the roster fails before any step runs
+    TS.make_async_step(cfg, bz, opt, device="cpu", fallback_r=2)
+    with pytest.raises(ValueError, match="n=6, r=4"):
+        async_train_loop(cfg, bz, opt, ds, 1, device="cpu",
+                         sim=SimConfig(coded_fallback_r=4))
 

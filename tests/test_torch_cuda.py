@@ -869,3 +869,70 @@ def test_cuda_centered_clip_counts_its_launches(cuda_device):
             assert counts == {k: want * (k == "clipped_weighted_sum")
                               for k in counts}, (impl, sorted(kw))
 
+
+
+# ---------------------------------------------------------------------------
+# the coded decode (gradient coding): the vote on K2, the winners on K7
+
+
+def coded_rows(n, r, d, hazard, dtype, offset, device, gen):
+    """(n, d) rows of ``dtype`` on the card: each group's rows equal
+    copies of its true row (ragged tables where r does not divide n), the
+    first row of every group of three or more Byzantine (1e4 everywhere,
+    or +inf / -inf / NaN), held at a one-element offset in rows of d + 1
+    when ``offset``."""
+    from repro_torch.core.redundancy.coding import coding_groups
+    groups = coding_groups(n, r, allow_ragged=True)
+    k = int(groups.max()) + 1
+    true = torch.randn((k, d), generator=gen, device=device)
+    x = true[torch.as_tensor(groups.copy(), device=device)].clone()
+    for grp in range(k):
+        slots = (groups == grp).nonzero()[0]
+        if len(slots) >= 3:
+            x[int(slots[0])] = {None: 1e4, "inf": math.inf,
+                                "-inf": -math.inf, "nan": math.nan}[hazard]
+    x = x.to(dtype)
+    if offset:
+        big = torch.zeros((n, d + 1), dtype=dtype, device=device)
+        big[:, 1:] = x
+        x = big[:, 1:]
+    return x, groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("hazard", [None, "inf", "-inf", "nan"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n,r", [(4, 2), (4, 3), (8, 3), (8, 4), (12, 2),
+                                 (12, 3), (12, 4)])
+def test_cuda_coded_decode_matches_plain(cuda_device, n, r, masked, hazard,
+                                         offset, dtype):
+    """flat_draco_aggregate on K2 + K7 against the plain Gram and the
+    plain masked weighted sum on the same rows: the same decode weights,
+    the aggregate exact and finite (a rejected +-inf / NaN row is never
+    read), and a repeat bit for bit."""
+    from repro_torch.core.redundancy.coding import (coded_vote_weights,
+                                                    flat_draco_aggregate)
+    gen = torch.Generator(device=cuda_device).manual_seed(n * 10 + r)
+    x, groups = coded_rows(n, r, 4099, hazard, dtype, offset, cuda_device,
+                           gen)
+    mask = None
+    if masked:
+        mask = torch.ones(n, dtype=torch.bool, device=cuda_device)
+        mask[n - 1] = False
+    before = (kernels.gram.launches, kernels.masked_weighted_sum.launches)
+    out = flat_draco_aggregate(x, r, mask=mask, groups=groups)
+    assert (kernels.gram.launches - before[0],
+            kernels.masked_weighted_sum.launches - before[1]) == (1, 1)
+    w = coded_vote_weights(gram_plain(x), r, mask=mask, groups=groups)
+    assert torch.equal(coded_vote_weights(kernels.gram(x), r, mask=mask,
+                                          groups=groups), w)
+    m = (torch.ones(n, device=cuda_device) if mask is None
+         else mask.float())
+    ref = masked_weighted_sum_plain(w, x, m, torch.zeros(
+        (x.shape[1],), dtype=dtype, device=cuda_device))
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, ref)
+    assert torch.equal(flat_draco_aggregate(x, r, mask=mask, groups=groups),
+                       out)

@@ -68,12 +68,16 @@ def flat_np(tree):
     return np.concatenate([x.ravel() for x in leaves_np(tree)])
 
 
-def batch_np(seed, n=N):
+def batch_np(seed, n=N, parallel=False):
     """(n, b) starts drawn on the JAX side -> the torch batch and the
-    matching JAX batch."""
+    matching JAX batch.  ``parallel``: every agent gets agent 0's batch
+    (the gradient-coding regime: the agents of a group compute the same
+    shard)."""
     cfg, _ = configs()
     starts = np.asarray(jax.random.randint(jax.random.PRNGKey(seed),
                                            (n, BATCH), 0, cfg.vocab_size))
+    if parallel:
+        starts = np.repeat(starts[:1], n, axis=0)
     tb = SyntheticLM(cfg.vocab_size, SEQ, n, BATCH).batch(starts)
     jb = {k: jnp.asarray(v.numpy().astype(np.int32)) for k, v in tb.items()}
     return tb, jb
@@ -160,7 +164,7 @@ def resync_state(jp, js):
 
 
 def run_slice(rule, alpha, steps=3, attack="sign_flip", n=N, agg_dtype="",
-              resync=False, record=None):
+              resync=False, record=None, specs=None, f=F, draco_r=0):
     """Run the JAX step (impl="pallas") and the torch step (impl="auto")
     side by side from the same weights and batches, with ``n`` agents
     and exchange dtype ``agg_dtype``; returns per step (jax loss, torch
@@ -168,23 +172,30 @@ def run_slice(rule, alpha, steps=3, attack="sign_flip", n=N, agg_dtype="",
     ``resync``: the torch side starts every step from the JAX side's
     parameters and optimizer state (for the laws that are discontinuous
     in the gradients).  ``record``: a dict that collects both specs'
-    ``aggregate_flat`` calls (:func:`recording_specs`)."""
+    ``aggregate_flat`` calls (:func:`recording_specs`).  ``specs``: a
+    (jax spec, torch spec) pair in place of the rule's kernel specs,
+    built for ``f``; ``draco_r``: the coded step, on the parallel
+    regime's batches."""
     cfg, jcfg = configs()
     jp = jax.tree.map(jnp.asarray, jax_params_numpy())
     tp = params_from_numpy(jax_params_numpy())
     jo = _jax_recording(jopt.adamw(jopt.constant(LR), eps=EPS))
     to = _torch_recording(topt.adamw(topt.constant(LR), eps=EPS))
-    jspec = jax_make_spec(rule, f=F, impl="pallas", n=n)
-    spec = make_spec(rule, f=F, n=n)
-    assert spec.impl == "kernel"
+    if specs is None:
+        jspec = jax_make_spec(rule, f=f, impl="pallas", n=n)
+        spec = make_spec(rule, f=f, n=n)
+        assert spec.impl == "kernel"
+    else:
+        jspec, spec = specs
     if record is not None:
         jspec, spec = recording_specs(jspec, spec, record)
     jstep = jax.jit(jax_make_train_step(jcfg, JaxBz(
-        n_agents=n, f=F, aggregator=jspec, attack=attack,
-        momentum_alpha=alpha, agg_dtype=agg_dtype), jo))
+        n_agents=n, f=f, aggregator=jspec, attack=attack,
+        momentum_alpha=alpha, agg_dtype=agg_dtype, draco_r=draco_r), jo))
     tstep = make_train_step(cfg, ByzantineConfig(
-        n_agents=n, f=F, aggregator=spec, attack=attack,
-        momentum_alpha=alpha, agg_dtype=agg_dtype), to, device="cpu")
+        n_agents=n, f=f, aggregator=spec, attack=attack,
+        momentum_alpha=alpha, agg_dtype=agg_dtype, draco_r=draco_r), to,
+        device="cpu")
     js, ts = jo.init(jp), to.init(tp)
     jm = tm = None
     if alpha:
@@ -193,7 +204,7 @@ def run_slice(rule, alpha, steps=3, attack="sign_flip", n=N, agg_dtype="",
         tm = init_momentum(n, int(flat_np(jax_params_numpy()).size), "cpu")
     out = []
     for step in range(steps):
-        tb, jb = batch_np(100 + step, n)
+        tb, jb = batch_np(100 + step, n, parallel=bool(draco_r))
         jp, js, jm, jmet = jstep(jp, js, jm, jb, jax.random.PRNGKey(7))
         tp, ts, tm, tmet = tstep(tp, ts, tm, tb)
         jax.effects_barrier()
@@ -253,7 +264,8 @@ def in_flight_np(seed, n=N):
 
 def run_async(rule, alpha, trace="stragglers", steps=4,
               attack="sign_flip", n=N, quorum=6, resync=False, agg_dtype="",
-              record=None, specs=None, attack_hyper=({}, {})):
+              record=None, specs=None, attack_hyper=({}, {}), f=F,
+              draco_r=0, fallback_r=0, sims=None):
     """Per step (jax loss, torch loss, jax agg, torch agg, jax params,
     torch params, jax buffer, torch buffer, jax server_grad, torch
     server_grad) as flat numpy (the last two None for a stateless rule),
@@ -269,7 +281,10 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
     otherwise move every later step apart).  ``agg_dtype`` and ``record``
     as in :func:`run_slice`.  ``specs``: ``trace -> (jax spec, torch
     spec)`` in place of the rule's kernel specs; ``attack_hyper``: the
-    (jax, torch) attack hyper."""
+    (jax, torch) attack hyper.  ``f``: the Byzantine budget; ``draco_r``
+    / ``fallback_r``: the coded step / the coded fallback (a row that
+    missed its quorum takes the code), on the parallel regime's batches;
+    ``sims``: a (jax, torch) SimConfig pair in place of the trace's."""
     cfg, jcfg = configs()
     jp = jax.tree.map(jnp.asarray, jax_params_numpy())
     tp = params_from_numpy(jax_params_numpy())
@@ -280,16 +295,16 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
             jspec = jax_make_spec(rule, f=jax_frac(0.25), impl="pallas",
                                   n=jax_elastic(N, (4, 6, 8)))
             tspec = make_spec(rule, f=frac(0.25), n=elastic(N, (4, 6, 8)))
-        sims = (churn_sim(JS), churn_sim(TS))
+        sims = sims or (churn_sim(JS), churn_sim(TS))
         rows = range(4, 4 + steps)
     elif specs is None:
-        jspec = jax_make_spec(rule, f=F, impl="pallas", n=n)
-        tspec = make_spec(rule, f=F, n=n)
+        jspec = jax_make_spec(rule, f=f, impl="pallas", n=n)
+        tspec = make_spec(rule, f=f, n=n)
     if trace == "sync":
-        sims = (JS.SimConfig(), TS.SimConfig())
+        sims = sims or (JS.SimConfig(), TS.SimConfig())
         rows = range(steps)
     elif trace != "churn":
-        sims = (straggler_sim(JS, quorum), straggler_sim(TS, quorum))
+        sims = sims or (straggler_sim(JS, quorum), straggler_sim(TS, quorum))
         rows = range(steps)
     if specs is not None:
         jspec, tspec = specs(trace)
@@ -297,12 +312,12 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
         assert tspec.impl == "kernel"
     if record is not None:
         jspec, tspec = recording_specs(jspec, tspec, record)
-    jbz = JaxBz(n_agents=n, f=F, aggregator=jspec, attack=attack,
+    jbz = JaxBz(n_agents=n, f=f, aggregator=jspec, attack=attack,
                 attack_hyper=attack_hyper[0], momentum_alpha=alpha,
-                agg_dtype=agg_dtype)
-    tbz = ByzantineConfig(n_agents=n, f=F, aggregator=tspec, attack=attack,
+                agg_dtype=agg_dtype, draco_r=draco_r)
+    tbz = ByzantineConfig(n_agents=n, f=f, aggregator=tspec, attack=attack,
                           attack_hyper=attack_hyper[1], momentum_alpha=alpha,
-                          agg_dtype=agg_dtype)
+                          agg_dtype=agg_dtype, draco_r=draco_r)
     jst, tst = initial_agg_states(jbz, tbz, jp, tp)
     jtr = JS.plan_arrivals(sims[0], n, rows[-1] + 1)
     ttr = TS.plan_arrivals(sims[1], n, rows[-1] + 1)
@@ -331,18 +346,20 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
             extra_t = (torch.as_tensor(idx, dtype=torch.int64),
                        torch.as_tensor(valid))
         if b not in jsteps:
-            jsteps[b] = jax.jit(JS.make_async_step(jcfg, jbz, jo, bucket=b))
+            jsteps[b] = jax.jit(JS.make_async_step(
+                jcfg, jbz, jo, fallback_r=fallback_r, bucket=b))
             tsteps[b] = TS.make_async_step(cfg, tbz, to, device="cpu",
-                                           bucket=b)
-        tb, jb = batch_np(300 + k, n)
+                                           fallback_r=fallback_r, bucket=b)
+        tb, jb = batch_np(300 + k, n, parallel=bool(draco_r or fallback_r))
         refresh = jtr.refresh[r]
+        use_coded = bool(fallback_r) and not ttr.quorum_met[r]
         jp, js, jm, jbuf, jst, jmet = jsteps[b](
             jp, js, jm, jbuf, jst, jb, jax.random.PRNGKey(7),
-            jnp.asarray(refresh), jnp.asarray(jw[r]), jnp.asarray(False),
+            jnp.asarray(refresh), jnp.asarray(jw[r]), jnp.asarray(use_coded),
             *extra_j)
         tp, ts, tm, tbuf, tst, tmet = tsteps[b](
             tp, ts, tm, tbuf, tst, tb, None, refresh,
-            torch.from_numpy(tw[r]), False, *extra_t)
+            torch.from_numpy(tw[r]), use_coded, *extra_t)
         jax.effects_barrier()
         out.append((float(jmet["loss"]), float(tmet["loss"]),
                     flat_np(js["agg"]), flat_np(params_to_numpy(ts["agg"])),

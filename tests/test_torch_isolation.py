@@ -165,10 +165,16 @@ def test_cli_runs_bulyan_on_cpu_when_asked(capsys):
 def test_unported_options_raise_and_name_the_roadmap():
     cfg, ds, bz, opt = _smoke_setup()
     import dataclasses
-    for kw in ({"draco_r": 2}, {"reshard": True}, {"group_size": 2}):
+    for kw in ({"reshard": True}, {"group_size": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_train_step(cfg, dataclasses.replace(bz, **kw), opt,
                             device="cpu")
+    # gradient coding is ported: the step builds; a group size that does
+    # not divide the agent count fails when the config is made
+    make_train_step(cfg, dataclasses.replace(bz, draco_r=2), opt,
+                    device="cpu")
+    with pytest.raises(ValueError, match="n=4, r=3"):
+        dataclasses.replace(bz, draco_r=3)
     # the sync step refuses what only the async loop's state thread runs,
     # in the JAX step's words
     with pytest.raises(NotImplementedError, match="defense-aware"):
