@@ -68,7 +68,11 @@ The selection family (ROADMAP.md slice 3) adds:
                mda (k = n - f = 6) at n = 8, K13 at n = 11 (theta 7, beta
                3) and n = 8 (theta 4, beta 1); the NaN / +-inf /
                duplicate-row / pair-tie hazards at a small width and n =
-               3, 4, 8, 11, 16; times, yardsticks and bounds;
+               3, 4, 8, 11, 16; times, yardsticks and bounds; then K3
+               and K10 at n = 1..17, 24, 32, 33, 48, 64 (three pick
+               counts, every row equal, the pair tie, a NaN Gram), each
+               bitwise equal to its plain version and to a repeat, timed
+               beside its predicted ms;
 3c. selection train — the phase-3 configuration for cge, multi_krum (m
                = 3), m_krum (m = 3) and mda at n = 8 and bulyan at n = 11
                (f = 2): 1 warm-up step, then 2 timed steps per rule; the
@@ -321,8 +325,10 @@ The rules without a kernel, the composition wrappers and gradient
 coding (ROADMAP.md items 15 and 17) add:
 
 2.  the launch floor: an empty kernel (``csrc/empty.cu``) timed with the
-               same timer as every kernel, and the launch-bound K3 and
-               K8-K10 against max(their bytes' bound, that floor);
+               same timer, reps (1000) and stream helper as the
+               launch-bound K3 and K8-K10, those against max(their bytes'
+               bound, that floor), and the card's own time of each and of
+               the empty kernel (torch.profiler);
 2f. phocas, mean_around_median, cgc, geometric_median, rfa,
                median_of_means, zeno (its validation gradient the arena's
                mean), clipped(trimmed_mean), bucketed(krum) and
@@ -665,7 +671,7 @@ def kernel_checks(num_params):
         w = kernels.krum_select(gr, F)
         wref = krum_select_plain(gr, F)
         err = max_abs_err(w, wref)
-        ms = time_ms(lambda: kernels.krum_select(gr, F), 50)
+        ms = time_ms(lambda: kernels.krum_select(gr, F), LAUNCH_REPS)
         pms = time_ms(lambda: krum_select_plain(gr, F), 5)
         bms, by = bound(4 * N * N + 4 * N, N * N * (N + 4))
         check("krum_select", err == 0.0 and float(w.sum()) == 1.0,
@@ -770,6 +776,16 @@ VOTE_PREDICTED_MS = {
     ("scaled_masked_sign_vote", "int8"): (0.40, 0.48),
     ("scaled_masked_sign_vote", "float8_e4m3fn"): (0.40, 0.48),
 }
+
+# the launch-bound selection kernels (K3, K8-K10) and the empty kernel
+# are timed over as many launches; the predicted time_ms of the K3 / K10
+# sweep (select_sweep_checks), written before the redesigned kernels'
+# first run (PERF.md §6): the wrappers' host launch path, but K10's theta
+# picks at n = 64, which the card sets
+LAUNCH_REPS = 1000
+SELECT_PREDICTED_MS = {"host": (0.009, 0.016), "k10_n64_theta": (0.015,
+                                                                  0.035)}
+SELECT_SWEEP_HAZARDS = (None, "dup", "pair", "all_nan")
 
 # the Gram kernels beyond the main path's n = 8: the sweep's n, its (d,
 # leading stride, hazard) cases, and the width of the compute-bound probe
@@ -1318,7 +1334,7 @@ def selection_kernel_checks(num_params):
             w = kernels.cge_select(gr, n - F)
             err = max_abs_err(w, cge_select_plain(gr, n - F))
             kw = timing(lambda: kernels.cge_select(gr, n - F),
-                        lambda: cge_select_plain(gr, n - F), 50, 5,
+                        lambda: cge_select_plain(gr, n - F), LAUNCH_REPS, 5,
                         8 * n, 2 * n * n) if timed else {}
             check("cge_select", err == 0.0 and sym
                   and float(w.sum()) == n - F, dtype=dname, n=n,
@@ -1332,7 +1348,8 @@ def selection_kernel_checks(num_params):
                 ok = err == 0.0 and sorted(o[o < n].tolist()) == list(
                     range(m))
                 kw = timing(lambda: kernels.multi_krum_order(gr, F, m),
-                            lambda: multi_krum_order_plain(gr, F, m), 50, 5,
+                            lambda: multi_krum_order_plain(gr, F, m),
+                            LAUNCH_REPS, 5,
                             4 * n * n + 4 * n, n * n * (n + 4)) if (
                     timed and m == 3) else {}
                 check("multi_krum_order", ok, dtype=dname, n=n, m=m,
@@ -1347,7 +1364,7 @@ def selection_kernel_checks(num_params):
                     range(k_total))
                 kw = timing(lambda: kernels.iterative_order(gr, F, k_total),
                             lambda: iterative_order_plain(gr, F, k_total),
-                            50, 5, 4 * n * n + 4 * n,
+                            LAUNCH_REPS, 5, 4 * n * n + 4 * n,
                             k_total * n * n * (n + 4)) if (
                     main and (n, k_total) in ((N, 3), (11, theta))) else {}
                 check("iterative_order", ok, dtype=dname, n=n,
@@ -1478,6 +1495,66 @@ def selection_hazard_checks():
                 check("selection_hazards", ok, hazard=hazard, n=n, f=f,
                       dtype=str(dtype).replace("torch.", ""), shape=[n, d],
                       max_abs_diff=errs)
+
+
+def select_predicted_ms(name, n, k_total=None):
+    if name == "iterative_order" and n == 64 and k_total > 3:
+        return SELECT_PREDICTED_MS["k10_n64_theta"]
+    return SELECT_PREDICTED_MS["host"]
+
+
+def select_sweep_checks():
+    """K3 and K10 at every n of GRAM_SWEEP_N on the card's Gram of a
+    seeded (n, 256) stack and of its hazards (every row equal; the pair
+    tie that K10's secondary breaks; a NaN Gram, every round all-inf), f =
+    max(2, (n - 3) // 4), K10 at k_total in {3, theta, n} (clamped to n):
+    each result bitwise equal to its plain version and to a repeat call.
+    The stack without a hazard is timed (time_ms, LAUNCH_REPS) beside its
+    predicted ms."""
+    from repro_torch import kernels
+    from repro_torch.kernels.compare import f_of, theta_of
+    from repro_torch.kernels.select import (iterative_order_plain,
+                                            krum_select_plain)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    worst = {"krum_select": 0.0, "iterative_order": 0.0}
+    for n in GRAM_SWEEP_N:
+        f, theta = f_of(n), theta_of(n)
+        base = torch.randn((n, 256), generator=gen, device=DEVICE)
+        for hazard in SELECT_SWEEP_HAZARDS:
+            x = base.clone()
+            if hazard == "dup":
+                x[:] = x[0].clone()
+            elif hazard == "pair" and n >= 3:
+                x[n - 2] = x[n - 1] + 1e-3
+                x[n - 1] = x[n - 1] + 0.5 * x[0]
+            gr = kernels.gram(x)
+            if hazard == "all_nan":
+                gr = torch.full_like(gr, math.nan)
+            cases = [("krum_select", None, lambda: kernels.krum_select(gr, f),
+                      lambda: krum_select_plain(gr, f))]
+            for k_total in sorted({min(3, n), theta, n}):
+                cases.append((
+                    "iterative_order", k_total,
+                    lambda k=k_total: kernels.iterative_order(gr, f, k),
+                    lambda k=k_total: iterative_order_plain(gr, f, k)))
+            errs, ok, timed = {}, True, {}
+            for name, k_total, call, plain in cases:
+                out, ref = call(), plain()
+                err = max_abs_err(out.float(), ref.float())
+                ok = ok and torch.equal(out, ref) and torch.equal(out, call())
+                label = name if k_total is None else f"{name}_{k_total}"
+                errs[label] = err
+                worst[name] = max(worst[name], err)
+                if hazard is None:
+                    timed[label] = {
+                        "ms": time_ms(call, LAUNCH_REPS),
+                        "predicted_ms": select_predicted_ms(name, n,
+                                                            k_total)}
+            torch.cuda.synchronize()
+            check("select_sweep", ok, n=n, f=f, theta=theta, hazard=hazard,
+                  max_abs_diff=errs, **({"timed": timed} if timed else {}))
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -4185,23 +4262,48 @@ def _clone(tree):
 # the launch floor, gradient coding and the rules without a kernel
 # (ROADMAP.md items 15 and 17)
 
-LAUNCH_BOUND = ("krum_select", "cge_select", "multi_krum_order",
-                "iterative_order")
-
-
 def launch_floor(summary):
-    """The device time of one launch of an empty kernel under
-    :func:`time_ms` (the same timer as every kernel row), and each
-    launch-bound kernel's share of max(its bytes' bound, that floor)."""
+    """The time of one launch of an empty kernel under :func:`time_ms`
+    (the same timer, reps and stream helper, ``build.stream_ptr``, as
+    every launch-bound row), each launch-bound kernel's share of max(its
+    bytes' bound, that floor), and the card's own time of each and of the
+    empty kernel (``torch.profiler``, ``compare.device_ms``) at the
+    main path's n: K3, K8, K9 and K10's 3 picks at n =
+    8, and K10's 7 picks at n = 11 (bulyan's), timed here too."""
+    from repro_torch import kernels
     from repro_torch.kernels import build
-    floor = time_ms(lambda: build.empty_launch(DEVICE), 1000)
+    from repro_torch.kernels.compare import device_ms, gram_of
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    gr, gr11 = gram_of(N, gen), gram_of(11, gen)
+    floor = time_ms(lambda: build.empty_launch(gr), LAUNCH_REPS)
+
+    def bulyan():
+        return kernels.iterative_order(gr11, F, 11 - 2 * F)
+
+    timed = {**summary, "iterative_order (n = 11, 7 picks)": {
+        "ms": time_ms(bulyan, LAUNCH_REPS),
+        "bound_ms": bound(4 * 11 * 11 + 4 * 11, 7 * 11 * 11 * 15)[0]}}
+    calls = {"krum_select": ("krum_select_kernel",
+                             lambda: kernels.krum_select(gr, F)),
+             "cge_select": ("cge_select_kernel",
+                            lambda: kernels.cge_select(gr, N - F)),
+             "multi_krum_order": ("multi_krum_order_kernel",
+                                  lambda: kernels.multi_krum_order(gr, F,
+                                                                   3)),
+             "iterative_order": ("iterative_order_kernel",
+                                 lambda: kernels.iterative_order(gr, F, 3)),
+             "iterative_order (n = 11, 7 picks)": ("iterative_order_kernel",
+                                                   bulyan)}
+    floor_dev, _ = device_ms("empty_kernel", lambda: build.empty_launch(gr))
     rows = {}
-    for name in LAUNCH_BOUND:
-        s = summary[name]
+    for name, (event, call) in calls.items():
+        s = timed[name]
         b = max(s["bound_ms"], floor)
-        rows[name] = dict(ms=s["ms"], bytes_bound_ms=s["bound_ms"],
+        rows[name] = dict(ms=s["ms"], device_ms=device_ms(event, call)[0],
+                          bytes_bound_ms=s["bound_ms"],
                           bound_with_floor_ms=b, share=b / s["ms"])
-    emit("launch_floor", floor_ms=floor, kernels=rows)
+    emit("launch_floor", floor_ms=floor, floor_device_ms=floor_dev,
+         reps=LAUNCH_REPS, kernels=rows)
     return floor
 
 
@@ -4621,6 +4723,8 @@ def main():
         for name, err in errs.items():
             note(summary, name, err)
     summary.update(selection_kernel_checks(num_params(cfg)))
+    for name, err in select_sweep_checks().items():
+        note(summary, name, err)
     floor_ms = launch_floor(summary)
     summary.update(masked_selection_kernel_checks(num_params(cfg)))
     for name, err in bulyan_sweep_checks().items():

@@ -172,11 +172,11 @@ def lib():
     return _LIB
 
 
-def empty_launch(device="cuda"):
-    """Launch the empty kernel (``csrc/empty.cu``) on ``device``'s current
-    stream: the floor of a launch, for timing."""
-    check(lib().rt_empty(torch.cuda.current_stream(device).cuda_stream),
-          "empty")
+def empty_launch(t):
+    """Launch the empty kernel (``csrc/empty.cu``) on the current stream of
+    CUDA tensor ``t``'s device, through :func:`stream_ptr` as every
+    wrapper does: the floor of a launch, for timing."""
+    check(lib().rt_empty(stream_ptr(t)), "empty")
 
 
 def check(rc: int, name: str):
@@ -198,4 +198,7 @@ def dtype_code(t, codes=FLOAT_CODES) -> int:
 
 
 def stream_ptr(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of CUDA tensor ``t``'s device
+    (``torch.cuda.current_stream(t.device).cuda_stream`` without building a
+    ``Stream`` object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -23,13 +23,24 @@ one library of their own, and this checkout's kernels come from
 * ``masked_sign_vote`` (K16): fp32 and bf16 at 6 of 8 arrived;
 * ``sign_sgd_aggregation``: sign_sgd's ``spec.aggregate_flat`` on a bf16
   arena (one K15), on int8 and fp8 codes (one K15) and on those codes
-  with 6 of 8 arrived (one K20), its kernels taken from either library.
+  with 6 of 8 arrived (one K20), its kernels taken from either library;
+* ``krum_select`` (K3) and ``iterative_order`` (K10): the port's Gram of a
+  seeded (n, 256) stack at every n of :data:`SWEEP_N` (chip_smoke.py's
+  Gram sweep, 1-64), f = max(2, (n - 3) // 4); K10 with min(3, n) picks
+  and with theta = n - 2f (Bulyan's) picks; ``cge_select`` (K8, keeping
+  n - f) and ``multi_krum_order`` (K9, m = 3) at n = 8, 11, 16, 33 and
+  64.  These four are launch-bound: pass ``--reps 1000``;
+* ``m_krum_aggregation``: m_krum's ``spec.aggregate_flat`` on a bf16 arena
+  at n = 8 (one K2, K10 and K11), its kernels taken from either library.
 
 The other library and this one run in turns (other, this, this, other;
 CUDA events over ``--reps`` launches after a warm-up), their outputs are
-compared (medians, K21 and the votes equal NaN to NaN, trimmed means
-within 3e-6), and one JSON line a case gives both times, the bytes' bound
-and the card.
+compared (medians, K21, the votes and the selections equal NaN to NaN,
+trimmed means within 3e-6), and one JSON line a case gives both times,
+the bytes' bound and the card.  For the launch-bound kernels the line
+also gives each library's device-only time: the mean duration of the
+kernel's own events in a ``torch.profiler`` trace of 200 calls
+(:func:`device_ms`).
 """
 from __future__ import annotations
 
@@ -58,6 +69,14 @@ ENTRIES = {
     "rt_sign_vote": [VP, I32, VP, I32, I64, I64, VP],
     "rt_scaled_masked_sign_vote": [VP, I32, VP, VP, VP, I32, I64, I64, VP],
     "rt_masked_sign_vote": [VP, I32, VP, VP, I32, I64, I64, VP],
+    "rt_krum_select": [VP, VP, I32, I32, VP],
+    "rt_iterative_order": [VP, VP, I32, I32, I32, VP],
+    "rt_cge_select": [VP, VP, I32, I32, VP],
+    "rt_multi_krum_order": [VP, VP, I32, I32, I32, VP],
+    "rt_gram": [VP, I32, VP, VP, I32, I64, I64, I32, VP],
+    "rt_gram_scratch_blocks": [I32, I32, I64, I32],
+    "rt_ordered_apply": [VP, VP, I32, VP, I32, I64, I64, I32,
+                         ctypes.c_float, VP],
 }
 
 
@@ -281,20 +300,97 @@ def sign_sgd_cases(gen):
     torch.cuda.empty_cache()
 
 
+# The launch-bound selection kernels: the n of chip_smoke.py's Gram sweep
+# for K3 and K10, the main path's and the wide rosters' for K8 and K9.
+SWEEP_N = tuple(range(1, 18)) + (24, 32, 33, 48, 64)
+NS = (8, 11, 16, 33, 64)
+
+
+def f_of(n: int) -> int:
+    return max(2, (n - 3) // 4)
+
+
+def theta_of(n: int) -> int:
+    """Bulyan's picks at n with f = f_of(n)."""
+    return max(n - 2 * f_of(n), 1)
+
+
+def gram_of(n: int, gen):
+    """The port's (bitwise symmetric) Gram of a seeded (n, 256) stack."""
+    from .pairwise import gram
+    return gram(torch.randn((n, 256), generator=gen, device=gen.device))
+
+
+# name -> (output dtype, its n, the C entry point's arguments after n, in
+# order, for each case at n)
+SELECTION = {
+    "krum_select": (torch.float32, SWEEP_N, lambda n: [{"f": f_of(n)}]),
+    "iterative_order": (torch.int32, SWEEP_N, lambda n: [
+        {"f": f_of(n), "k_total": k} for k in sorted({min(3, n),
+                                                       theta_of(n)})]),
+    "cge_select": (torch.float32, NS, lambda n: [{"n_keep": n - f_of(n)}]),
+    "multi_krum_order": (torch.int32, NS,
+                         lambda n: [{"f": f_of(n), "m": 3}]),
+}
+
+
+def selection_cases(gen, which):
+    dtype, ns, cases = SELECTION[which]
+    for n in ns:
+        gr = gram_of(n, gen)
+        g, s = gr.data_ptr(), build.stream_ptr(gr)
+        for kw in cases(n):
+            def call(L, n=n, g=g, s=s, args=tuple(kw.values())):
+                out = torch.empty((n,), dtype=dtype, device="cuda")
+                build.check(getattr(L, "rt_" + which)(
+                    g, out.data_ptr(), n, *args, s), which)
+                return out
+            yield {"n": n, **kw}, call, 4 * n * n + 4 * n, 0.0
+
+
+def m_krum_cases(gen):
+    """m_krum's ``spec.aggregate_flat`` on a bf16 arena at n = 8 (one K2,
+    one K10, one K11), as chip_smoke.py times each rule's aggregation."""
+    from ..core.aggregators import make_spec
+    spec = make_spec("m_krum", f=2, n=8)
+    x = _floats(gen, 8, torch.bfloat16)
+    yield ({"dtype": "bfloat16", "n": 8}, lambda L: aggregated(L, spec, x),
+           8 * P * 2 + 2 * P * 2 + 4 * P, 0.0)
+    del x
+    torch.cuda.empty_cache()
+
+
+def _select_row(name, units):
+    return (("rt_" + name,), units,
+            lambda gen: selection_cases(gen, name), name + "_kernel")
+
+
+# Each row: the entry points, the units that hold them, the cases, and the
+# kernel's name in a torch.profiler trace where its device-only time is
+# taken too (the launch-bound kernels), else None.
 KERNELS = {
     "coord_stat": (("rt_coord_stat",), ("coord_stat*.cu",
                                          "order_stat_*.cu"),
-                   coord_stat_cases),
+                   coord_stat_cases, None),
     "scaled_sparse_masked_weighted_mean": (
         ("rt_scaled_sparse_masked_weighted_mean",), ("sparse_wmean.cu",),
-        sparse_mean_cases),
-    "sign_vote": (("rt_sign_vote",), ("sign_vote.cu",), sign_vote_cases),
+        sparse_mean_cases, None),
+    "sign_vote": (("rt_sign_vote",), ("sign_vote.cu",), sign_vote_cases,
+                  None),
     "scaled_masked_sign_vote": (("rt_scaled_masked_sign_vote",),
-                                ("sign_vote.cu",), scaled_vote_cases),
+                                ("sign_vote.cu",), scaled_vote_cases, None),
     "masked_sign_vote": (("rt_masked_sign_vote",), ("sign_vote.cu",),
-                         masked_vote_cases),
+                         masked_vote_cases, None),
     "sign_sgd_aggregation": (("rt_sign_vote", "rt_scaled_masked_sign_vote"),
-                             ("sign_vote.cu",), sign_sgd_cases),
+                             ("sign_vote.cu",), sign_sgd_cases, None),
+    "krum_select": _select_row("krum_select", ("krum_select.cu",)),
+    "iterative_order": _select_row("iterative_order", ("order.cu",)),
+    "cge_select": _select_row("cge_select", ("cge_select.cu",)),
+    "multi_krum_order": _select_row("multi_krum_order", ("order.cu",)),
+    "m_krum_aggregation": (("rt_gram", "rt_gram_scratch_blocks",
+                            "rt_iterative_order", "rt_ordered_apply"),
+                           ("gram.cu", "order.cu", "ordered_apply.cu"),
+                           m_krum_cases, None),
 }
 
 
@@ -311,23 +407,46 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(name: str, call, reps: int = 200):
+    """Mean duration (ms) of the device events called ``name`` in a
+    ``torch.profiler`` trace of ``reps`` calls after a warm-up call, and
+    their count; ("not measured", 0) if the trace holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    durs = [(e.time_range.end - e.time_range.start) / 1e3
+            for e in prof.events()
+            if e.device_type == DeviceType.CUDA and name in e.name]
+    if not durs:
+        return "not measured", 0
+    return sum(durs) / len(durs), len(durs)
+
+
 def agree(a, b, tol):
+    a, b = a.float(), b.float()
     nan = torch.isnan(a)
     if not torch.equal(nan, torch.isnan(b)):
         return False
     return bool(torch.allclose(a[~nan], b[~nan], rtol=tol, atol=tol))
 
 
-def run_case(card, case, other, this, bytes_moved, tol, reps):
+def run_case(card, case, other, this, bytes_moved, tol, reps, event):
     ok = agree(other(), this(), tol)
     o1 = time_ms(other, reps)
     t1 = time_ms(this, reps)
     t2 = time_ms(this, reps)
     o2 = time_ms(other, reps)
-    print(json.dumps({**case, "agree": ok, "other_ms": [o1, o2],
-                      "this_ms": [t1, t2],
-                      "bound_ms": bytes_moved / MEM_BPS * 1e3,
-                      "card": card}), flush=True)
+    row = {**case, "agree": ok, "other_ms": [o1, o2], "this_ms": [t1, t2],
+           "bound_ms": bytes_moved / MEM_BPS * 1e3}
+    if event:
+        row.update(other_device_ms=device_ms(event, other)[0],
+                   this_device_ms=device_ms(event, this)[0])
+    print(json.dumps({**row, "card": card}), flush=True)
     return ok
 
 
@@ -349,18 +468,19 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     rows = [KERNELS[k] for k in args.kernels]
-    globs = args.units or [g for _, units, _ in rows for g in units]
+    globs = args.units or [g for _, units, _, _ in rows for g in units]
     other = other_lib(args.csrc.resolve(), sorted(set(globs)),
-                      sorted({e for entries, _, _ in rows for e in entries}),
+                      sorted({e for entries, *_ in rows for e in entries}),
                       build.build_root() / "other")
     this = build.lib()
     gen = torch.Generator(device="cuda").manual_seed(0)
     ok = True
     for name in args.kernels:
-        for case, call, bytes_moved, tol in KERNELS[name][2](gen):
+        _, _, cases, event = KERNELS[name]
+        for case, call, bytes_moved, tol in cases(gen):
             ok &= run_case(card, {"kernel": name, **case},
                            lambda: call(other), lambda: call(this),
-                           bytes_moved, tol, args.reps)
+                           bytes_moved, tol, args.reps, event)
     if not ok:
         raise SystemExit("compare: the two checkouts disagree")
 

@@ -6,30 +6,66 @@
 // summed, and an exact comparison rank with first-index ties, NaN last).
 //
 // Bound on this card: launch latency.  The input is n^2 fp32 (16 KB at
-// n = 64) and the work O(n^2) per row; nothing here is worth more than
-// the few microseconds a launch costs.
+// n = 64); the work, n^3 comparisons at most, is a few microseconds.
 //
-// Design: one block, one thread per candidate row; the Gram diagonal and
-// the distance rows live in shared memory; each thread sorts its own row,
-// sums the k smallest in ascending order, and ranks its score against
-// every other score (select.cuh, shared with K8-K10).
+// Design: one block of tile_threads(n) threads (select.cuh: a warp a
+// column).  All of them fill the distance tile and rank every pair in its
+// row; a pair of rank below k lands at that rank in `low`, so each row's
+// k smallest lie there in ascending order.  One thread a row sums
+// them from 0.f in that order; a score is +0 ... +inf (never NaN, never
+// -0), so its bits order as unsigned and the least score's first index is
+// a warp min and a ballot, then (n > 32) a combine of the two warps.
 #include "select.cuh"
 
-__global__ void krum_select_kernel(const float* __restrict__ gram,
-                                   float* __restrict__ out, int n, int k) {
-  __shared__ float sq[kSelectMaxN];
-  __shared__ float rows[kSelectMaxN][kSelectMaxN + 1];
-  __shared__ float scores[kSelectMaxN];
-  krum_scores_block(gram, sq, rows, scores, n, k);
-  const int i = threadIdx.x;
-  if (i < n) out[i] = rank_of(scores, n, i) == 0 ? 1.f : 0.f;
+__global__ void __launch_bounds__(kTileThreads)
+    krum_select_kernel(const float* __restrict__ gram,
+                       float* __restrict__ out, int n, int k) {
+  __shared__ float d2[kSelectMaxN][kSelectMaxN + 1];
+  __shared__ float low[kSelectMaxN][kSelectMaxN + 1];
+  __shared__ unsigned warp_min[2];
+  __shared__ int warp_first[2];
+  const int t = threadIdx.x;
+  if (n == 1) {                 // one candidate: Krum picks it, whatever
+    if (t == 0) out[0] = 1.f;   // its (+inf) score
+    return;
+  }
+  distance_tile(gram, d2, n);
+  rank_tile(d2, n, [&](int i, int, int r, float v) {
+    if (r < k) low[i][r] = v;
+  });
+  const int warps = (n + 31) >> 5;
+  if (t < 32 * warps) {
+    unsigned bits = 0xffffffffu;        // above +inf: never the least
+    if (t < n) {
+      float acc = 0.f;
+      for (int r = 0; r < k; ++r) acc += low[t][r];
+      bits = __float_as_uint(acc);
+    }
+    const unsigned m = __reduce_min_sync(0xffffffffu, bits);
+    const int first = (t & ~31) + __ffs(__ballot_sync(0xffffffffu,
+                                                      bits == m)) - 1;
+    if (warps == 1) {
+      if (t < n) out[t] = t == first ? 1.f : 0.f;
+    } else if ((t & 31) == 0) {
+      warp_min[t >> 5] = m;
+      warp_first[t >> 5] = first;
+    }
+  }
+  if (warps == 2) {                     // the same branch in every thread
+    __syncthreads();
+    if (t < n) {
+      const int pick = warp_min[1] < warp_min[0] ? warp_first[1]
+                                                 : warp_first[0];
+      out[t] = t == pick ? 1.f : 0.f;
+    }
+  }
 }
 
 RT_EXPORT int rt_krum_select(const float* gram, float* out, int n, int f,
                              void* stream) {
   if (n < 1 || n > kSelectMaxN || f < 0) return (int)cudaErrorInvalidValue;
   const int k = (n - f - 2) > 1 ? (n - f - 2) : 1;
-  krum_select_kernel<<<1, kSelectMaxN, 0, (cudaStream_t)stream>>>(gram, out,
-                                                                  n, k);
+  krum_select_kernel<<<1, tile_threads(n), 0, (cudaStream_t)stream>>>(
+      gram, out, n, k);
   return rt_status();
 }

@@ -6,26 +6,36 @@
 // Replaces repro/kernels/select.py:multi_krum_order and iterative_order
 // (the two Pallas TPU kernels of one call site: one grid step each).
 //
-// Bound on this card: launch latency.  The input is the (n, n) Gram; K10
-// does k_total rounds of n row sorts of n entries, a few microseconds.
+// Bound on this card: launch latency.  The input is the (n, n) Gram; the
+// work is at most n^3 comparisons once and k_total * n steps a thread.
 //
-// Design: one block, one thread per row, the distances in shared memory
-// (select.cuh, shared with K3 and K8).
-//  * K9 (multi-Krum): ONE score pass with the classic k = n - f - 2
-//    (clamped to [1, n - 1]); the m smallest scores get their rank, the
-//    rest n.
+// Design (select.cuh):
+//  * K9 (multi-Krum): one block, one thread a row; ONE score pass with the
+//    classic k = n - f - 2 (clamped to [1, n - 1]); the m smallest scores
+//    get their rank, the rest n.
 //  * K10 (m-Krum's m picks, Bulyan's theta picks): per round, each
-//    candidate's score is the sum of its k = remaining - f - 2 (clamped)
+//    candidate's key is the sum of its k = remaining - f - 2 (clamped)
 //    smallest distances to the other REMAINING candidates, in ascending
-//    order; its secondary is the sum of its raw distances to all other
-//    remaining candidates, in index order.  Thread 0 then picks: the
-//    least score among the candidates, exact ties by the least
-//    secondary, then the first index — every comparison restricted to
-//    the candidates, so a round in which every score is +inf (a
-//    NaN-poisoned adversary) still picks a genuine candidate, never a
-//    removed row.  With one neighbour left the closest pair shares one
-//    distance: both primaries are bitwise equal (a bitwise-symmetric
-//    Gram, select.cuh:gram_d2) and the secondary decides.
+//    order from 0.f; a tie on the least key is broken by the secondary
+//    (the raw distances to the other remaining candidates, summed in
+//    index order), then by the first index, every comparison restricted
+//    to the candidates, so a round in which every key is +inf (a
+//    NaN-poisoned adversary) still picks a genuine candidate.  With one
+//    neighbour left the closest pair shares one distance: both keys are
+//    bitwise equal (a bitwise-symmetric Gram, select.cuh:gram_d2) and the
+//    secondary decides.
+//    Every row is sorted ONCE: tile_threads(n) threads rank each pair in
+//    its row (select.cuh:rank_tile) and scatter the value to that rank,
+//    keeping each column's rank.  Self and, round by round, each removed row are struck from the
+//    sorted row (-1: no distance is negative) at that rank.  A round then
+//    costs a walk of the candidate's sorted row until k distances are
+//    summed (+inf if fewer than k others remain, as a +inf-padded sort
+//    gives), and a warp min of the keys' bits (+0 ... +inf, so they order
+//    as unsigned) with a ballot; only when more than one candidate ties
+//    do the tied threads sum their secondary and reduce on it.  Rows
+//    32-63 are the second warp: the two warps combine through shared
+//    memory and a named barrier of 64 threads, double-buffered by round
+//    parity.
 #include "select.cuh"
 
 __global__ void multi_krum_order_kernel(const float* __restrict__ gram,
@@ -42,61 +52,125 @@ __global__ void multi_krum_order_kernel(const float* __restrict__ gram,
   }
 }
 
-__global__ void iterative_order_kernel(const float* __restrict__ gram,
-                                       int* __restrict__ out, int n, int f,
-                                       int k_total) {
-  __shared__ float sq[kSelectMaxN];
-  __shared__ float d2[kSelectMaxN][kSelectMaxN + 1];    // raw, diagonal 0
-  __shared__ float rows[kSelectMaxN][kSelectMaxN + 1];  // sort scratch
-  __shared__ float key[kSelectMaxN];
-  __shared__ float sec[kSelectMaxN];
-  __shared__ int cand[kSelectMaxN];
-  __shared__ int pick_s;
-  const int i = threadIdx.x;
-  if (i < n) {
-    sq[i] = gram[i * n + i];
-    cand[i] = 1;
+// sorted rows: 16-byte aligned, room for the walk's prefetch of the four
+// positions past the last, and a stride of 12 banks (mod 32), so the
+// float4 reads of 8 consecutive rows fill the 32 banks once
+constexpr int kRow4 = kSelectMaxN + 12;
+
+// Both warps of K10's rounds (rows 0-63) meet here; the other warps have
+// left the kernel.
+__device__ __forceinline__ void pair_barrier() {
+  asm volatile("bar.sync 1, 64;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kTileThreads)
+    iterative_order_kernel(const float* __restrict__ gram,
+                           int* __restrict__ out, int n, int f,
+                           int k_total) {
+  __shared__ float d2[kSelectMaxN][kSelectMaxN + 1];      // index order
+  // row i ascending; -1 where the column is i itself or a removed row
+  __shared__ __align__(16) float sval[kSelectMaxN][kRow4];
+  __shared__ unsigned char pos[kSelectMaxN][kRow4];       // column -> rank
+  __shared__ unsigned red_min[2][2][2];   // [round parity][stage][warp]
+  __shared__ int red_first[2][2][2];
+  __shared__ int red_count[2][2];
+  const int t = threadIdx.x;
+  if (n == 1) {                 // one candidate: picked in round 0, if any
+    if (t == 0) out[0] = k_total > 0 ? 0 : 1;
+    return;
   }
-  __syncthreads();
-  if (i < n)
-    for (int j = 0; j < n; ++j)
-      d2[i][j] = (j == i) ? 0.f : gram_d2(gram, sq, n, i, j);
+  distance_tile(gram, d2, n);
+  rank_tile(d2, n, [&](int i, int j, int r, float v) {
+    sval[i][r] = v;
+    pos[i][j] = (unsigned char)r;
+  });
+  const int warps = (n + 31) >> 5;
+  if (t >= 32 * warps) return;
+  const int n4 = (n + 3) & ~3;
+  if (t < n) {                    // each thread alone reads its row now
+    sval[t][pos[t][t]] = -1.f;
+    for (int r = n; r < n4; ++r) sval[t][r] = -1.f;
+  }
+  const int lane = t & 31, w = t >> 5;
+  unsigned long long cand = n == 64 ? ~0ull : (1ull << n) - 1;
   int order = n;
-  __syncthreads();
   for (int it = 0; it < k_total; ++it) {
     int k = n - it - f - 2;
     k = k < 1 ? 1 : k;
     k = k > n - 1 ? n - 1 : k;
     k = k < 1 ? 1 : k;
-    if (i < n) {
-      float* row = rows[i];
+    const int par = it & 1;
+    unsigned key = 0xffffffffu;     // not a candidate: above +inf
+    if (t < n && ((cand >> t) & 1ull)) {
       float acc = 0.f;
-      for (int j = 0; j < n; ++j) {
-        const bool other = cand[j] && j != i;
-        row[j] = other ? d2[i][j] : INFINITY;
-        if (other) acc += d2[i][j];
+      int need = k;
+      float4 v4 = *reinterpret_cast<const float4*>(&sval[t][0]);
+      for (int r = 0; r < n4 && need > 0; r += 4) {
+        // the next four positions load while these four are summed (a
+        // read past n4 lands in the row's slack and is never used)
+        const float4 vn = *reinterpret_cast<const float4*>(&sval[t][r + 4]);
+        // position q is taken if it is a distance and fewer than need
+        // distances precede it in these four: the counts of the four are
+        // independent, so only the adds form a chain.  acc + 0.f == acc:
+        // a sum from +0.f of values >= +0 is never -0.
+        const int a0 = v4.x >= 0.f, a1 = v4.y >= 0.f, a2 = v4.z >= 0.f,
+                  a3 = v4.w >= 0.f;
+        const int c2 = a0 + a1, c3 = c2 + a2;
+        acc += (a0 && 0 < need) ? v4.x : 0.f;
+        acc += (a1 && a0 < need) ? v4.y : 0.f;
+        acc += (a2 && c2 < need) ? v4.z : 0.f;
+        acc += (a3 && c3 < need) ? v4.w : 0.f;
+        need -= c3 + a3;
+        need = need < 0 ? 0 : need;
+        v4 = vn;
       }
-      const float s = sum_smallest(row, n, k);
-      key[i] = cand[i] ? s : INFINITY;
-      sec[i] = (acc != acc) ? INFINITY : acc;
+      key = __float_as_uint(need > 0 ? INFINITY : acc);
     }
-    __syncthreads();
-    if (i == 0) {
-      float kmin = key[0];
-      for (int j = 1; j < n; ++j) kmin = fminf(kmin, key[j]);
-      float smin = INFINITY;
-      for (int j = 0; j < n; ++j)
-        if (cand[j] && key[j] == kmin) smin = fminf(smin, sec[j]);
-      int p = -1;
-      for (int j = 0; j < n && p < 0; ++j)
-        if (cand[j] && key[j] == kmin && sec[j] == smin) p = j;
-      pick_s = p;
-      if (p >= 0) cand[p] = 0;
+    unsigned m = __reduce_min_sync(0xffffffffu, key);
+    const unsigned tied = __ballot_sync(0xffffffffu, key == m);
+    int first = (w << 5) + __ffs(tied) - 1;
+    int count = __popc(tied);
+    if (warps == 2) {
+      if (lane == 0) {
+        red_min[par][0][w] = m;
+        red_first[par][0][w] = first;
+        red_count[par][w] = count;
+      }
+      pair_barrier();
+      const unsigned m0 = red_min[par][0][0], m1 = red_min[par][0][1];
+      m = m1 < m0 ? m1 : m0;
+      count = (m0 == m ? red_count[par][0] : 0)
+              + (m1 == m ? red_count[par][1] : 0);
+      first = m0 == m ? red_first[par][0][0] : red_first[par][0][1];
     }
-    __syncthreads();
-    if (i == pick_s) order = it;
+    int pick = first;
+    if (count > 1) {                // the same branch in both warps
+      unsigned sec = 0xffffffffu;
+      if (key == m) {
+        const unsigned long long others = cand & ~(1ull << t);
+        float acc = 0.f;
+        for (int j = 0; j < n; ++j)
+          if ((others >> j) & 1ull) acc += d2[t][j];
+        sec = __float_as_uint(acc);
+      }
+      const unsigned sm = __reduce_min_sync(0xffffffffu, sec);
+      pick = (w << 5) + __ffs(__ballot_sync(0xffffffffu, sec == sm)) - 1;
+      if (warps == 2) {
+        if (lane == 0) {
+          red_min[par][1][w] = sm;
+          red_first[par][1][w] = pick;
+        }
+        pair_barrier();
+        pick = red_min[par][1][1] < red_min[par][1][0]
+                   ? red_first[par][1][1]
+                   : red_first[par][1][0];
+      }
+    }
+    if (t == pick) order = it;
+    if (t < n) sval[t][pos[t][pick]] = -1.f;
+    cand &= ~(1ull << pick);
   }
-  if (i < n) out[i] = order;
+  if (t < n) out[t] = order;
 }
 
 RT_EXPORT int rt_multi_krum_order(const float* gram, int* out, int n, int f,
@@ -115,7 +189,7 @@ RT_EXPORT int rt_iterative_order(const float* gram, int* out, int n, int f,
                                  int k_total, void* stream) {
   if (n < 1 || n > kSelectMaxN || f < 0 || k_total < 0 || k_total > n)
     return (int)cudaErrorInvalidValue;
-  iterative_order_kernel<<<1, kSelectMaxN, 0, (cudaStream_t)stream>>>(
+  iterative_order_kernel<<<1, tile_threads(n), 0, (cudaStream_t)stream>>>(
       gram, out, n, f, k_total);
   return rt_status();
 }

@@ -33,6 +33,7 @@ PTXAS_ENTRY = re.compile(r"(?:Compiling entry function|Function properties "
                          r"for) '?([^' ]+)'?")
 PTXAS_REGS = re.compile(r"Used (\d+) registers")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
 
 
 def tool(name: str) -> str:
@@ -54,7 +55,8 @@ def demangle(names):
 
 
 def ptxas_figures(log: str) -> dict:
-    """Mangled name -> {"registers", "spill_stores", "spill_loads"}."""
+    """Mangled name -> {"registers", "smem_bytes", "spill_stores",
+    "spill_loads"}."""
     figs, cur = {}, None
     for line in log.splitlines():
         m = PTXAS_ENTRY.search(line)
@@ -64,6 +66,9 @@ def ptxas_figures(log: str) -> dict:
             m = PTXAS_REGS.search(line)
             if m:
                 cur["registers"] = int(m.group(1))
+            m = PTXAS_SMEM.search(line)
+            if m:
+                cur["smem_bytes"] = int(m.group(1))
             m = PTXAS_SPILL.search(line)
             if m:
                 cur["spill_stores"] = int(m.group(1))

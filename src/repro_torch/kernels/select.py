@@ -15,9 +15,11 @@
   masked_bulyan_coord.cu``): the same stage over the mean-imputed stack,
   an absent row read as the (d,) imputed mean.
 
-K3, K8, K9 and K10 run one block, one thread per candidate, and share
-``csrc/select.cuh`` (distances, row sums, rank).  Each wrapper launches
-its kernel for a CUDA tensor and runs its plain version for a CPU tensor;
+K3, K8, K9 and K10 run one block each and share ``csrc/select.cuh``
+(distances, row sums, rank): K8 and K9 one thread a row; K3 and K10 a
+warp a column of the distance tile, ranking every pair in its row, so
+each row is sorted once (K10's rounds then walk the sorted rows).  Each
+wrapper launches its kernel for a CUDA tensor and runs its plain version for a CPU tensor;
 ``<wrapper>.launches`` counts kernel launches.  The plain versions order,
 sum and divide as the kernels do, so the two agree exactly.
 """
@@ -183,25 +185,30 @@ def masked_bulyan_coord_plain(g, mask, mean, sel, theta: int, f: int):
 
 
 def _check_gram(name, gr):
-    if gr.dim() != 2 or gr.shape[0] != gr.shape[1]:
-        raise ValueError(f"{name}: need an (n, n) Gram, got "
-                         f"{tuple(gr.shape)}")
-    if not 1 <= gr.shape[0] <= MAX_N:
-        raise ValueError(f"{name}: n={gr.shape[0]} outside [1, {MAX_N}]")
-    if gr.device.type not in ("cpu", "cuda"):
+    """Raise on anything but an (n, n) Gram with n in [1, MAX_N] on the CPU,
+    or contiguous float32 on the card; -> (n, True on the card).  Each
+    attribute is read once: these wrappers are launch-bound."""
+    shape, kind = gr.shape, gr.device.type
+    if len(shape) != 2 or shape[0] != shape[1]:
+        raise ValueError(f"{name}: need an (n, n) Gram, got {tuple(shape)}")
+    n = shape[0]
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"{name}: n={n} outside [1, {MAX_N}]")
+    if kind == "cuda":
+        if gr.dtype != torch.float32 or not gr.is_contiguous():
+            raise ValueError(f"{name}: Gram must be contiguous float32")
+        return n, True
+    if kind != "cpu":
         raise ValueError(f"{name}: unsupported device {gr.device}")
-    if gr.device.type == "cuda" and (gr.dtype != torch.float32
-                                     or not gr.is_contiguous()):
-        raise ValueError(f"{name}: Gram must be contiguous float32")
+    return n, False
 
 
 def krum_select(gr, f: int):
     """gr: (n, n) fp32 Gram -> (n,) one-hot fp32 Krum selection."""
-    _check_gram("krum_select", gr)
-    n = gr.shape[0]
+    n, cuda = _check_gram("krum_select", gr)
     if f < 0:
         raise ValueError(f"krum_select: f={f} < 0")
-    if gr.device.type == "cpu":
+    if not cuda:
         return krum_select_plain(gr, f)
     out = torch.empty((n,), dtype=torch.float32, device=gr.device)
     rc = build.lib().rt_krum_select(gr.data_ptr(), out.data_ptr(), n, int(f),
@@ -214,11 +221,10 @@ def krum_select(gr, f: int):
 def cge_select(gr, n_keep: int):
     """gr: (n, n) fp32 Gram -> (n,) {0,1} fp32 keep-mask of the n_keep
     smallest-norm rows (unnormalized: the caller divides after the sum)."""
-    _check_gram("cge_select", gr)
-    n = gr.shape[0]
+    n, cuda = _check_gram("cge_select", gr)
     if not 0 <= n_keep <= n:
         raise ValueError(f"cge_select: n_keep={n_keep} outside [0, {n}]")
-    if gr.device.type == "cpu":
+    if not cuda:
         return cge_select_plain(gr, n_keep)
     out = torch.empty((n,), dtype=torch.float32, device=gr.device)
     rc = build.lib().rt_cge_select(gr.data_ptr(), out.data_ptr(), n,
@@ -231,12 +237,11 @@ def cge_select(gr, n_keep: int):
 def multi_krum_order(gr, f: int, m: int):
     """gr: (n, n) fp32 Gram -> (n,) int32 order of the m smallest-score
     rows (sentinel n = not picked)."""
-    _check_gram("multi_krum_order", gr)
-    n = gr.shape[0]
+    n, cuda = _check_gram("multi_krum_order", gr)
     if f < 0 or not 0 <= m <= n:
         raise ValueError(f"multi_krum_order: f={f}, m={m} outside f >= 0, "
                          f"m in [0, {n}]")
-    if gr.device.type == "cpu":
+    if not cuda:
         return multi_krum_order_plain(gr, f, m)
     out = torch.empty((n,), dtype=torch.int32, device=gr.device)
     rc = build.lib().rt_multi_krum_order(gr.data_ptr(), out.data_ptr(), n,
@@ -249,12 +254,11 @@ def multi_krum_order(gr, f: int, m: int):
 def iterative_order(gr, f: int, k_total: int):
     """gr: (n, n) fp32 Gram -> (n,) int32 pick order of ``k_total``
     shrinking-k iterative Krum selections (m-Krum, Bulyan stage 1)."""
-    _check_gram("iterative_order", gr)
-    n = gr.shape[0]
+    n, cuda = _check_gram("iterative_order", gr)
     if f < 0 or not 0 <= k_total <= n:
         raise ValueError(f"iterative_order: f={f}, k_total={k_total} "
                          f"outside f >= 0, k_total in [0, {n}]")
-    if gr.device.type == "cpu":
+    if not cuda:
         return iterative_order_plain(gr, f, k_total)
     out = torch.empty((n,), dtype=torch.int32, device=gr.device)
     rc = build.lib().rt_iterative_order(gr.data_ptr(), out.data_ptr(), n,

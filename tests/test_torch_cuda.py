@@ -352,30 +352,61 @@ def offset_view(t):
     return wide[..., 1:]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("hazard", HAZARDS + ["dup"])
-@pytest.mark.parametrize("n", [3, 4, 8, 11, 16, 33])
-def test_cuda_selection_kernels_match_plain(cuda_device, n, hazard):
-    """K8, K9, K10 on the card's own Gram, which must be bitwise
-    symmetric (K10's pair tie relies on it)."""
-    f = 1 if n < 8 else 2
-    g = stack(max(n, 8), 4099, 5, None if hazard == "dup" else hazard,
-              cuda_device, torch.float32)[:n].contiguous()
+def selection_gram(n, hazard, device):
+    """The card's Gram of a small stack with ``hazard``: the rows of
+    ``stack``'s, ``dup`` (every row equal), ``pair`` (the pair tie that
+    K10's secondary breaks, built as tests/test_torch_select.py builds
+    it), or ``all_nan`` (a NaN Gram: every distance +inf, every round of
+    K10 all-inf)."""
+    g = stack(max(n, 8), 4099, 5, hazard if hazard in HAZARDS else None,
+              device, torch.float32)[:n].contiguous()
     if hazard == "dup":
         g[:] = g[0].clone()
+    elif hazard == "pair" and n >= 3:
+        g[n - 2] = g[n - 1] + 1e-3
+        g[n - 1] = g[n - 1] + 0.5 * g[0]
     gr = kernels.gram(g)
+    return torch.full_like(gr, math.nan) if hazard == "all_nan" else gr
+
+
+def same_twice(call, plain):
+    """The kernel's result bitwise equal to its plain version and to a
+    repeat call."""
+    out = call()
+    assert_same(out, plain)
+    assert torch.equal(out, call())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hazard",
+                         HAZARDS + ["dup", "pair", "all_nan"])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 11, 16, 17, 32, 33, 48, 64])
+def test_cuda_selection_kernels_match_plain(cuda_device, n, hazard):
+    """K3, K8, K9, K10 on the card's own Gram, which must be bitwise
+    symmetric (K10's pair tie relies on it).  f in {0, 1, 2, (n - 3) //
+    4}; K8 keeping n - f and 1, K9 at m in {1, 2, 3}, K10 at k_total in
+    {1, 2, 3, theta, n}: k_total = n runs rounds with fewer than k other
+    candidates left (+inf keys)."""
+    gr = selection_gram(n, hazard, cuda_device)
     assert_same(gr, gr.T)
-    for n_keep in (n - f, 1):
-        assert_same(kernels.cge_select(gr, n_keep),
-                    cge_select_plain(gr, n_keep))
-    for m in (1, 2, 3):
-        assert_same(kernels.multi_krum_order(gr, f, m),
-                    multi_krum_order_plain(gr, f, m))
-    for k_total in sorted({2, 3, max(n - 2 * f, 1), n}):
-        order = kernels.iterative_order(gr, f, k_total)
-        assert_same(order, iterative_order_plain(gr, f, k_total))
-        picked = sorted(order[order < n].tolist())
-        assert picked == list(range(k_total))
+    for f in sorted({0, 1, 2, max((n - 3) // 4, 0)}):
+        w = same_twice(lambda: kernels.krum_select(gr, f),
+                       krum_select_plain(gr, f))
+        assert float(w.sum()) == 1.0
+        for n_keep in sorted({max(n - f, 0), 1}):
+            same_twice(lambda: kernels.cge_select(gr, n_keep),
+                       cge_select_plain(gr, n_keep))
+        for m in sorted({1, min(2, n), min(3, n)}):
+            same_twice(lambda: kernels.multi_krum_order(gr, f, m),
+                       multi_krum_order_plain(gr, f, m))
+        theta = max(n - 2 * f, 1)
+        for k_total in sorted({min(k, n) for k in (1, 2, 3, theta, n)}):
+            order = same_twice(
+                lambda: kernels.iterative_order(gr, f, k_total),
+                iterative_order_plain(gr, f, k_total))
+            picked = sorted(order[order < n].tolist())
+            assert picked == list(range(k_total))
     torch.cuda.synchronize()
 
 
@@ -442,6 +473,12 @@ def test_cuda_selection_wrappers_raise_on_bad_input(cuda_device):
     order = torch.zeros(8, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         kernels.cge_select(gr.double(), 6)
+    with pytest.raises(ValueError):
+        kernels.krum_select(gr.double(), 2)
+    with pytest.raises(ValueError):
+        kernels.krum_select(gr.T, 2)                  # not contiguous
+    with pytest.raises(ValueError):
+        kernels.krum_select(gr[:, :7], 2)             # not square
     with pytest.raises(ValueError):
         kernels.iterative_order(gr.T, 2, 4)           # not contiguous
     with pytest.raises(ValueError):

@@ -172,6 +172,24 @@ def test_krum_select_plain_matches_jax(n, hazard):
     assert ours.sum() == 1.0
 
 
+def exact_gram(g):
+    """The fp32 rounding of the exact (fp64) Gram of a finite stack:
+    bitwise symmetric, and no interpret-mode call."""
+    g64 = g.astype(np.float64)
+    return (g64 @ g64.T).astype(np.float32)
+
+
+@pytest.mark.parametrize("hazard", [None, "ties"])
+def test_krum_select_plain_matches_jax_at_n33(hazard):
+    """n = 33: past one warp of rows, where the card's kernel combines two
+    warps' minima.  The same exact one-hot as JAX's on the same Gram."""
+    gr = exact_gram(stack(33, 64, seed=33, hazard=hazard))
+    ref = np.asarray(jax_krum_select(jnp.asarray(gr), F, interpret=True))
+    ours = kernels.krum_select(torch.from_numpy(gr), F).numpy()
+    np.testing.assert_array_equal(ours, ref)
+    assert ours.sum() == 1.0
+
+
 def test_krum_select_all_tied_picks_the_first_row():
     gr = torch.ones(6, 6)
     np.testing.assert_array_equal(krum_select_plain(gr, 1).numpy(),

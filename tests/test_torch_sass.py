@@ -55,5 +55,5 @@ def test_loops_nest_and_skip_the_exit_trap():
 def test_ptxas_figures_by_function():
     figs = sass.ptxas_figures(PTXAS)
     assert figs["_Z1kv"] == {"spill_stores": 4, "spill_loads": 8,
-                             "registers": 64}
+                             "registers": 64, "smem_bytes": 1288}
     assert figs["_Z2exv"] == {"spill_stores": 0, "spill_loads": 0}

@@ -94,6 +94,20 @@ def test_selection_kernels_plain_match_jax(n, hazard):
         assert sorted(ours[ours < n]) == list(range(k_total))
 
 
+@pytest.mark.parametrize("hazard", [None, "ties"])
+def test_iterative_order_plain_matches_jax_at_n33(hazard):
+    """n = 33, m_krum's 3 picks: past one warp of rows, where the card's
+    kernel combines two warps' keys each round.  The Gram is the fp32
+    rounding of the exact one (bitwise symmetric), fed to both sides."""
+    g = stack(33, 64, seed=33, hazard=hazard).astype(np.float64)
+    gr = (g @ g.T).astype(np.float32)
+    ref = np.asarray(jax_iterative_order(jnp.asarray(gr), F, 3,
+                                         interpret=True))
+    ours = kernels.iterative_order(torch.from_numpy(gr), F, 3).numpy()
+    np.testing.assert_array_equal(ours, ref)
+    assert sorted(ours[ours < 33]) == [0, 1, 2]
+
+
 def test_iterative_order_breaks_the_pair_tie_by_the_secondary():
     """With one neighbour left the closest pair share one distance, so
     their primary scores are bitwise equal; the full-degree secondary
