@@ -76,7 +76,7 @@ The selection family (ROADMAP.md slice 3) adds:
 3c. selection train — the phase-3 configuration for cge, multi_krum (m
                = 3), m_krum (m = 3) and mda at n = 8 and bulyan at n = 11
                (f = 2): 1 warm-up step, then 2 timed steps per rule; the
-               launch counts must show K2, K8, K4 (cge), K2, K9, K11
+               launch counts must show K2 and CGE's apply (cge), K2, K9, K11
                (multi_krum), K2, K10, K11 (m_krum), K2, K11 (mda) and K2,
                K10, K13 (bulyan) once per step; a traced step of cge,
                multi_krum and bulyan (m_krum and mda launch no kernel
@@ -105,10 +105,10 @@ The masked selection family and sign_sgd (ROADMAP.md slice 3b) add:
                sign_sgd at n = 8 under the phase-3b stragglers, bulyan at
                n = 11 with quorum 9 (9 of 11 arrive, no step pure): 1
                warm-up step, then 2 timed steps per rule; the launch
-               counts must show K4 (the imputed mean) and K6, then cge K8
-               K7, multi_krum K9 K12, m_krum K10 K12, mda K12, bulyan K10
-               K14, and sign_sgd K16, once a step; a traced async step for
-               multi_krum and bulyan;
+               counts must show K4 (the imputed mean) and K6, then cge
+               its masked apply, multi_krum K9 K12, m_krum K10 K12, mda
+               K12, bulyan K10 K14, and sign_sgd K16, once a step; a
+               traced async step for multi_krum and bulyan;
 4.  sign_sgd kernel vs gather, exact;
 4d. masked selection kernel vs gather — one full-width async step per
                rule of phase 3d with impl="kernel" against impl="gather"
@@ -358,6 +358,33 @@ coding (ROADMAP.md items 15 and 17) add:
                coded run at 2 layers under the phase-3b churn (buckets 4,
                6, 8; bucket 6's table ragged), one K2 and one K7 a step.
 
+K9 redesigned onto K3's tile and K8 folded into CGE's apply (K4's and
+K7's kernels under their CGE flag: CGE launches K2 and the apply, K4
+(mean) K6 and the masked apply when masked) add:
+
+2c. CGE's apply, sync and masked, at full width (n = 8 and 11, bf16 and
+               fp32; masked 6 of 8 and 9 of 11 arrived, the ghosts kept),
+               normalized and not, bitwise equal to its plain version, to
+               the chain it replaces recomposed from K8 -> K4 (K7) -> a
+               division by a device tensor, and to a repeat; timed against
+               w @ x and the bound.  A cge_aggregation line per path
+               (sync bf16, masked fp32 6 of 8): CGE's aggregation and the
+               apply alone beside the parent's chain (K8 -> K4 (K7) -> ``/
+               (n - f)``, composed from the same kernels), timed in turns,
+               with the card's busy time of each in a trace and the
+               elements where the two differ (the parent divided by a
+               reciprocal multiply, at most 1 ulp away).  One drive of the
+               standalone K8 entry point (``kernels.cge_select``, which no
+               training path launches now), its launch counted from 0
+               and printed on its own line: K8's ``launches`` in the
+               kernels line are the main path's, 0.
+               The selection sweep adds K9 at m in {1, 3, n - f}, K8
+               keeping n - f and 1, and the sync and masked applies in
+               bf16 and fp32, normalized and not, at every n of the sweep
+               and its hazards, each bitwise equal to its plain version
+               and a repeat; K9 and the applies timed beside their
+               predicted ms.
+
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
 not available.
@@ -446,12 +473,17 @@ SOURCES = {
                    "src/repro/kernels/coord_stats.py:53"),
     "clipped_weighted_sum": ("src/repro_torch/kernels/csrc/clipped_wsum.cu",
                              "src/repro/kernels/wsum.py:138"),
+    # CGE's apply: K4's / K7's kernel under its CGE flag, K8 folded in
+    "cge_weighted_sum": ("src/repro_torch/kernels/csrc/wsum.cu",
+                         "src/repro/kernels/wsum.py:45"),
+    "masked_cge_weighted_sum": ("src/repro_torch/kernels/csrc/masked_wsum.cu",
+                                "src/repro/kernels/wsum.py:87"),
 }
 SYNC_KERNELS = ("coord_stat", "gram", "krum_select", "weighted_sum",
                 "sign_vote")
 # the selection family: rule -> (n, hyper, the kernels of one step)
 SEL_RULES = {
-    "cge": (N, {}, ("gram", "cge_select", "weighted_sum")),
+    "cge": (N, {}, ("gram", "cge_weighted_sum")),
     "multi_krum": (N, {"m": 3}, ("gram", "multi_krum_order",
                                  "ordered_apply")),
     "m_krum": (N, {"m": 3}, ("gram", "iterative_order", "ordered_apply")),
@@ -464,7 +496,7 @@ SIGN_RULES = {"sign_sgd": (N, {}, ("sign_vote",))}
 # kernels of one masked step)
 IMPUTED = ("weighted_sum", "masked_gram")
 ASYNC_SEL_RULES = {
-    "cge": (N, 6, {}, IMPUTED + ("cge_select", "masked_weighted_sum")),
+    "cge": (N, 6, {}, IMPUTED + ("masked_cge_weighted_sum",)),
     "multi_krum": (N, 6, {"m": 3}, IMPUTED + ("multi_krum_order",
                                               "masked_ordered_apply")),
     "m_krum": (N, 6, {"m": 3}, IMPUTED + ("iterative_order",
@@ -778,14 +810,23 @@ VOTE_PREDICTED_MS = {
 }
 
 # the launch-bound selection kernels (K3, K8-K10) and the empty kernel
-# are timed over as many launches; the predicted time_ms of the K3 / K10
-# sweep (select_sweep_checks), written before the redesigned kernels'
-# first run (PERF.md §6): the wrappers' host launch path, but K10's theta
-# picks at n = 64, which the card sets
+# are timed over as many launches; the predicted time_ms of the selection
+# sweep (select_sweep_checks), each written before its kernel's first run
+# (PERF.md §6): K3 / K10 the wrappers' host launch path, but K10's theta
+# picks at n = 64, which the card sets; K9 on K3's tile and CGE's applies
+# at d = 256 the host's path too, the applies' a few checks longer
 LAUNCH_REPS = 1000
 SELECT_PREDICTED_MS = {"host": (0.009, 0.016), "k10_n64_theta": (0.015,
-                                                                  0.035)}
+                                                                  0.035),
+                       "multi_krum_order": (0.010, 0.018),
+                       "cge_apply": (0.012, 0.024)}
 SELECT_SWEEP_HAZARDS = (None, "dup", "pair", "all_nan")
+# CGE's aggregation at n = 8 (cge_aggregation), predicted before the
+# fused apply's first run (PERF.md §6): the new chain's ms (sync bf16) and
+# what it saves against the parent's chain (the (d,) divide pass and K8)
+CGE_PREDICTED_MS = {("sync", "bfloat16"): {"new": (1.70, 1.80),
+                                           "saving": (0.28, 0.36)},
+                    ("masked", "float32"): {"saving": (0.28, 0.36)}}
 
 # the Gram kernels beyond the main path's n = 8: the sweep's n, its (d,
 # leading stride, hazard) cases, and the width of the compute-bound probe
@@ -1300,12 +1341,165 @@ def masked_hazard_checks():
 # phase 2c
 
 
+def cge_calls(x, gr, n_keep, mask=None, mean=None):
+    """CGE's apply (masked with ``mask`` / ``mean``) on the Gram ``gr`` as
+    (apply(div), its plain version(div), the chain it replaces: K8 -> K4
+    (K7) -> a division by a device tensor, as ``chain(div)``)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.compare import parent_cge_apply
+    from repro_torch.kernels.wsum import (_divide, cge_weighted_sum_plain,
+                                          masked_cge_weighted_sum_plain)
+
+    def chain(div):
+        return _divide(parent_cge_apply(gr, x, n_keep, mask, mean), div)
+    if mask is None:
+        return (lambda div: kernels.cge_weighted_sum(gr, x, n_keep, div=div),
+                lambda div: cge_weighted_sum_plain(gr, x, n_keep, div),
+                chain)
+    return (lambda div: kernels.masked_cge_weighted_sum(gr, x, mask, mean,
+                                                        n_keep, div=div),
+            lambda div: masked_cge_weighted_sum_plain(gr, x, mask, mean,
+                                                      n_keep, div),
+            chain)
+
+
+def cge_apply_case(x, gr, dname, timed, mask=None, mean=None):
+    """CGE's apply at full width (n - f kept), normalized and not: bitwise
+    equal to its plain version, to the chain it replaces and to a repeat;
+    when ``timed`` also its time with the plain version's, ``w @ x`` (w =
+    1 / (n - f) on the kept live rows: with a kept ghost a partial
+    yardstick, the mean term left out) and the bound.  Returns (error, the
+    timing)."""
+    from repro_torch import kernels
+    n, P = x.shape
+    name = "cge_weighted_sum" if mask is None else "masked_cge_weighted_sum"
+    apply, plain, chain = cge_calls(x, gr, n - F, mask, mean)
+    err, ok = 0.0, True
+    for div in (n - F, None):
+        out, pl, ref = apply(div), plain(div), chain(div)
+        err = max(err, max_abs_err(out, pl), max_abs_err(out, ref))
+        ok = (ok and same_bits_nan(out, pl) and same_bits_nan(out, ref)
+              and same_bits_nan(out, apply(div)))
+        del out, pl, ref
+    kept = kernels.cge_select(gr, n - F) > 0.5
+    live = kept if mask is None else kept & (mask > 0.5)
+    ghosts = int((kept & ~live).sum())
+    kw = timing(lambda: apply(n - F), lambda: plain(n - F), 10, 2,
+                (int(live.sum()) + int(ghosts > 0)) * P * x.element_size()
+                + 4 * P + 8 * n, (2 * (n - F) + 1) * P,
+                lambda: (live.to(x.dtype) / (n - F)) @ x,
+                "w @ x, w = 1/(n - f) on the kept live rows"
+                + (", a partial yardstick" if ghosts else "")) if timed else {}
+    check(name, ok, dtype=dname, n=n, n_keep=n - F, ghosts_kept=ghosts,
+          shape=[n, P], max_abs_diff=err, **kw)
+    return err, kw
+
+
+def cge_aggregation(x, dname, mask=None, wn=None, arrived=None):
+    """CGE's aggregation (sync, or masked with ``mask`` / ``wn``) against
+    the parent's chain composed from the same kernels: the Gram (K4 ->
+    K6 when masked), K8, K4 (K7), then ``/ (n - f)`` by a Python scalar
+    (the reciprocal multiply torch takes on the card); and the apply alone
+    against K8 -> K4 (K7) -> that divide on one Gram.  Timed in turns
+    (parent, new, new, parent; CUDA events over 10 calls) and by the
+    card's busy time a call in a trace (``compare.device_ms``), beside
+    the predicted ms.  The two results may differ by the division's
+    rounding only: at most 1 ulp."""
+    from repro_torch import kernels
+    from repro_torch.kernels.compare import (device_ms, parent_cge,
+                                             parent_cge_apply)
+    n, P = x.shape
+    k = n - F
+    if mask is None:
+        mean = None
+        gr = kernels.gram(x)
+
+        def new():
+            return kernels.kernel_cge(x, F)
+
+        def new_stage():
+            return kernels.cge_weighted_sum(gr, x, k, div=k)
+    else:
+        mean = kernels.imputed_mean(x, wn)
+        gr = kernels.masked_gram(x, mask, wn, mean)
+
+        def new():
+            return kernels.kernel_cge_masked(x, mask, wn, F)
+
+        def new_stage():
+            return kernels.masked_cge_weighted_sum(gr, x, mask, mean, k,
+                                                   div=k)
+
+    def parent():
+        return parent_cge(x, F, mask, wn)
+
+    def parent_stage():
+        return parent_cge_apply(gr, x, k, mask, mean, div=k)
+    a, b = new(), parent()
+    both = torch.isfinite(a) & torch.isfinite(b)
+    ulps = int((a[both].view(torch.int32).long()
+                - b[both].view(torch.int32).long()).abs().max())
+    differ = int((a != b).sum())
+    err = max_abs_err(a, b)
+    same = same_bits_nan(new_stage(), a)
+    del a, b, both
+    ms = {}
+    for label, fn in (("parent", parent), ("new", new),
+                      ("parent_stage", parent_stage),
+                      ("new_stage", new_stage)):
+        ms[label] = time_ms(fn, 10)
+    for label, fn in (("new", new), ("parent", parent),
+                      ("new_stage", new_stage),
+                      ("parent_stage", parent_stage)):
+        ms[label] = [ms[label], time_ms(fn, 10)]
+    dev = {label: device_ms(None, fn, 20)[0] for label, fn in (
+        ("parent", parent), ("new", new), ("parent_stage", parent_stage),
+        ("new_stage", new_stage))}
+    path = "sync" if mask is None else "masked"
+    ok = ulps <= 1 and same
+    emit("cge_aggregation", ok=ok, path=path, dtype=dname, n=n,
+         arrived=arrived, ms=ms, device_busy_ms=dev,
+         predicted_ms=CGE_PREDICTED_MS.get((path, dname)),
+         parent_elements_differing=differ, parent_share_differing=differ / P,
+         parent_max_ulps=ulps, parent_max_abs_diff=err)
+    if not ok:
+        fail(f"cge aggregation ({path}): {ulps} ulps from the parent's "
+             f"chain, the apply alone equal to the aggregation: {same}")
+
+
+def cge_select_drive(num_params):
+    """One call of the standalone K8 entry point (``kernels.cge_select``,
+    the counterpart of the TPU kernel; CGE's aggregation runs its law
+    inside the apply) on the Gram of a full-width bf16 stack, its launches
+    counted from 0 as a user's call would launch it.  The counts stay
+    out of the ``kernels`` line, whose launches are the main path's: no
+    training path launches K8 now."""
+    from repro_torch import kernels
+    from repro_torch.kernels.select import cge_select_plain
+    gen = torch.Generator(device=DEVICE).manual_seed(25)
+    x = (torch.randn((N, num_params), generator=gen, device=DEVICE)
+         * 1e-3).to(torch.bfloat16)
+    gr = kernels.gram(x)
+    del x
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    keep = kernels.cge_select(gr, N - F)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {k: int(k == "cge_select") for k in counts}
+    ok = counts == want and same_bits(keep, cge_select_plain(gr, N - F))
+    emit("cge_select_entry", ok=ok, n=N, n_keep=N - F, launches=counts)
+    if not ok:
+        fail(f"cge_select entry: launches {counts} (expected {want})")
+    torch.cuda.empty_cache()
+
+
 def selection_kernel_checks(num_params):
-    """K8-K11 and K13 against their plain versions at the main path's
-    shapes (see the module docstring), then the small-width hazards.  The
-    summary takes the bf16 arena's numbers (the sync arena): K8 and K9 at
-    n = 8, K10 at n = 8 with m_krum's 3 picks, K11 with multi_krum's
-    order, K13 at n = 11."""
+    """K8-K11, K13 and CGE's apply against their plain versions at the
+    main path's shapes (see the module docstring), then the small-width
+    hazards.  The summary takes the bf16 arena's numbers (the sync arena):
+    K8, K9 and CGE's apply at n = 8, K10 at n = 8 with m_krum's 3 picks,
+    K11 with multi_krum's order, K13 at n = 11."""
     from repro_torch import kernels
     from repro_torch.kernels.ops import mda_order
     from repro_torch.kernels.select import (bulyan_beta, bulyan_coord_plain,
@@ -1317,7 +1511,7 @@ def selection_kernel_checks(num_params):
     P = num_params
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     names = ("cge_select", "multi_krum_order", "iterative_order",
-             "ordered_apply", "bulyan_coord")
+             "ordered_apply", "bulyan_coord", "cge_weighted_sum")
     summary = {k: {"max_abs_err": 0.0} for k in names}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
@@ -1340,6 +1534,11 @@ def selection_kernel_checks(num_params):
                   and float(w.sum()) == n - F, dtype=dname, n=n,
                   n_keep=n - F, gram_symmetric=sym, max_abs_diff=err, **kw)
             note(summary, "cge_select", err, kw)
+            # CGE's apply (K4 under the CGE flag)
+            err, kw = cge_apply_case(x, gr, dname, main and n == N)
+            note(summary, "cge_weighted_sum", err, kw)
+            if timed:
+                cge_aggregation(x, dname)
             # K9 multi_krum_order
             for m in (2, 3):
                 o = kernels.multi_krum_order(gr, F, m)
@@ -1500,27 +1699,43 @@ def selection_hazard_checks():
 def select_predicted_ms(name, n, k_total=None):
     if name == "iterative_order" and n == 64 and k_total > 3:
         return SELECT_PREDICTED_MS["k10_n64_theta"]
+    if name == "multi_krum_order":
+        return SELECT_PREDICTED_MS["multi_krum_order"]
+    if name.endswith("cge_weighted_sum"):
+        return SELECT_PREDICTED_MS["cge_apply"]
     return SELECT_PREDICTED_MS["host"]
 
 
 def select_sweep_checks():
-    """K3 and K10 at every n of GRAM_SWEEP_N on the card's Gram of a
-    seeded (n, 256) stack and of its hazards (every row equal; the pair
-    tie that K10's secondary breaks; a NaN Gram, every round all-inf), f =
-    max(2, (n - 3) // 4), K10 at k_total in {3, theta, n} (clamped to n):
-    each result bitwise equal to its plain version and to a repeat call.
-    The stack without a hazard is timed (time_ms, LAUNCH_REPS) beside its
-    predicted ms."""
+    """K3, K8, K9, K10 and CGE's sync and masked applies at every n of
+    GRAM_SWEEP_N on the card's Gram of a seeded (n, 256) stack and of its
+    hazards (every row equal: every score and norm tied; the pair tie that
+    K10's secondary breaks; a NaN Gram: every round all-inf, every norm
+    NaN), f = max(2, (n - 3) // 4): K9 at m in {1, 3, n - f}, K10 at
+    k_total in {3, theta, n} (each clamped to [0, n]), K8 and the applies
+    keeping max(n - f, 1) (K8 also 1), the applies in fp32 and bf16 (the
+    masked one at max(n - 2, 1) arrived), normalized and not: each result
+    bitwise equal to its plain version and to a repeat call, the applies
+    also to the chain they replace.  Without a hazard K3, K9 (m = 3), K10
+    and the applies (bf16, normalized) are timed (time_ms, LAUNCH_REPS)
+    beside their predicted ms."""
     from repro_torch import kernels
     from repro_torch.kernels.compare import f_of, theta_of
-    from repro_torch.kernels.select import (iterative_order_plain,
-                                            krum_select_plain)
+    from repro_torch.kernels.select import (cge_select_plain,
+                                            iterative_order_plain,
+                                            krum_select_plain,
+                                            multi_krum_order_plain)
 
     gen = torch.Generator(device=DEVICE).manual_seed(24)
-    worst = {"krum_select": 0.0, "iterative_order": 0.0}
+    worst = {k: 0.0 for k in ("krum_select", "iterative_order",
+                              "multi_krum_order", "cge_select",
+                              "cge_weighted_sum", "masked_cge_weighted_sum")}
     for n in GRAM_SWEEP_N:
         f, theta = f_of(n), theta_of(n)
+        keep_n = max(n - f, 1)
         base = torch.randn((n, 256), generator=gen, device=DEVICE)
+        m = arrival_mask(max(n - 2, 1), n)
+        _, wn = discount_weights(m)
         for hazard in SELECT_SWEEP_HAZARDS:
             x = base.clone()
             if hazard == "dup":
@@ -1532,25 +1747,62 @@ def select_sweep_checks():
             if hazard == "all_nan":
                 gr = torch.full_like(gr, math.nan)
             cases = [("krum_select", None, lambda: kernels.krum_select(gr, f),
-                      lambda: krum_select_plain(gr, f))]
+                      lambda: krum_select_plain(gr, f), True)]
             for k_total in sorted({min(3, n), theta, n}):
                 cases.append((
                     "iterative_order", k_total,
                     lambda k=k_total: kernels.iterative_order(gr, f, k),
-                    lambda k=k_total: iterative_order_plain(gr, f, k)))
+                    lambda k=k_total: iterative_order_plain(gr, f, k), True))
+            for mm in sorted({min(1, n), min(3, n), max(n - f, 0)}):
+                cases.append((
+                    "multi_krum_order", mm,
+                    lambda mm=mm: kernels.multi_krum_order(gr, f, mm),
+                    lambda mm=mm: multi_krum_order_plain(gr, f, mm),
+                    mm == min(3, n)))
+            for nk in sorted({keep_n, 1}):
+                cases.append((
+                    "cge_select", nk,
+                    lambda nk=nk: kernels.cge_select(gr, nk),
+                    lambda nk=nk: cge_select_plain(gr, nk), False))
             errs, ok, timed = {}, True, {}
-            for name, k_total, call, plain in cases:
+            for name, k_total, call, plain, timeit in cases:
                 out, ref = call(), plain()
                 err = max_abs_err(out.float(), ref.float())
                 ok = ok and torch.equal(out, ref) and torch.equal(out, call())
                 label = name if k_total is None else f"{name}_{k_total}"
                 errs[label] = err
                 worst[name] = max(worst[name], err)
-                if hazard is None:
+                if hazard is None and timeit:
                     timed[label] = {
                         "ms": time_ms(call, LAUNCH_REPS),
                         "predicted_ms": select_predicted_ms(name, n,
                                                             k_total)}
+            for dtype in (torch.float32, torch.bfloat16):
+                xd = x.to(dtype)
+                mean = kernels.imputed_mean(xd, wn)
+                grams = {"cge_weighted_sum": (kernels.gram(xd), None, None),
+                         "masked_cge_weighted_sum": (
+                             kernels.masked_gram(xd, m, wn, mean), m, mean)}
+                for name, (g2, mk, mn) in grams.items():
+                    if hazard == "all_nan":
+                        g2 = torch.full_like(g2, math.nan)
+                    apply, plain, chain = cge_calls(xd, g2, keep_n, mk, mn)
+                    for div in (keep_n, None):
+                        out = apply(div)
+                        err = max(max_abs_err(out, plain(div)),
+                                  max_abs_err(out, chain(div)))
+                        ok = (ok and same_bits_nan(out, plain(div))
+                              and same_bits_nan(out, chain(div))
+                              and same_bits_nan(out, apply(div)))
+                        label = f"{name}_{str(dtype)[6:]}_{div or 'sum'}"
+                        errs[label] = err
+                        worst[name] = max(worst[name], err)
+                        if (hazard is None and dtype == torch.bfloat16
+                                and div):
+                            timed[name] = {
+                                "ms": time_ms(lambda: apply(div),
+                                              LAUNCH_REPS),
+                                "predicted_ms": select_predicted_ms(name, n)}
             torch.cuda.synchronize()
             check("select_sweep", ok, n=n, f=f, theta=theta, hazard=hazard,
                   max_abs_diff=errs, **({"timed": timed} if timed else {}))
@@ -1585,11 +1837,12 @@ def with_ghost(sel, m):
 
 
 def masked_selection_kernel_checks(num_params):
-    """K12, K14 and K16 against their plain versions at the main path's
-    shapes (see the module docstring), then the small-width hazards.  The
-    ghost rows are the last ones (the mask's first rows arrive).  The
-    summary takes the fp32 buffer's numbers (the async arena): K12 with
-    multi_krum's order, K14 at n = 11 on K10's picks, K16 at 6 of 8."""
+    """K12, K14, K16 and masked CGE's apply against their plain versions
+    at the main path's shapes (see the module docstring), then the
+    small-width hazards.  The ghost rows are the last ones (the mask's
+    first rows arrive).  The summary takes the fp32 buffer's numbers (the
+    async arena): K12 with multi_krum's order, K14 at n = 11 on K10's
+    picks, K16 and the CGE apply at 6 of 8."""
     from repro_torch import kernels
     from repro_torch.kernels.masked import masked_sign_vote_plain
     from repro_torch.kernels.ops import mda_order
@@ -1600,7 +1853,7 @@ def masked_selection_kernel_checks(num_params):
     P = num_params
     gen = torch.Generator(device=DEVICE).manual_seed(10)
     names = ("masked_ordered_apply", "masked_bulyan_coord",
-             "masked_sign_vote")
+             "masked_sign_vote", "masked_cge_weighted_sum")
     summary = {k: {"max_abs_err": 0.0} for k in names}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
@@ -1614,6 +1867,11 @@ def masked_selection_kernel_checks(num_params):
             _, wn = discount_weights(m)
             mean = kernels.imputed_mean(x, wn)
             gr = kernels.masked_gram(x, m, wn, mean)
+            # masked CGE's apply (K7 under the CGE flag), the ghosts kept
+            err, kw = cge_apply_case(x, gr, dname, main and n == N, m, mean)
+            note(summary, "masked_cge_weighted_sum", err, kw)
+            if main and n == N:
+                cge_aggregation(x, dname, m, wn, arrived)
             if n == N:
                 # K12 with the rules' orders on the imputed Gram
                 cases = (("multi_krum", kernels.multi_krum_order(gr, F, 3),
@@ -3440,8 +3698,7 @@ def phase_profile_async(cfg, table):
         step(params, state, None, buffer, {}, *args)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step(params, state, None, buffer, {}, *args)
             torch.cuda.synchronize()
@@ -3964,8 +4221,7 @@ def memory_profile(cfg):
     _, _, _, _, st, _ = step(params, ost, None, buffer, st, *args)
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, _, _, _, st, _ = step(params, ost, None, buffer, st, *args)
         torch.cuda.synchronize()
@@ -4168,9 +4424,10 @@ OUR_KERNELS = ("order_stat_kernel", "coord_stat_kernel", "gram_mma_kernel",
 def device_busy(prof):
     """Device-side events of a trace only (kernels, copies, sets): the
     union of their intervals in ms, the span from the first start to the
-    last end in ms, and the time per event name.  CPU operator rows are
-    left out: they carry the device time of the kernels they launched,
-    which the kernels' own rows hold already."""
+    last end in ms, and the time per event name.  The traces record
+    device activity only: CPU operator rows would carry the device time
+    of the kernels they launched, which the kernels' own rows hold
+    already, so they are not recorded."""
     from torch.autograd import DeviceType
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
@@ -4226,8 +4483,7 @@ def phase_profile(cfg, table):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
         torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step(params, state, None, batch)
             torch.cuda.synchronize()
@@ -4723,6 +4979,7 @@ def main():
         for name, err in errs.items():
             note(summary, name, err)
     summary.update(selection_kernel_checks(num_params(cfg)))
+    cge_select_drive(num_params(cfg))
     for name, err in select_sweep_checks().items():
         note(summary, name, err)
     floor_ms = launch_floor(summary)

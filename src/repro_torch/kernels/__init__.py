@@ -34,7 +34,9 @@ from repro_torch.kernels.select import (bulyan_coord, cge_select,
                                         iterative_order, krum_select,
                                         masked_bulyan_coord,
                                         multi_krum_order)
-from repro_torch.kernels.wsum import (clipped_weighted_sum,
+from repro_torch.kernels.wsum import (cge_weighted_sum,
+                                      clipped_weighted_sum,
+                                      masked_cge_weighted_sum,
                                       masked_ordered_apply,
                                       masked_weighted_sum, ordered_apply,
                                       scaled_sparse_masked_weighted_mean,
@@ -60,7 +62,9 @@ WRAPPERS = {"coord_stat": coord_stat, "gram": gram,
             "scaled_sparse_masked_weighted_mean":
                 scaled_sparse_masked_weighted_mean,
             "coord_sort": coord_sort,
-            "clipped_weighted_sum": clipped_weighted_sum}
+            "clipped_weighted_sum": clipped_weighted_sum,
+            "cge_weighted_sum": cge_weighted_sum,
+            "masked_cge_weighted_sum": masked_cge_weighted_sum}
 
 
 def launch_counts() -> dict:

@@ -31,7 +31,17 @@ one library of their own, and this checkout's kernels come from
   n - f) and ``multi_krum_order`` (K9, m = 3) at n = 8, 11, 16, 33 and
   64.  These four are launch-bound: pass ``--reps 1000``;
 * ``m_krum_aggregation``: m_krum's ``spec.aggregate_flat`` on a bf16 arena
-  at n = 8 (one K2, K10 and K11), its kernels taken from either library.
+  at n = 8 (one K2, K10 and K11), its kernels taken from either library;
+* ``weighted_sum`` (K4) and ``masked_weighted_sum`` (K7) for their callers
+  other than CGE: Krum's one-hot on a bf16 arena and the imputed mean's
+  weights (6 of 8) on an fp32 one (K4); the one-hot on a live row at 6 of
+  8 in fp32 and the coded decode's 1/2 on two winners in bf16 (K7);
+* ``cge_aggregation``: CGE's kernel composition on a bf16 arena at n = 8
+  and masked on an fp32 one at 6 of 8 (``ops.kernel_cge`` /
+  ``kernel_cge_masked``: K2 and the apply; K4 (mean), K6 and the masked
+  apply), this checkout's against the other library's kernels composed as
+  the chain before CGE's apply: K2 -> K8 -> K4 (masked: K4 (mean) -> K6
+  -> K8 -> K7) -> ``/ (n - f)``.
 
 The other library and this one run in turns (other, this, this, other;
 CUDA events over ``--reps`` launches after a warm-up), their outputs are
@@ -77,6 +87,9 @@ ENTRIES = {
     "rt_gram_scratch_blocks": [I32, I32, I64, I32],
     "rt_ordered_apply": [VP, VP, I32, VP, I32, I64, I64, I32,
                          ctypes.c_float, VP],
+    "rt_weighted_sum": [VP, VP, I32, VP, I32, I64, I64, VP],
+    "rt_masked_weighted_sum": [VP, VP, I32, VP, VP, VP, I32, I64, I64, VP],
+    "rt_masked_gram": [VP, I32, VP, VP, VP, VP, I32, I64, I64, I32, VP],
 }
 
 
@@ -267,12 +280,13 @@ def masked_vote_cases(gen):
         torch.cuda.empty_cache()
 
 
-def aggregated(L, spec, x, **kw):
-    """``spec.aggregate_flat(x, **kw)`` with the kernels of library L."""
+def aggregated(L, fn, *args, **kw):
+    """``fn(*args, **kw)`` (an aggregation or a wrapper) with the kernels
+    of library L."""
     saved = build._LIB
     build._LIB = L
     try:
-        return spec.aggregate_flat(x, **kw)
+        return fn(*args, **kw)
     finally:
         build._LIB = saved
 
@@ -281,7 +295,8 @@ def sign_sgd_cases(gen):
     from ..core.aggregators import make_spec
     spec = make_spec("sign_sgd", f=2, n=8)
     x = _floats(gen, 8, torch.bfloat16)
-    yield ({"dtype": "bfloat16", "n": 8}, lambda L: aggregated(L, spec, x),
+    yield ({"dtype": "bfloat16", "n": 8},
+           lambda L: aggregated(L, spec.aggregate_flat, x),
            8 * P * 2 + 4 * P, 0.0)
     del x
     g = torch.randn((8, P), generator=gen, device="cuda")
@@ -289,10 +304,11 @@ def sign_sgd_cases(gen):
     for qdt in ("int8", "float8_e4m3fn"):
         codes, scale = quantize_rows(g, qdt)
         yield ({"dtype": qdt, "n": 8},
-               lambda L: aggregated(L, spec, codes, scale=scale),
+               lambda L: aggregated(L, spec.aggregate_flat, codes,
+                                    scale=scale),
                8 * P + 4 * P, 0.0)
         yield ({"dtype": qdt, "n": 8, "live": 6},
-               lambda L: aggregated(L, spec, codes, mask=m,
+               lambda L: aggregated(L, spec.aggregate_flat, codes, mask=m,
                                     weights=m.float(), scale=scale),
                6 * P + 8 * 8 + 4 * P, 0.0)
         del codes, scale
@@ -354,8 +370,103 @@ def m_krum_cases(gen):
     from ..core.aggregators import make_spec
     spec = make_spec("m_krum", f=2, n=8)
     x = _floats(gen, 8, torch.bfloat16)
-    yield ({"dtype": "bfloat16", "n": 8}, lambda L: aggregated(L, spec, x),
+    yield ({"dtype": "bfloat16", "n": 8},
+           lambda L: aggregated(L, spec.aggregate_flat, x),
            8 * P * 2 + 2 * P * 2 + 4 * P, 0.0)
+    del x
+    torch.cuda.empty_cache()
+
+
+def _weights(n, hot):
+    w = torch.zeros(n, device="cuda")
+    w[list(hot)] = 1.0 / len(hot)
+    return w
+
+
+def wsum_cases(gen):
+    """K4 for Krum (a one-hot on a bf16 arena) and the imputed mean (the
+    staleness weights of 6 of 8 rows, normalized, on an fp32 one)."""
+    from .wsum import weighted_sum
+    for dtype, w in ((torch.bfloat16, _weights(8, [3])),
+                     (torch.float32, _mask(8, 6) * torch.tensor(
+                         [1.0, 0.5, 1.0 / 3.0] * 3, device="cuda")[:8])):
+        x = _floats(gen, 8, dtype)
+        w = w / w.sum()
+        rows = int((w > 0).sum())
+        yield ({"dtype": _name(dtype), "n": 8, "rows": rows},
+               lambda L, x=x, w=w: aggregated(L, weighted_sum, w, x),
+               rows * P * x.element_size() + 4 * P, 0.0)
+        del x
+        torch.cuda.empty_cache()
+
+
+def masked_wsum_cases(gen):
+    """K7 for Krum (a one-hot on a live row, 6 of 8 arrived, fp32) and the
+    coded decode (1/2 on the winners of two groups, bf16, all arrived)."""
+    from .wsum import masked_weighted_sum
+    for dtype, live, w in ((torch.float32, 6, _weights(8, [2])),
+                           (torch.bfloat16, 8, _weights(8, [0, 4]))):
+        x = _floats(gen, 8, dtype)
+        m = _mask(8, live)
+        mean = x[0].clone()
+        rows = int((w > 0).sum())
+        yield ({"dtype": _name(dtype), "n": 8, "live": live, "rows": rows},
+               lambda L, x=x, m=m, mean=mean, w=w: aggregated(
+                   L, masked_weighted_sum, w, x, m, mean),
+               rows * P * x.element_size() + 4 * P, 0.0)
+        del x, mean
+        torch.cuda.empty_cache()
+
+
+def parent_cge_apply(gr, x, k, mask=None, mean=None, div=None):
+    """The apply stage of CGE's chain before CGE's apply, on the Gram
+    ``gr``: K8 (keep ``k``) -> K4 (masked: K7 with ``mask`` / ``mean``),
+    then ``/ div`` as given (a Python scalar: the reciprocal multiply
+    torch takes on the card; a device tensor: IEEE division; None: no
+    division)."""
+    from .select import cge_select
+    from .wsum import masked_weighted_sum, weighted_sum
+    keep = cge_select(gr, k)
+    out = (weighted_sum(keep, x) if mask is None
+           else masked_weighted_sum(keep, x, mask, mean))
+    return out if div is None else out / div
+
+
+def parent_cge(x, f, mask=None, wn=None):
+    """CGE's aggregation as the kernels composed it before CGE's apply:
+    K2 -> K8 -> K4 (masked: K4 (mean) -> K6 -> K8 -> K7), then ``/ (n -
+    f)`` by a Python scalar."""
+    from .pairwise import gram, imputed_mean, masked_gram
+    k = x.shape[0] - f
+    if mask is None:
+        return parent_cge_apply(gram(x), x, k, div=k)
+    mean = imputed_mean(x, wn)
+    return parent_cge_apply(masked_gram(x, mask, wn, mean), x, k, mask,
+                            mean, div=k)
+
+
+def cge_cases(gen):
+    """CGE's kernel composition, this checkout's (the apply) against the
+    other library's kernels in the chain before it (:func:`parent_cge`):
+    the outputs differ by the division's rounding (the chain's reciprocal
+    multiply), at most an ulp."""
+    from .ops import kernel_cge, kernel_cge_masked
+    this = build.lib()
+    x = _floats(gen, 8, torch.bfloat16)
+    yield ({"dtype": "bfloat16", "n": 8},
+           lambda L: (kernel_cge(x, 2) if L is this
+                      else aggregated(L, parent_cge, x, 2)),
+           6 * P * 2 + 4 * P, 3e-6)
+    del x
+    torch.cuda.empty_cache()
+    x = _floats(gen, 8, torch.float32)
+    m = _mask(8, 6)
+    w = m * torch.tensor([1.0, 0.5, 1.0 / 3.0] * 3, device="cuda")[:8]
+    wn = w / w.sum()
+    yield ({"dtype": "float32", "n": 8, "live": 6},
+           lambda L: (kernel_cge_masked(x, m, wn, 2) if L is this
+                      else aggregated(L, parent_cge, x, 2, m, wn)),
+           5 * P * 4 + 4 * P, 3e-6)
     del x
     torch.cuda.empty_cache()
 
@@ -391,6 +502,16 @@ KERNELS = {
                             "rt_iterative_order", "rt_ordered_apply"),
                            ("gram.cu", "order.cu", "ordered_apply.cu"),
                            m_krum_cases, None),
+    "weighted_sum": (("rt_weighted_sum",), ("wsum.cu",), wsum_cases,
+                     "wsum_kernel"),
+    "masked_weighted_sum": (("rt_masked_weighted_sum",),
+                            ("masked_wsum.cu",), masked_wsum_cases,
+                            "masked_wsum_kernel"),
+    "cge_aggregation": (("rt_gram", "rt_gram_scratch_blocks",
+                         "rt_masked_gram", "rt_cge_select",
+                         "rt_weighted_sum", "rt_masked_weighted_sum"),
+                        ("gram.cu", "masked_gram.cu", "cge_select.cu",
+                         "wsum.cu", "masked_wsum.cu"), cge_cases, None),
 }
 
 
@@ -407,10 +528,12 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(name: str, call, reps: int = 200):
+def device_ms(name, call, reps: int = 200):
     """Mean duration (ms) of the device events called ``name`` in a
     ``torch.profiler`` trace of ``reps`` calls after a warm-up call, and
-    their count; ("not measured", 0) if the trace holds none."""
+    their count; ("not measured", 0) if the trace holds none.  With
+    ``name=None`` every device event counts and the mean is taken per
+    call: the card's busy time a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     call()
@@ -421,10 +544,11 @@ def device_ms(name: str, call, reps: int = 200):
         torch.cuda.synchronize()
     durs = [(e.time_range.end - e.time_range.start) / 1e3
             for e in prof.events()
-            if e.device_type == DeviceType.CUDA and name in e.name]
+            if e.device_type == DeviceType.CUDA
+            and (name is None or name in e.name)]
     if not durs:
         return "not measured", 0
-    return sum(durs) / len(durs), len(durs)
+    return sum(durs) / (reps if name is None else len(durs)), len(durs)
 
 
 def agree(a, b, tol):

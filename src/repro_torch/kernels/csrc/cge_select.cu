@@ -7,21 +7,19 @@
 //
 // Bound on this card: launch latency (n reads of the diagonal).
 //
-// Design: one block, one thread per row.  The max propagates NaN
-// (nan_max): CUDA's fmaxf(NaN, 0) is 0, which would rank a NaN-norm row
-// FIRST and keep the hostile row; with the NaN kept, rank_of orders it
-// last.  sqrtf is correctly rounded (no fast-math), as torch.sqrt is, so
-// equal and distinct norms tie exactly as in the plain version.
+// Design: one block, one thread per row, through select.cuh:cge_keep (the
+// norms with NaN kept, then their exact rank), the function the CGE apply
+// (wsum.cu, masked_wsum.cu) runs as its prologue: the main path's CGE
+// launches that apply and not this kernel, which stays the counterpart of
+// the TPU kernel for its callers.
 #include "select.cuh"
 
 __global__ void cge_select_kernel(const float* __restrict__ gram,
                                   float* __restrict__ out, int n,
                                   int n_keep) {
   __shared__ float norms[kSelectMaxN];
-  const int i = threadIdx.x;
-  if (i < n) norms[i] = sqrtf(nan_max(gram[i * n + i], 0.f));
-  __syncthreads();
-  if (i < n) out[i] = rank_of(norms, n, i) < n_keep ? 1.f : 0.f;
+  const float keep = cge_keep(gram, norms, n, n_keep);
+  if (threadIdx.x < n) out[threadIdx.x] = keep;
 }
 
 RT_EXPORT int rt_cge_select(const float* gram, float* out, int n,

@@ -9,12 +9,12 @@
 // n = 64); the work, n^3 comparisons at most, is a few microseconds.
 //
 // Design: one block of tile_threads(n) threads (select.cuh: a warp a
-// column).  All of them fill the distance tile and rank every pair in its
-// row; a pair of rank below k lands at that rank in `low`, so each row's
-// k smallest lie there in ascending order.  One thread a row sums
-// them from 0.f in that order; a score is +0 ... +inf (never NaN, never
-// -0), so its bits order as unsigned and the least score's first index is
-// a warp min and a ballot, then (n > 32) a combine of the two warps.
+// column) computes every row's Krum score through krum_score_tile, the
+// score pass K9 shares: the distance tile, every pair ranked in its row,
+// each row's k smallest summed from 0.f in ascending order by one thread a
+// row.  A score is +0 ... +inf (never NaN, never -0), so its bits order as
+// unsigned and the least score's first index is a warp min and a ballot,
+// then (n > 32) a combine of the two warps.
 #include "select.cuh"
 
 __global__ void __launch_bounds__(kTileThreads)
@@ -29,18 +29,11 @@ __global__ void __launch_bounds__(kTileThreads)
     if (t == 0) out[0] = 1.f;   // its (+inf) score
     return;
   }
-  distance_tile(gram, d2, n);
-  rank_tile(d2, n, [&](int i, int, int r, float v) {
-    if (r < k) low[i][r] = v;
-  });
+  const float score = krum_score_tile(gram, d2, low, n, k);
   const int warps = (n + 31) >> 5;
   if (t < 32 * warps) {
-    unsigned bits = 0xffffffffu;        // above +inf: never the least
-    if (t < n) {
-      float acc = 0.f;
-      for (int r = 0; r < k; ++r) acc += low[t][r];
-      bits = __float_as_uint(acc);
-    }
+    // above +inf: never the least
+    const unsigned bits = t < n ? __float_as_uint(score) : 0xffffffffu;
     const unsigned m = __reduce_min_sync(0xffffffffu, bits);
     const int first = (t & ~31) + __ffs(__ballot_sync(0xffffffffu,
                                                       bits == m)) - 1;

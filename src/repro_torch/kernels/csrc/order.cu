@@ -10,9 +10,11 @@
 // work is at most n^3 comparisons once and k_total * n steps a thread.
 //
 // Design (select.cuh):
-//  * K9 (multi-Krum): one block, one thread a row; ONE score pass with the
-//    classic k = n - f - 2 (clamped to [1, n - 1]); the m smallest scores
-//    get their rank, the rest n.
+//  * K9 (multi-Krum): ONE score pass with the classic k = n - f - 2
+//    (clamped to [1, n - 1]) on K3's tile (select.cuh:krum_score_tile,
+//    tile_threads(n) threads), then each row's exact score rank (first
+//    index wins ties; the scores' bits order as unsigned) by one thread a
+//    row: the m smallest get their rank, the rest n.
 //  * K10 (m-Krum's m picks, Bulyan's theta picks): per round, each
 //    candidate's key is the sum of its k = remaining - f - 2 (clamped)
 //    smallest distances to the other REMAINING candidates, in ascending
@@ -22,7 +24,7 @@
 //    to the candidates, so a round in which every key is +inf (a
 //    NaN-poisoned adversary) still picks a genuine candidate.  With one
 //    neighbour left the closest pair shares one distance: both keys are
-//    bitwise equal (a bitwise-symmetric Gram, select.cuh:gram_d2) and the
+//    bitwise equal (a bitwise-symmetric Gram, select.cuh:pair_d2) and the
 //    secondary decides.
 //    Every row is sorted ONCE: tile_threads(n) threads rank each pair in
 //    its row (select.cuh:rank_tile) and scatter the value to that rank,
@@ -38,20 +40,6 @@
 //    parity.
 #include "select.cuh"
 
-__global__ void multi_krum_order_kernel(const float* __restrict__ gram,
-                                        int* __restrict__ out, int n, int k,
-                                        int m) {
-  __shared__ float sq[kSelectMaxN];
-  __shared__ float rows[kSelectMaxN][kSelectMaxN + 1];
-  __shared__ float scores[kSelectMaxN];
-  krum_scores_block(gram, sq, rows, scores, n, k);
-  const int i = threadIdx.x;
-  if (i < n) {
-    const int r = rank_of(scores, n, i);
-    out[i] = r < m ? r : n;
-  }
-}
-
 // sorted rows: 16-byte aligned, room for the walk's prefetch of the four
 // positions past the last, and a stride of 12 banks (mod 32), so the
 // float4 reads of 8 consecutive rows fill the 32 banks once
@@ -61,6 +49,32 @@ constexpr int kRow4 = kSelectMaxN + 12;
 // left the kernel.
 __device__ __forceinline__ void pair_barrier() {
   asm volatile("bar.sync 1, 64;" ::: "memory");
+}
+
+// K9: the scores through K3's pass, then each row's rank among them.
+// Threads past the score rows leave; the one or two warps of rows meet at
+// a warp or a 64-thread barrier before reading each other's scores.
+__global__ void __launch_bounds__(kTileThreads)
+    multi_krum_order_kernel(const float* __restrict__ gram,
+                            int* __restrict__ out, int n, int k, int m) {
+  __shared__ float d2[kSelectMaxN][kSelectMaxN + 1];
+  __shared__ float low[kSelectMaxN][kSelectMaxN + 1];
+  __shared__ unsigned scores[kSelectMaxN];
+  const int t = threadIdx.x;
+  const unsigned s = __float_as_uint(krum_score_tile(gram, d2, low, n, k));
+  const int warps = (n + 31) >> 5;
+  if (t >= 32 * warps) return;
+  if (t < n) scores[t] = s;
+  if (warps == 2)
+    pair_barrier();
+  else
+    __syncwarp();
+  if (t < n) {
+    int r = 0;
+    for (int j = 0; j < t; ++j) r += scores[j] <= s;
+    for (int j = t + 1; j < n; ++j) r += scores[j] < s;
+    out[t] = r < m ? r : n;
+  }
 }
 
 __global__ void __launch_bounds__(kTileThreads)
@@ -180,7 +194,7 @@ RT_EXPORT int rt_multi_krum_order(const float* gram, int* out, int n, int f,
   int k = n - f - 2;
   k = k > n - 1 ? n - 1 : k;
   k = k < 1 ? 1 : k;
-  multi_krum_order_kernel<<<1, kSelectMaxN, 0, (cudaStream_t)stream>>>(
+  multi_krum_order_kernel<<<1, tile_threads(n), 0, (cudaStream_t)stream>>>(
       gram, out, n, k, m);
   return rt_status();
 }

@@ -1,15 +1,17 @@
 // The selection kernels' shared code (K3 krum_select.cu, K8 cge_select.cu,
-// K9 and K10 order.cu): squared distances off the (n, n) Gram, the sum of
-// the k smallest of a row and the exact comparison rank.  One copy, so the
-// four kernels order and sum alike, and so do their plain versions
-// (repro_torch/kernels/select.py).
+// K9 and K10 order.cu, and the CGE apply of wsum.cu / masked_wsum.cu):
+// squared distances off the (n, n) Gram, the Krum scores, CGE's keep-mask
+// and the exact comparison rank.  One copy, so the kernels order and sum
+// alike, and so do their plain versions (repro_torch/kernels/select.py).
 //
-// K3 and K10 run one block of tile_threads(n) threads over the tile:
+// K3, K9 and K10 run one block of tile_threads(n) threads over the tile:
 // distance_tile fills it from coalesced reads of the Gram, and rank_tile
 // sorts every row at once (the thread of pair (i, j) computes the rank of
-// d2[i][j] in its row, row_rank, and its kernel scatters it there).  K8
-// and K9 keep one thread a row (krum_scores_block, sum_smallest,
-// rank_of).
+// d2[i][j] in its row, row_rank, and its kernel scatters it there).  K3
+// and K9 share the score pass on top of it (krum_score_tile) and differ
+// only in their epilogue; K10 walks the sorted rows round by round.  K8's
+// law (cge_keep: the norms off the Gram diagonal and their rank) is one
+// function, which K8 and the CGE apply's prologue call.
 #pragma once
 
 #include <math.h>
@@ -17,7 +19,7 @@
 #include "common.cuh"
 
 constexpr int kSelectMaxN = 64;
-constexpr int kTileThreads = 1024;  // K3 and K10 at n >= 32: 32 warps
+constexpr int kTileThreads = 1024;  // K3, K9, K10 at n >= 32: 32 warps
 
 // Squared distance between rows i and j off the Gram, as the TPU kernels
 // compute it: max((sq_i + sq_j) - 2 G_ij, 0) with NaN propagating through
@@ -29,16 +31,10 @@ __device__ __forceinline__ float pair_d2(float sq_i, float sq_j, float g) {
   return (v != v) ? INFINITY : v;
 }
 
-__device__ __forceinline__ float gram_d2(const float* __restrict__ gram,
-                                         const float* sq, int n, int i,
-                                         int j) {
-  return pair_d2(sq[i], sq[j], gram[i * n + j]);
-}
-
-// Threads of K3's and K10's block at n: a warp for each column j of the
-// tile (at most 32 warps, two columns a warp above n = 32), so the rank
-// pass has many warps to hide its shared-memory latency.  K3's sums and
-// K10's rounds then take one thread a row, threads [0, n).
+// Threads of K3's, K9's and K10's block at n: a warp for each column j of
+// the tile (at most 32 warps, two columns a warp above n = 32), so the
+// rank pass has many warps to hide its shared-memory latency.  K3's and
+// K9's sums and K10's rounds then take one thread a row, threads [0, n).
 static inline int tile_threads(int n) { return 32 * (n < 32 ? n : 32); }
 
 // d2[i][j] for every pair of the (n, n) Gram with self excluded (+inf on
@@ -93,7 +89,7 @@ __device__ __forceinline__ int row_rank(float (*d2)[kSelectMaxN + 1],
   return r0 + r1;
 }
 
-// The sorting pass of K3 and K10: every pair (i, j) of the tile ranked in
+// The sorting pass of K3, K9 and K10: every pair (i, j) of the tile ranked in
 // its row (row_rank; a warp a column j, its lanes the rows i) and handed
 // to store(i, j, rank, d2[i][j]), which scatters what its kernel keeps.
 // Ends with a barrier.
@@ -108,25 +104,6 @@ __device__ __forceinline__ void rank_tile(float (*d2)[kSelectMaxN + 1],
   __syncthreads();
 }
 
-// Sum of the k smallest of row[0, m), taken in ascending order from 0
-// (the row is sorted in place; insertion sort: the row holds no NaN, so
-// any correct sort gives the network's order).  A NaN sum orders last.
-// K9's score pass.
-__device__ __forceinline__ float sum_smallest(float* row, int m, int k) {
-  for (int a = 1; a < m; ++a) {
-    const float key = row[a];
-    int b = a - 1;
-    while (b >= 0 && row[b] > key) {
-      row[b + 1] = row[b];
-      --b;
-    }
-    row[b + 1] = key;
-  }
-  float acc = 0.f;
-  for (int r = 0; r < k; ++r) acc += row[r];
-  return (acc != acc) ? INFINITY : acc;
-}
-
 // rank[i] = #{j : v_j < v_i or (v_j == v_i and j < i)} with NaN ordered
 // last: argmin / top_k order, first index wins ties.
 __device__ __forceinline__ int rank_of(const float* v, int n, int i) {
@@ -139,20 +116,40 @@ __device__ __forceinline__ int rank_of(const float* v, int n, int i) {
   return rank;
 }
 
-// Each thread i < n writes the Krum score of row i (the k smallest
-// distances to the others) into scores[i]; rows is per-thread scratch.
-// Reads the diagonal into sq first.  Ends with a barrier.
-__device__ __forceinline__ void krum_scores_block(
-    const float* __restrict__ gram, float* sq,
-    float (*rows)[kSelectMaxN + 1], float* scores, int n, int k) {
+// The Krum scores of K3 and K9: the block (tile_threads(n) threads) fills
+// the distance tile, ranks every pair in its row, and scatters each pair
+// of rank < k into low[i][rank], so row i's k smallest lie there in
+// ascending order; thread i < n then sums them from 0.f in that order (the
+// plain version's sort-then-sum, bitwise: equal values form the same
+// sequence whatever their order) and returns the score, the others 0.f.
+// A score is +0 ... +inf, never NaN and never -0 (a sum from +0 of values
+// >= +0), so its bits order as unsigned.  1 <= k < n, or k = 1 at n = 1.
+__device__ __forceinline__ float krum_score_tile(
+    const float* __restrict__ gram, float (*d2)[kSelectMaxN + 1],
+    float (*low)[kSelectMaxN + 1], int n, int k) {
+  distance_tile(gram, d2, n);
+  rank_tile(d2, n, [&](int i, int, int r, float v) {
+    if (r < k) low[i][r] = v;
+  });
+  const int t = threadIdx.x;
+  float acc = 0.f;
+  if (t < n)
+    for (int r = 0; r < k; ++r) acc += low[t][r];
+  return acc;
+}
+
+// K8's law, by every thread of a block of at least n threads: thread i < n
+// gets 1.f if row i is among the n_keep smallest norms sqrt(max(G_ii, 0))
+// of the Gram's diagonal, else 0.f (so do threads i >= n).  The max
+// propagates NaN (nan_max): CUDA's fmaxf(NaN, 0) is 0, which would rank a
+// NaN-norm row FIRST and keep the hostile row; with the NaN kept, rank_of
+// orders it last.  sqrtf is correctly rounded (no fast-math), as
+// torch.sqrt is, so equal and distinct norms tie exactly as in the plain
+// version.  norms: n floats of shared scratch.  Holds a barrier.
+__device__ __forceinline__ float cge_keep(const float* __restrict__ gram,
+                                          float* norms, int n, int n_keep) {
   const int i = threadIdx.x;
-  if (i < n) sq[i] = gram[i * n + i];
+  if (i < n) norms[i] = sqrtf(nan_max(gram[i * n + i], 0.f));
   __syncthreads();
-  if (i < n) {
-    float* row = rows[i];
-    for (int j = 0; j < n; ++j)
-      row[j] = (j == i) ? INFINITY : gram_d2(gram, sq, n, i, j);
-    scores[i] = sum_smallest(row, n, k);
-  }
-  __syncthreads();
+  return (i < n && rank_of(norms, n, i) < n_keep) ? 1.f : 0.f;
 }

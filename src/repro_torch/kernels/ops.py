@@ -20,10 +20,12 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.coord_stats import coord_sort
 from repro_torch.kernels.pairwise import gram, imputed_mean, masked_gram
-from repro_torch.kernels.select import (bulyan_coord, cge_select, gram_d2,
+from repro_torch.kernels.select import (bulyan_coord, gram_d2,
                                         iterative_order, krum_select,
                                         masked_bulyan_coord, multi_krum_order)
-from repro_torch.kernels.wsum import (masked_ordered_apply,
+from repro_torch.kernels.wsum import (cge_weighted_sum,
+                                      masked_cge_weighted_sum,
+                                      masked_ordered_apply,
                                       masked_weighted_sum, ordered_apply,
                                       weighted_sum)
 
@@ -73,12 +75,13 @@ def kernel_krum_masked(g, mask, wn, f: int):
 
 
 def kernel_cge(g, f: int, normalize: bool = True):
-    """CGE: norms off the Gram diagonal (K2 -> K8), the kept rows summed by
-    K4 in row order; normalization divides after the sum, like the dense
-    law."""
+    """CGE: the Gram (K2), then one launch of CGE's apply: K8's keep-mask of
+    the n - f smallest norms off its diagonal, the kept rows summed as K4
+    sums them, in row order; normalization divides after the sum, like the
+    dense law (in the apply's store)."""
     n = g.shape[0]
-    out = weighted_sum(cge_select(gram(g), n - f), g)
-    return out / (n - f) if normalize else out
+    return cge_weighted_sum(gram(g), g, n - f,
+                            div=n - f if normalize else None)
 
 
 def kernel_multi_krum(g, f: int, m: int = 2):
@@ -150,12 +153,13 @@ def kernel_bulyan(g, f: int):
 
 
 def kernel_cge_masked(g, mask, wn, f: int, normalize: bool = True):
-    """Masked CGE: K4 (mean) -> K6 -> K8, the kept rows of the imputed
-    stack summed by K7 (a kept ghost adds the mean), then divided."""
+    """Masked CGE: K4 (mean) -> K6 -> the masked CGE apply: K8's keep-mask
+    on the imputed Gram, the kept rows of the imputed stack summed as K7
+    sums them (a kept ghost adds the mean), then divided in its store."""
     n = g.shape[0]
     mean, gr = _imputed_gram(g, mask, wn)
-    out = masked_weighted_sum(cge_select(gr, n - f), g, mask, mean)
-    return out / (n - f) if normalize else out
+    return masked_cge_weighted_sum(gr, g, mask, mean, n - f,
+                                   div=n - f if normalize else None)
 
 
 def kernel_multi_krum_masked(g, mask, wn, f: int, m: int = 2):

@@ -3,7 +3,10 @@
 * K3 :func:`krum_select` replaces the Pallas TPU kernel
   ``repro/kernels/select.py:krum_select`` with ``csrc/krum_select.cu``;
 * K8 :func:`cge_select` replaces ``select.py:cge_select`` with
-  ``csrc/cge_select.cu``: the keep-mask of the n_keep smallest norms;
+  ``csrc/cge_select.cu``: the keep-mask of the n_keep smallest norms.
+  CGE's aggregation does not launch it: its law is the prologue of CGE's
+  apply (``wsum.cge_weighted_sum`` / ``masked_cge_weighted_sum``, K4's
+  and K7's kernels under their CGE flag);
 * K9 :func:`multi_krum_order` and K10 :func:`iterative_order` replace
   ``select.py:multi_krum_order`` and ``iterative_order`` with
   ``csrc/order.cu``: (n,) int32 pick orders (sentinel n = not picked);
@@ -16,9 +19,13 @@
   an absent row read as the (d,) imputed mean.
 
 K3, K8, K9 and K10 run one block each and share ``csrc/select.cuh``
-(distances, row sums, rank): K8 and K9 one thread a row; K3 and K10 a
+(distances, Krum scores, CGE's keep-mask, rank).  K3, K9 and K10 run a
 warp a column of the distance tile, ranking every pair in its row, so
-each row is sorted once (K10's rounds then walk the sorted rows).  Each
+each row is sorted once: K3 and K9 sum each row's k smallest through one
+score pass (``krum_score_tile``) and differ in their epilogue (K3 the
+least score's first index, K9 every score's rank); K10's rounds walk the
+sorted rows.  K8 takes one thread a row (``cge_keep``: the norms, then
+their rank), as the CGE apply's prologue does.  Each
 wrapper launches its kernel for a CUDA tensor and runs its plain version for a CPU tensor;
 ``<wrapper>.launches`` counts kernel launches.  The plain versions order,
 sum and divide as the kernels do, so the two agree exactly.
@@ -70,7 +77,7 @@ def krum_k(n: int, f: int) -> int:
 
 def _score_sums(d2, k: int):
     """(n, n) distances -> (n,) sums of each row's k smallest, taken in
-    ascending order from 0 (the kernels' ``sum_smallest``)."""
+    ascending order from 0 (the kernels' ``krum_score_tile``)."""
     srt, _ = torch.sort(d2, dim=1)
     scores = torch.zeros_like(srt[:, 0])
     for m in range(k):
@@ -220,7 +227,9 @@ def krum_select(gr, f: int):
 
 def cge_select(gr, n_keep: int):
     """gr: (n, n) fp32 Gram -> (n,) {0,1} fp32 keep-mask of the n_keep
-    smallest-norm rows (unnormalized: the caller divides after the sum)."""
+    smallest-norm rows (unnormalized: the caller divides after the sum).
+    CGE's aggregation runs this law inside its apply
+    (:func:`repro_torch.kernels.wsum.cge_weighted_sum`) instead."""
     n, cuda = _check_gram("cge_select", gr)
     if not 0 <= n_keep <= n:
         raise ValueError(f"cge_select: n_keep={n_keep} outside [0, {n}]")

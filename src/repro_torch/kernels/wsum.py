@@ -1,7 +1,8 @@
-"""K4, K7, K11 and K12: the weighted sum w^T G over the agent axis, and
-the ordered application of a selection, each plain and over the
-mean-imputed stack; K17 and K21: sparse_mean's per-coordinate weighted
-mean over the rows that sent each coordinate.
+"""K4, K7, K11 and K12: the weighted sum w^T G over the agent axis (and,
+under K4's and K7's CGE flag, CGE's apply), and the ordered application
+of a selection, each plain and over the mean-imputed stack; K17 and K21:
+sparse_mean's per-coordinate weighted mean over the rows that sent each
+coordinate.
 
 * K4 :func:`weighted_sum` replaces the Pallas TPU kernel
   ``repro/kernels/wsum.py:weighted_sum`` with the CUDA kernel
@@ -13,6 +14,15 @@ mean over the rows that sent each coordinate.
   ``csrc/masked_wsum.cu``: live rows with w > 0 are read raw, and the
   ghost weight (the absent rows' total) multiplies the (d,) imputed mean,
   so the imputed stack is never built.
+* :func:`cge_weighted_sum` and :func:`masked_cge_weighted_sum` are CGE's
+  apply, K4's and K7's kernels under their ``CGE`` flag with K8 folded
+  in: each block computes the keep-mask of the n - f smallest norms off
+  the Gram's diagonal (K8's law, ``csrc/select.cuh:cge_keep``) in place of
+  reading weights, and the store divides by n - f.  They replace the chain
+  ``repro/kernels/select.py:cge_select`` -> ``weighted_sum`` /
+  ``masked_weighted_sum`` -> ``/ (n - f)`` of ``repro/kernels/ops.py``'s
+  ``kernel_cge`` / ``kernel_cge_masked``: one launch instead of K8's, K4's
+  (K7's) and a (d,) divide pass.
 * K11 :func:`ordered_apply` replaces ``repro/kernels/wsum.py:ordered_apply``
   with ``csrc/ordered_apply.cu``: the k rows a selection order picked,
   summed in pick order and divided (multi-Krum, m-Krum, MDA); the other
@@ -44,8 +54,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.select import _check_gram, cge_select_plain
 
 MAX_N = 64
+
+
+def _divide(acc, div):
+    """``acc / div`` by a device tensor, so that the card divides too (a
+    Python-scalar divisor becomes a reciprocal multiply there, which can
+    differ by an ulp); ``div=None``: no division."""
+    if div is None:
+        return acc
+    return acc / torch.tensor(float(div), device=acc.device)
 
 
 def weighted_sum_plain(w, g):
@@ -157,6 +177,100 @@ def masked_weighted_sum(w, g, mask, mean):
 masked_weighted_sum.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# CGE's apply: K4 / K7 under their CGE flag, K8 folded in
+
+
+def cge_weighted_sum_plain(gr, g, n_keep: int, div: float | None = None):
+    """The plain version of :func:`cge_weighted_sum`: K8's keep-mask
+    (:func:`select.cge_select_plain`), K4's sum of the kept rows
+    (:func:`weighted_sum_plain`), then ``/ div`` (:func:`_divide`)."""
+    return _divide(weighted_sum_plain(cge_select_plain(gr, n_keep), g), div)
+
+
+def masked_cge_weighted_sum_plain(gr, g, mask, mean, n_keep: int,
+                                  div: float | None = None):
+    """The plain version of :func:`masked_cge_weighted_sum`: K8's keep-mask
+    on the imputed Gram, K7's sum over the imputed stack (a kept ghost
+    adds the mean), then ``/ div``."""
+    return _divide(masked_weighted_sum_plain(cge_select_plain(gr, n_keep), g,
+                                             mask, mean), div)
+
+
+def _check_cge(name, gr, g, n_keep, div):
+    """The Gram, the stack, n_keep and div of CGE's apply; -> True on the
+    card."""
+    n, cuda = _check_gram(name, gr)
+    if g.dim() != 2 or g.shape[0] != n:
+        raise ValueError(f"{name}: g {tuple(g.shape)} for an ({n}, {n}) "
+                         "Gram")
+    if not 0 <= n_keep <= n:
+        raise ValueError(f"{name}: n_keep={n_keep} outside [0, {n}]")
+    if div is not None and not div > 0:
+        raise ValueError(f"{name}: div={div} must be > 0")
+    if gr.device != g.device:
+        raise ValueError(f"{name}: Gram on {gr.device}, g on {g.device}")
+    if cuda and g.stride(1) != 1:
+        raise ValueError(f"{name}: rows must be contiguous")
+    return cuda
+
+
+def cge_weighted_sum(gr, g, n_keep: int, div: float | None = None):
+    """CGE's apply in one launch.  gr: the (n, n) fp32 Gram of g, g: (n, d)
+    fp32 or bf16 -> (d,) fp32: the n_keep rows of least norm sqrt(max(G_ii,
+    0)) (K8's law: first index wins ties, a NaN norm last) summed in row
+    order as K4 sums a {0,1} w, then divided by ``div`` (None = no
+    division); the other rows are never read."""
+    if not _check_cge("cge_weighted_sum", gr, g, n_keep, div):
+        return cge_weighted_sum_plain(gr, g, n_keep, div)
+    code = build.dtype_code(g)
+    n, d = g.shape
+    out = torch.empty((d,), dtype=torch.float32, device=g.device)
+    rc = build.lib().rt_cge_weighted_sum(
+        gr.data_ptr(), g.data_ptr(), code, out.data_ptr(), n, d, g.stride(0),
+        int(n_keep), float(div or 0.0), build.stream_ptr(g))
+    build.check(rc, "cge_weighted_sum")
+    cge_weighted_sum.launches += 1
+    return out
+
+
+def masked_cge_weighted_sum(gr, g, mask, mean, n_keep: int,
+                            div: float | None = None):
+    """:func:`cge_weighted_sum` over the mean-imputed stack in one launch.
+    gr: the imputed (n, n) fp32 Gram (K6), mask: (n,) {0,1} fp32 (1 =
+    arrived), mean: the (d,) imputed mean in g's dtype; a kept absent row
+    adds the mean and is never read."""
+    cuda = _check_cge("masked_cge_weighted_sum", gr, g, n_keep, div)
+    n, d = g.shape
+    if mask.shape != (n,) or mean.shape != (d,) or mean.dtype != g.dtype:
+        raise ValueError(f"masked_cge_weighted_sum: mask {tuple(mask.shape)}"
+                         f", mean {tuple(mean.shape)} {mean.dtype} for a "
+                         f"stack {tuple(g.shape)} {g.dtype}")
+    if {mask.device, mean.device} != {g.device}:
+        raise ValueError(f"masked_cge_weighted_sum: g on {g.device}, mask "
+                         f"on {mask.device}, mean on {mean.device}")
+    if not cuda:
+        return masked_cge_weighted_sum_plain(gr, g, mask, mean, n_keep, div)
+    if mask.dtype != torch.float32 or not mask.is_contiguous():
+        raise ValueError("masked_cge_weighted_sum: mask must be contiguous "
+                         "float32")
+    if not mean.is_contiguous():
+        raise ValueError("masked_cge_weighted_sum: mean must be contiguous")
+    code = build.dtype_code(g)
+    out = torch.empty((d,), dtype=torch.float32, device=g.device)
+    rc = build.lib().rt_masked_cge_weighted_sum(
+        gr.data_ptr(), g.data_ptr(), code, mask.data_ptr(), mean.data_ptr(),
+        out.data_ptr(), n, d, g.stride(0), int(n_keep), float(div or 0.0),
+        build.stream_ptr(g))
+    build.check(rc, "masked_cge_weighted_sum")
+    masked_cge_weighted_sum.launches += 1
+    return out
+
+
+cge_weighted_sum.launches = 0
+masked_cge_weighted_sum.launches = 0
+
+
 def ordered_apply_plain(order, g, k: int, div: float | None = None):
     """(n,) int order, (n, d) -> (d,) fp32: the row picked at each position
     r < k (the first row carrying r; none adds nothing) added in pick
@@ -181,9 +295,7 @@ def masked_ordered_apply_plain(order, g, mask, mean, k: int,
             live = mask.float().index_select(0, i)[0] > 0.5
             row = torch.where(live, row, mean.float())
         acc = acc + torch.where(hit.any(), row, 0.0)
-    if div is not None:
-        acc = acc / torch.tensor(float(div), device=g.device)
-    return acc
+    return _divide(acc, div)
 
 
 def _check_ordered(name, order, g, k, div):

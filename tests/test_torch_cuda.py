@@ -8,10 +8,11 @@ with the card (no JAX needed):
 Bars: median values (plain and masked), Krum's one-hot and the one-hot
 weighted sums (plain and masked, live row or ghost) exact; trimmed means,
 Grams (plain and masked), the imputed mean and general weighted sums
-within rtol = atol = 3e-6.  The selection family (K8-K14) and the sign
-votes (K15, K16) exact: their plain versions order, sum and divide as the
-kernels do.  The scaled kernels of the compressed exchange (K18-K20, and
-K15 on int8 / fp8 codes) exact, trimmed means within 3e-6: the kernels
+within rtol = atol = 3e-6.  The selection family (K8-K14, and CGE's
+apply: K4 / K7 under their CGE flag) and the sign votes (K15, K16)
+exact: their plain versions order, sum and divide as the kernels do.
+The scaled kernels of the compressed exchange (K18-K20, and K15 on int8
+/ fp8 codes) exact, trimmed means within 3e-6: the kernels
 dequantize with the plain versions' one fp32 multiply.  sparse_mean's
 K17 and K21 exact (their plain versions round each product and sum as
 the kernel does, in row order), K23's sorted stack exact.  centered_clip's
@@ -40,7 +41,9 @@ from repro_torch.kernels.select import (bulyan_coord_plain,
                                         krum_select_plain,
                                         masked_bulyan_coord_plain,
                                         multi_krum_order_plain)
-from repro_torch.kernels.wsum import (clipped_weighted_sum_plain,
+from repro_torch.kernels.wsum import (cge_weighted_sum_plain,
+                                      clipped_weighted_sum_plain,
+                                      masked_cge_weighted_sum_plain,
                                       masked_ordered_apply_plain,
                                       masked_weighted_sum_plain,
                                       ordered_apply_plain,
@@ -174,7 +177,8 @@ def test_cuda_launch_counters_count_launches(cuda_device):
         "scaled_coord_stat": 0, "scaled_masked_coord_stat": 0,
         "scaled_masked_sign_vote": 0, "sparse_masked_weighted_mean": 0,
         "scaled_sparse_masked_weighted_mean": 0, "coord_sort": 0,
-        "clipped_weighted_sum": 0}
+        "clipped_weighted_sum": 0, "cge_weighted_sum": 0,
+        "masked_cge_weighted_sum": 0}
     coord_stat_plain(g, "median")                  # the plain versions
     masked_coord_stat_plain(g, m, m, "median")
     assert kernels.launch_counts()["coord_stat"] == 1
@@ -369,6 +373,10 @@ def selection_gram(n, hazard, device):
     return torch.full_like(gr, math.nan) if hazard == "all_nan" else gr
 
 
+# the n of chip_smoke.py's Gram and selection sweeps
+SWEEP_N = tuple(range(1, 18)) + (24, 32, 33, 48, 64)
+
+
 def same_twice(call, plain):
     """The kernel's result bitwise equal to its plain version and to a
     repeat call."""
@@ -381,12 +389,13 @@ def same_twice(call, plain):
 @pytest.mark.cuda
 @pytest.mark.parametrize("hazard",
                          HAZARDS + ["dup", "pair", "all_nan"])
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 11, 16, 17, 32, 33, 48, 64])
+@pytest.mark.parametrize("n", SWEEP_N)
 def test_cuda_selection_kernels_match_plain(cuda_device, n, hazard):
     """K3, K8, K9, K10 on the card's own Gram, which must be bitwise
-    symmetric (K10's pair tie relies on it).  f in {0, 1, 2, (n - 3) //
-    4}; K8 keeping n - f and 1, K9 at m in {1, 2, 3}, K10 at k_total in
-    {1, 2, 3, theta, n}: k_total = n runs rounds with fewer than k other
+    symmetric (K10's pair tie relies on it), at every n of the sweep.  f
+    in {0, 1, 2, (n - 3) // 4}; K8 keeping n - f and 1, K9 at m in {1, 2,
+    3, n - f} (its picks the ranks 0 .. m - 1), K10 at k_total in {1, 2,
+    3, theta, n}: k_total = n runs rounds with fewer than k other
     candidates left (+inf keys)."""
     gr = selection_gram(n, hazard, cuda_device)
     assert_same(gr, gr.T)
@@ -397,9 +406,10 @@ def test_cuda_selection_kernels_match_plain(cuda_device, n, hazard):
         for n_keep in sorted({max(n - f, 0), 1}):
             same_twice(lambda: kernels.cge_select(gr, n_keep),
                        cge_select_plain(gr, n_keep))
-        for m in sorted({1, min(2, n), min(3, n)}):
-            same_twice(lambda: kernels.multi_krum_order(gr, f, m),
-                       multi_krum_order_plain(gr, f, m))
+        for m in sorted({1, min(2, n), min(3, n), max(n - f, 0)}):
+            order = same_twice(lambda: kernels.multi_krum_order(gr, f, m),
+                               multi_krum_order_plain(gr, f, m))
+            assert sorted(order[order < n].tolist()) == list(range(m))
         theta = max(n - 2 * f, 1)
         for k_total in sorted({min(k, n) for k in (1, 2, 3, theta, n)}):
             order = same_twice(
@@ -407,6 +417,62 @@ def test_cuda_selection_kernels_match_plain(cuda_device, n, hazard):
                 iterative_order_plain(gr, f, k_total))
             picked = sorted(order[order < n].tolist())
             assert picked == list(range(k_total))
+    torch.cuda.synchronize()
+
+
+def cge_stack(n, hazard, dtype, device):
+    g = stack(max(n, 8), 4099, 9, hazard if hazard in HAZARDS else None,
+              device, torch.float32)[:n].contiguous()
+    if hazard == "dup":
+        g[:] = g[0].clone()
+    return g.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hazard", [None, "nan", "inf", "ties", "dup",
+                                    "all_nan"])
+@pytest.mark.parametrize("n", SWEEP_N)
+def test_cuda_cge_apply_matches_the_chain(cuda_device, n, hazard, dtype):
+    """CGE's apply, sync and masked (max(n - 2, 1) arrived; with no hazard
+    from n = 4 a ghost, whose imputed row is the mean, is kept), n_keep in
+    {n - f, 1}, normalized and not: bitwise equal to its plain version, to
+    the chain it replaces recomposed from the card's K8 -> K4 (K7) -> a
+    division by a device tensor, and to a repeat.  ``nan`` / ``all_nan``
+    give NaN norms (ordered last), ``ties`` / ``dup`` equal ones."""
+    f = max(2, (n - 3) // 4)
+    x = cge_stack(n, hazard, dtype, cuda_device)
+    m = mask_of(n, "most", cuda_device)
+    wn = m / torch.clamp_min(m.sum(), 1.0)
+    mean = kernels.imputed_mean(x, wn)
+    grams = {"sync": kernels.gram(x),
+             "masked": kernels.masked_gram(x, m, wn, mean)}
+    if hazard == "all_nan":
+        grams = {k: torch.full_like(v, math.nan) for k, v in grams.items()}
+    for n_keep in sorted({max(n - f, 0), 1}):
+        keep = {k: kernels.cge_select(gr, n_keep) for k, gr in grams.items()}
+        if hazard is None and n >= 4 and n_keep == n - f:
+            assert float(keep["masked"][m <= 0.5].sum()) >= 1.0
+        for div in (None, n_keep or None):
+            chain = {"sync": kernels.weighted_sum(keep["sync"], x),
+                     "masked": kernels.masked_weighted_sum(
+                         keep["masked"], x, m, mean)}
+            if div is not None:
+                d = torch.tensor(float(div), device=cuda_device)
+                chain = {k: v / d for k, v in chain.items()}
+            calls = {
+                "sync": (lambda: kernels.cge_weighted_sum(
+                    grams["sync"], x, n_keep, div=div),
+                    cge_weighted_sum_plain(grams["sync"], x, n_keep, div)),
+                "masked": (lambda: kernels.masked_cge_weighted_sum(
+                    grams["masked"], x, m, mean, n_keep, div=div),
+                    masked_cge_weighted_sum_plain(grams["masked"], x, m,
+                                                  mean, n_keep, div))}
+            for k, (call, plain) in calls.items():
+                out = call()
+                assert_bits(out, plain)
+                assert_bits(out, chain[k])
+                assert_bits(out, call())
     torch.cuda.synchronize()
 
 
@@ -450,11 +516,12 @@ def test_cuda_ordered_apply_and_bulyan_coord_match_plain(cuda_device, n,
 
 @pytest.mark.cuda
 def test_cuda_selection_compositions_count_their_launches(cuda_device):
-    """Each composition launches its kernels once: cge K2 K8 K4,
+    """Each composition launches its kernels once: cge K2 and its apply
+    (K4 under the CGE flag, K8 folded in: no K8 and no K4 launch),
     multi_krum K2 K9 K11, m_krum K2 K10 K11, mda K2 K11, bulyan K2 K10
     K13."""
     g = torch.randn(11, 5000, device=cuda_device)
-    want = {"cge": ("gram", "cge_select", "weighted_sum"),
+    want = {"cge": ("gram", "cge_weighted_sum"),
             "multi_krum": ("gram", "multi_krum_order", "ordered_apply"),
             "m_krum": ("gram", "iterative_order", "ordered_apply"),
             "mda": ("gram", "ordered_apply"),
@@ -576,14 +643,15 @@ def test_cuda_sign_votes_match_plain(cuda_device, n, hazard, dtype):
 @pytest.mark.cuda
 def test_cuda_masked_compositions_count_their_launches(cuda_device):
     """Each masked composition launches its kernels once: the imputed mean
-    (K4) and K6, then cge K8 K7, multi_krum K9 K12, m_krum K10 K12, mda
-    K12, bulyan K10 K14; sign_sgd K16 (and K15 unmasked)."""
+    (K4) and K6, then cge its masked apply (K7 under the CGE flag, K8
+    folded in), multi_krum K9 K12, m_krum K10 K12, mda K12, bulyan K10
+    K14; sign_sgd K16 (and K15 unmasked)."""
     g = torch.randn(11, 5000, device=cuda_device)
     m = torch.ones(11, device=cuda_device)
     m[[2, 7]] = 0.0
     wn = m / m.sum()
     imputed = ("weighted_sum", "masked_gram")
-    want = {"cge": imputed + ("cge_select", "masked_weighted_sum"),
+    want = {"cge": imputed + ("masked_cge_weighted_sum",),
             "multi_krum": imputed + ("multi_krum_order",
                                      "masked_ordered_apply"),
             "m_krum": imputed + ("iterative_order", "masked_ordered_apply"),
