@@ -16,7 +16,7 @@ failure exits non-zero without a result line):
                library yardstick, and the bound;
 3. train     — the main path: the synchronous Byzantine-robust step on the
                full-width paper-100m (bf16, n = 8, f = 2, sign_flip,
-               seq 256, 2 sequences per agent, remat on), 3 steps each of
+               seq 256, 2 sequences per agent, remat on), 2 steps each of
                trimmed_mean, coordinate_median and krum through
                ``train_loop`` with impl="auto", after one untimed warm-up
                step per rule; the launch counts must show that every
@@ -42,7 +42,7 @@ The async path (ROADMAP.md slice 2) adds:
 3b. async    — the full-width configuration of phase 3 under stragglers
                (lognormal 0.8, quorum 6, max staleness 3: 6 deliveries and
                staleness up to 2 every step, no step pure) through
-               ``train_loop(sim=...)``: 1 warm-up step, then 4 timed steps
+               ``train_loop(sim=...)``: 1 warm-up step, then 2 timed steps
                per rule; the launch counts must show one K5 per step
                (median, trimmed) or one each of K4 (the imputed mean), K6,
                K3 and K7 (krum).  Then the elastic trimmed_mean
@@ -75,7 +75,7 @@ The selection family (ROADMAP.md slice 3) adds:
                beside its predicted ms;
 3c. selection train — the phase-3 configuration for cge, multi_krum (m
                = 3), m_krum (m = 3) and mda at n = 8 and bulyan at n = 11
-               (f = 2): 1 warm-up step, then 2 timed steps per rule; the
+               (f = 2): 1 warm-up step, then 1 timed step per rule; the
                launch counts must show K2 and CGE's apply (cge), K2, K9, K11
                (multi_krum), K2, K10, K11 (m_krum), K2, K11 (mda) and K2,
                K10, K13 (bulyan) once per step; a traced step of cge,
@@ -104,7 +104,7 @@ The masked selection family and sign_sgd (ROADMAP.md slice 3b) add:
 3d. async selection — cge, multi_krum (m = 3), m_krum (m = 3), mda and
                sign_sgd at n = 8 under the phase-3b stragglers, bulyan at
                n = 11 with quorum 9 (9 of 11 arrive, no step pure): 1
-               warm-up step, then 2 timed steps per rule; the launch
+               warm-up step, then 1 timed step per rule; the launch
                counts must show K4 (the imputed mean) and K6, then cge
                its masked apply, multi_krum K9 K12, m_krum K10 K12, mda
                K12, bulyan K10 K14, and sign_sgd K16, once a step; a
@@ -144,7 +144,7 @@ slice 4a), adds:
 3x. compressed train — the phase-3 configuration with agg_dtype int8 and
                fp8, and the phase-3b stragglers with int8, for
                coordinate_median, trimmed_mean, sign_sgd and krum: 1
-               warm-up step, then 2 timed steps per rule; the launch
+               warm-up step, then 1 timed step per rule; the launch
                counts must show K18 (sync median, trimmed), K15 (sync
                sign), K19 (async median, trimmed), K20 (async sign) once a
                step, and krum its usual kernels and one engine-level
@@ -175,9 +175,9 @@ sparse_mean (ROADMAP.md slice 4b) and the legacy ``ops`` sort paths add:
                counts (K23 twice, K2 once), against the gather laws; times
                against ``torch.sort(dim=0)`` and the bound;
 3s. sparse train — sparse_mean (f = 2, sign_flip: the rule ignores f)
-               through ``train_loop``: 1 warm-up and 3 timed synchronous
-               steps, 1 + 4 async steps under the phase-3b stragglers,
-               and 1 + 2 steps each of int8 and fp8 sync and int8 async;
+               through ``train_loop``: 1 warm-up and 2 timed synchronous
+               steps, 1 + 2 async steps under the phase-3b stragglers,
+               and 1 + 1 steps each of int8 and fp8 sync and int8 async;
                the launch counts must show one K17 (compressed: one K21)
                a step and no other kernel; a traced sync and async step;
 4s. sparse kernel vs gather — one full-width step each (sync, async,
@@ -385,6 +385,28 @@ K7's kernels under their CGE flag: CGE launches K2 and the apply, K4
                and a repeat; K9 and the applies timed beside their
                predicted ms.
 
+Selection telemetry, the flight recorder and checkpoints (ROADMAP.md
+items 19 and 19a) add:
+
+3t. telemetry — sync krum, multi_krum (m = 3), cge and trimmed_mean, async
+               krum under the phase-3b stragglers and the elastic
+               trimmed_mean under churn (n = 8, f = 2, sign_flip), each 2
+               steps through ``train_loop`` from seed 0 without and with a
+               Recorder (telemetry on), deterministic algorithms on for
+               both: the parameters and losses bitwise equal, every
+               step's sel_w summing to 1 within 1e-6, the launches a step
+               differing by the selection chain alone (krum K2 K3, multi_
+               krum K2 K9, cge K2 K8, async krum K4 K6 K3, the coordinate
+               rules none), the churn run within its build budget; sync
+               krum's hot row, cast to fp32, equal to its aggregate and
+               multi_krum's support K9's first m picks.  The recorded krum
+               run writes a full-width checkpoint (restored bitwise into a
+               like-tree, rewritten with its seconds and bytes) and a
+               trace (the report renders; its Chrome trace parses).  The
+               main phases' depth was cut to pay for it: phases 3 / 3b /
+               3s from 3 / 4 timed steps to 2, phases 3c / 3d and the
+               compressed 3x / 3s from 2 to 1.
+
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
 not available.
@@ -408,12 +430,12 @@ MEM_BPS = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 N, F = 8, 2
 TOL = 3e-6                  # the fp32 kernel bar (trimmed mean, Gram, wsum)
-SEQ, PER_AGENT, STEPS = 256, 2, 3
+SEQ, PER_AGENT, STEPS = 256, 2, 2
 RULES = ("trimmed_mean", "coordinate_median", "krum")
 RULE_KERNELS = {"trimmed_mean": ("coord_stat",),
                 "coordinate_median": ("coord_stat",),
                 "krum": ("gram", "krum_select", "weighted_sum")}
-ASYNC_STEPS = 4
+ASYNC_STEPS = 2
 # the async rules: rule -> (n, quorum, hyper, the kernels of one masked
 # step); the selection family's table is ASYNC_SEL_RULES below
 ASYNC_RULES = {
@@ -490,7 +512,7 @@ SEL_RULES = {
     "mda": (N, {}, ("gram", "ordered_apply")),
     "bulyan": (11, {}, ("gram", "iterative_order", "bulyan_coord")),
 }
-SEL_STEPS = 2
+SEL_STEPS = 1
 SIGN_RULES = {"sign_sgd": (N, {}, ("sign_vote",))}
 # the async selection family and sign_sgd: rule -> (n, quorum, hyper, the
 # kernels of one masked step)
@@ -506,7 +528,7 @@ ASYNC_SEL_RULES = {
     "bulyan": (11, 9, {}, IMPUTED + ("iterative_order",
                                      "masked_bulyan_coord")),
 }
-ASYNC_SEL_STEPS = 2
+ASYNC_SEL_STEPS = 1
 # the compressed exchange (agg_dtype): the quantized dtypes, and rule -> (n,
 # hyper, the kernels of one step) of the synchronous step and (n, quorum,
 # hyper, the kernels of one masked step) of the async one; krum takes the
@@ -524,7 +546,7 @@ ASYNC_QUANT_RULES = {
     "sign_sgd": (N, 6, {}, ("scaled_masked_sign_vote",)),
     "krum": ASYNC_RULES["krum"],
 }
-QUANT_STEPS = 2
+QUANT_STEPS = 1
 # the rules whose quantized arena is dequantized at engine level (a count
 # per step, read in phase 3x)
 DEQUANT_RULES = ("krum",)
@@ -4957,6 +4979,248 @@ def phase_rules15_train(cfg):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# selection telemetry, the flight recorder and checkpoints (ROADMAP.md items
+# 19 and 19a)
+
+TELEMETRY_STEPS = 2
+# label -> (rule, hyper, trace, the selection chain the telemetry adds a
+# step: the kernels that name the rows the aggregate used)
+TELEMETRY_RUNS = {
+    "krum": ("krum", {}, None, ("gram", "krum_select")),
+    "multi_krum": ("multi_krum", {"m": 3}, None,
+                   ("gram", "multi_krum_order")),
+    "cge": ("cge", {}, None, ("gram", "cge_select")),
+    "trimmed_mean": ("trimmed_mean", {}, None, ()),
+    "async_krum": ("krum", {}, "stragglers",
+                   ("weighted_sum", "masked_gram", "krum_select")),
+    "churn": ("trimmed_mean", {}, "churn", ()),
+}
+
+
+def telemetry_checked(spec, checks):
+    """A copy of ``spec`` whose synchronous ``selection_weights`` (the
+    loop's telemetry, called right after ``aggregate_flat`` on the same
+    arena) checks the weights against the aggregate: Krum's hot row, cast
+    to fp32, equals the aggregate bitwise; multi-Krum's support is K9's
+    first m picks.  The checks' own launches are taken back out of the
+    counts; each result lands in ``checks``."""
+    from repro_torch import kernels
+    from repro_torch.core.aggregators import AggregatorSpec
+    last = {}
+
+    class Checked(AggregatorSpec):
+        def aggregate_flat(self, stack, mask=None, weights=None, state=None,
+                           scale=None):
+            last["out"] = super().aggregate_flat(stack, mask, weights, state,
+                                                 scale)
+            return last["out"]
+
+        def selection_weights(self, grads, mask=None, weights=None,
+                              state=None):
+            sel = super().selection_weights(grads, mask, weights, state)
+            out = last.pop("out", None)
+            if mask is None and weights is None:
+                counts = kernels.launch_counts()
+                if self.name == "krum":
+                    hot = int(torch.argmax(sel))
+                    checks.append(("hot_row_is_aggregate", torch.equal(
+                        grads[hot].float(), out)))
+                else:
+                    m = self.hp("m", 2)
+                    order = kernels.multi_krum_order(kernels.gram(grads),
+                                                     self.f, m)
+                    checks.append(("support_is_k9_picks",
+                                   torch.equal(sel > 0, order < m)))
+                for name, fn in kernels.WRAPPERS.items():
+                    fn.launches = counts[name]
+            return sel
+
+    return Checked(**{f.name: getattr(spec, f.name)
+                      for f in dataclasses.fields(spec)})
+
+
+def telemetry_run(cfg, bz, sim, recorder=None, ckpt_dir=None):
+    """``TELEMETRY_STEPS`` steps through ``train_loop`` from seed 0, the
+    launch and build counts reset just before and read just after; ->
+    (params, losses, step ms, peak GB, launches, builds)."""
+    from repro_torch import kernels
+    from repro_torch.data import SyntheticLM
+    from repro_torch.obs.counters import counter_delta, snapshot
+    from repro_torch.optim import adamw, constant
+    from repro_torch.training import train_loop
+
+    ds = SyntheticLM(cfg.vocab_size, SEQ, bz.n_agents, PER_AGENT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = snapshot()
+    kernels.reset_launch_counts()
+    params, hist = train_loop(cfg, bz, adamw(constant(1e-4)), ds,
+                              steps=TELEMETRY_STEPS, seed=0, device=DEVICE,
+                              sim=sim, log_every=1, log_fn=lambda s: None,
+                              recorder=recorder, ckpt_dir=ckpt_dir)
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    wall = [h["wall_s"] for h in hist]
+    step_ms = [1e3 * (b - a) for a, b in zip([0.0] + wall[:-1], wall)]
+    return (params, [h["loss"] for h in hist], step_ms,
+            torch.cuda.max_memory_allocated() / 1e9, counts,
+            counter_delta(before))
+
+
+def telemetry_checkpoint(cfg, params, ckpt_dir):
+    """The recorded krum run's checkpoint (written by the loop after its
+    last step) restored into a like-tree: the parameters bitwise; then
+    the same tree written again, timed, with its size."""
+    import shutil
+
+    from repro_torch.checkpoint import latest_step, restore, save
+    from repro_torch.optim import adamw, constant
+    from repro_torch.tree import tree_items
+
+    like = {"params": params, "opt": adamw(constant(1e-4)).init(params)}
+    t0 = time.perf_counter()
+    tree, step = restore(ckpt_dir, like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same_params = all(torch.equal(a, b.detach()) for (_, a), (_, b) in zip(
+        tree_items(tree["params"]), tree_items(params)))
+    t0 = time.perf_counter()
+    path = save(ckpt_dir, step + 1, tree)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    ok = (same_params and step == TELEMETRY_STEPS
+          and tree["opt"]["step"] == TELEMETRY_STEPS
+          and latest_step(ckpt_dir) == step + 1)
+    emit("telemetry_checkpoint", ok=ok, step=step, bytes=size,
+         save_s=save_s, restore_s=restore_s, params_bitwise=same_params)
+    shutil.rmtree(ckpt_dir)
+    if not ok:
+        fail(f"checkpoint of the recorded krum run: step {step}, params "
+             f"bitwise {same_params}")
+
+
+def telemetry_report(path):
+    """The recorded krum run's trace: the report renders its tables, and
+    its Chrome trace, written beside it, parses."""
+    from repro_torch.obs.recorder import chrome_trace, read_trace
+    from repro_torch.obs.report import render_report
+
+    events = read_trace(path)
+    text = render_report(events)
+    chrome = path[:-len(".jsonl")] + ".json"
+    with open(chrome, "w") as fh:
+        json.dump(chrome_trace(events), fh)
+    with open(chrome) as fh:
+        spans = sum(e["ph"] == "X" for e in json.load(fh)["traceEvents"])
+    ok = (spans == TELEMETRY_STEPS and "per-agent suspicion" in text
+          and "rule=krum  impl=kernel" in text)
+    emit("telemetry_report", ok=ok, events=len(events), chrome_spans=spans,
+         report=text.splitlines()[:16])
+    os.remove(chrome)
+    os.remove(path)
+    if not ok:
+        fail(f"the recorded trace's report or Chrome trace: {text!r}")
+
+
+def phase_telemetry(cfg):
+    """Each run of ``TELEMETRY_RUNS`` (n = 8, f = 2, sign_flip) for
+    ``TELEMETRY_STEPS`` steps from seed 0 without and with a Recorder
+    (selection telemetry on), deterministic algorithms on for both: the
+    parameters and losses bitwise equal; every step's sel_w summing to 1
+    within 1e-6; the launches a step differing by the selection chain
+    alone; the churn run within its build budget (<= one async step a
+    bucket, <= one synchronous step); sync krum's hot row equal to its
+    aggregate and multi_krum's support K9's first m picks
+    (:func:`telemetry_checked`).  The recorded krum run also writes a
+    full-width checkpoint (:func:`telemetry_checkpoint`) and a trace
+    (:func:`telemetry_report`).  Returns the launches of all runs."""
+    from repro_torch.core.aggregators import elastic, frac, make_spec
+    from repro_torch.obs import Recorder
+    from repro_torch.obs.telemetry import agent_series
+    from repro_torch.simulator import Churn, SimConfig
+    from repro_torch.training import ByzantineConfig
+    from repro_torch.tree import tree_leaves
+
+    totals = {k: 0 for k in SOURCES}
+    scratch = os.path.join(HERE, "build", "smoke_telemetry")
+    os.makedirs(scratch, exist_ok=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for label, (rule, hyper, trace, chain) in TELEMETRY_RUNS.items():
+        sim, spec = None, make_spec(rule, f=F, n=N, **hyper)
+        if trace == "stragglers":
+            sim = straggler_sim()
+        elif trace == "churn":
+            sim = SimConfig(faults=(Churn(rate=0.25, mean_out=2.0),),
+                            seed=0)
+            spec = make_spec(rule, f=frac(0.25), n=elastic(N, (4, 6, 8)))
+        checks = []
+        runs = {}
+        for on in (False, True):
+            rec = ckpt = None
+            if on:
+                rec = Recorder(os.path.join(scratch, f"{label}.jsonl")
+                               if label == "krum" else None)
+                ckpt = (os.path.join(scratch, "ckpt") if label == "krum"
+                        else None)
+            bz = ByzantineConfig(
+                n_agents=N, f=F, attack="sign_flip", remat=True,
+                aggregator=(telemetry_checked(spec, checks)
+                            if on and rule in ("krum", "multi_krum")
+                            and trace is None else spec))
+            params, *rest = telemetry_run(cfg, bz, sim, rec, ckpt)
+            if on:
+                rec.close()
+                p_on = params
+            # the parameters wait on the host, out of the next run's peak
+            runs[on] = ([leaf.detach().cpu() for leaf in tree_leaves(params)],
+                        *rest)
+            del params
+        (h_off, l_off, ms_off, gb_off, c_off, b_off) = runs[False]
+        (h_on, l_on, ms_on, gb_on, c_on, b_on) = runs[True]
+        bitwise = all(torch.equal(a, b) for a, b in zip(h_off, h_on))
+        sel = agent_series(rec.events)["sel_w"]
+        sums = sel.sum(axis=1).tolist()
+        want = {k: c_off[k] + (TELEMETRY_STEPS if k in chain else 0)
+                for k in SOURCES}
+        budget = (b_on.get("async_step", 0) <= 3
+                  and b_on.get("train_step", 0) <= 1)
+        ok = (bitwise and l_off == l_on and c_on == want and budget
+              and len(sums) == TELEMETRY_STEPS
+              and all(abs(s - 1.0) <= 1e-6 for s in sums)
+              and all(c for _, c in checks)
+              and len(checks) == (TELEMETRY_STEPS if rule in (
+                  "krum", "multi_krum") and trace is None else 0))
+        per_step = {s: {k: v / TELEMETRY_STEPS for k, v in c.items() if v}
+                    for s, c in (("off", c_off), ("on", c_on))}
+        emit("telemetry", run=label, rule=rule, trace=trace,
+             steps=TELEMETRY_STEPS, ok=ok, params_bitwise=bitwise,
+             losses=l_on, losses_equal=l_off == l_on,
+             step_ms_off=ms_off, step_ms_on=ms_on,
+             median_step_ms_off=statistics.median(ms_off),
+             median_step_ms_on=statistics.median(ms_on),
+             peak_gb_off=gb_off, peak_gb_on=gb_on,
+             launches_per_step_off=per_step["off"],
+             launches_per_step_on=per_step["on"], chain=list(chain),
+             builds_on=b_on, sel_w_sums=sums,
+             sel_w=[[round(w, 6) for w in row] for row in sel.tolist()],
+             checks=checks)
+        if not ok:
+            fail(f"telemetry {label}: bitwise {bitwise}, losses {l_off} / "
+                 f"{l_on}, launches {c_on} against {want}, builds {b_on}, "
+                 f"sel_w sums {sums}, checks {checks}")
+        if label == "krum":
+            telemetry_checkpoint(cfg, p_on, os.path.join(scratch, "ckpt"))
+            telemetry_report(rec.path)
+        for c in (c_off, c_on):
+            for k, v in c.items():
+                totals[k] += v
+        del p_on, runs
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    return totals
+
+
 def main():
     # deterministic cuBLAS for the kernel-vs-gather phase: set before the
     # first CUDA call
@@ -5031,6 +5295,7 @@ def main():
         note(summary, name, err)
     coded_totals = [coded_totals, phase_coded_async(cfg),
                     phase_coded_elastic(cfg)]
+    tel_totals = phase_telemetry(cfg)
     # m_krum and mda run no kernel that multi_krum's and bulyan's traced
     # steps leave out (K2, K10, K11), so they are not traced
     phase_profile(cfg, {"trimmed_mean": (N, {}, ()), "krum": (N, {}, ()),
@@ -5062,7 +5327,8 @@ def main():
                                   + sum(t[name] for t in sparse_totals)
                                   + memory_totals[name]
                                   + rules15_totals[name]
-                                  + sum(t[name] for t in coded_totals)),
+                                  + sum(t[name] for t in coded_totals)
+                                  + tel_totals[name]),
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": s["bound_by"],

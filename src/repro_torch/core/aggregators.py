@@ -89,8 +89,20 @@ inner f capped at (k - 1) // 2 of the k buckets; synchronous only) and
 ROUNDS, turned into discounts: ``staleness_aware``, so the async loop,
 which passes discounts, refuses it).  In JAX the wrappers and zeno run
 only on the tree engine; the port gives each a flat law (the loops take
-the arena) and a tree route that is the JAX tree law.  Selection
-telemetry comes with slice 7.
+the arena) and a tree route that is the JAX tree law.
+
+Selection telemetry (``spec.selection_weights``, read by
+:mod:`repro_torch.obs`): the (n,) per-agent weights the rule applied.
+The weight-decomposable rules (``AggregatorCaps.weight_decomposable``,
+``AggregatorDef.weights_fn``) report their own application weights; on
+the kernel impl the pairwise rules read them off the selection kernels
+their aggregate launches (K2 -> K3 / K8 / K9 / K10, masked K4 -> K6
+first), so they name the rows the aggregate used; bulyan reports its
+theta picks, centered_clip the clip weights of its final iterate,
+zeno_pp its acceptance weights, the coordinate-wise and iterative rules
+their participation (the normalized delivery weights), and the wrappers
+transform and recurse.  The weights are computed apart from the
+aggregate and never feed it.
 """
 from __future__ import annotations
 
@@ -252,6 +264,7 @@ class AggregatorCaps:
     slices add the JAX package's other flags with the code that reads
     them."""
     coordwise: bool = False           # per-coordinate rule
+    weight_decomposable: bool = False  # aggregate == sum_i w_i g_i exactly
     pairwise: bool = False            # statistics derivable from the Gram
     stateful: bool = False            # carries init_state/update_state
     staleness_aware: bool = False     # ``weights`` = raw staleness ROUNDS,
@@ -267,6 +280,7 @@ class AggregatorDef:
     gather_keys: frozenset         # hyper forwarded to the dense gather fn
     impl_keys: frozenset           # impl-only keys (accepted, not stored)
     dense_fn: Optional[Callable] = None    # (stack, f, **hyper) -> (P,)
+    weights_fn: Optional[Callable] = None  # (spec, stack, state) -> (n,)
     # masked-law override (stack, wn) -> (P,) fp32, wn = w / tot: rules
     # whose masked law is not impute-then-scale (mean's exact weighted
     # mean of the arrived rows)
@@ -295,7 +309,8 @@ REGISTRY: dict[str, AggregatorDef] = {}
 def register_aggregator(name: str, *, caps: AggregatorCaps,
                         hyper: tuple = (), gather: tuple = (),
                         impl_keys: tuple = (), dense_fn=None,
-                        masked_fn=None, flat_fn=None, custom_fn=None,
+                        weights_fn=None, masked_fn=None, flat_fn=None,
+                        custom_fn=None,
                         gather_state=None, state_keys: tuple = (),
                         init_state=None, update_state=None,
                         is_wrapper: bool = False, tags: tuple = ()):
@@ -305,8 +320,8 @@ def register_aggregator(name: str, *, caps: AggregatorCaps,
     REGISTRY[name] = AggregatorDef(
         name=name, caps=caps, hyper_keys=frozenset(hyper),
         gather_keys=frozenset(gather), impl_keys=frozenset(impl_keys),
-        dense_fn=dense_fn, masked_fn=masked_fn, flat_fn=flat_fn,
-        custom_fn=custom_fn, gather_state_fn=gather_state,
+        dense_fn=dense_fn, weights_fn=weights_fn, masked_fn=masked_fn,
+        flat_fn=flat_fn, custom_fn=custom_fn, gather_state_fn=gather_state,
         state_keys=frozenset(state_keys),
         init_state_fn=init_state, update_state_fn=update_state,
         is_wrapper=is_wrapper, tags=tuple(tags))
@@ -494,6 +509,59 @@ class AggregatorSpec:
             mask = torch.ones((stack.shape[0],), dtype=torch.bool,
                               device=stack.device)
         return _flat_masked_vec(self, d, stack, mask, weights, scale, state)
+
+    # -- aggregation telemetry (repro_torch.obs) --------------------------
+    def weights(self, grads, state=None):
+        """Per-agent weights w with aggregate(g) == sum_i w_i g_i, only for
+        the weight-decomposable rules (their dense law, whatever the
+        impl).  ``grads``: an (n, P) stack or a tree."""
+        d = get_aggregator_def(self.name)
+        if not d.caps.weight_decomposable:
+            raise ValueError(f"{self.name} is not weight-decomposable")
+        if d.caps.stateful and state is None:
+            raise ValueError(
+                f"{self.name} is stateful: pass state=spec.init_state(...)")
+        return d.weights_fn(self, _as_stack(grads), state)
+
+    def selection_weights(self, grads, mask=None, weights=None, state=None):
+        """(n,) fp32 per-agent selection / application weights, the
+        telemetry signal of the detection-based defenses (see the module
+        docstring for each rule class).  ``grads``: an (n, P) stack (the
+        loops pass the fp32 arena, the pre-quantization one under a
+        quantized exchange) or a tree; ``mask`` / ``weights`` as for
+        :meth:`aggregate_flat`.  Computed apart from the aggregate: it
+        re-runs the rule's selection and never feeds the aggregate."""
+        self._check_state(state)
+        return _selection_weights(self, get_aggregator_def(self.name),
+                                  _as_stack(grads), mask, weights, state)
+
+    def aggregate_with_telemetry(self, grads, mask=None, weights=None,
+                                 state=None):
+        """:meth:`aggregate` plus the telemetry struct ``{"sel_w": (n,)
+        fp32, "mask": (n,) bool, "contrib_w": (n,) fp32}``; the aggregate
+        is the same call's, bit for bit."""
+        agg = self.aggregate(grads, mask=mask, weights=weights, state=state)
+        return agg, self._telemetry(grads, mask, weights, state)
+
+    def aggregate_flat_with_telemetry(self, stack, mask=None, weights=None,
+                                      state=None, scale=None):
+        """:meth:`aggregate_flat` plus the telemetry struct (see
+        :meth:`aggregate_with_telemetry`); a quantized arena's weights are
+        those of its decoded rows."""
+        vec = self.aggregate_flat(stack, mask=mask, weights=weights,
+                                  state=state, scale=scale)
+        rows = stack if scale is None else dequantize_rows(stack, scale)
+        return vec, self._telemetry(rows, mask, weights, state)
+
+    def _telemetry(self, grads, mask, weights, state):
+        stack = _as_stack(grads)
+        n = stack.shape[0]
+        m = (torch.ones((n,), dtype=torch.bool, device=stack.device)
+             if mask is None else mask.to(torch.bool))
+        cw = m.float() if weights is None else weights.float() * m.float()
+        sel = self.selection_weights(stack, mask=mask, weights=weights,
+                                     state=state)
+        return {"sel_w": sel.float(), "mask": m, "contrib_w": cw}
 
 
 @functools.lru_cache(maxsize=None)
@@ -756,6 +824,177 @@ def _per_dtype(cols, aggregate, finish):
     return outs
 
 
+# ---------------------------------------------------------------------------
+# engine: selection-weight telemetry (repro_torch.obs): one (n,) read-out
+# per rule class, mirroring the aggregate laws above.  The aggregate is
+# never computed through this path, so telemetry cannot perturb it.
+
+
+def _as_stack(grads):
+    """The (n, P) stack of ``grads``: itself, or a tree's ravel (in its
+    uniform leaf dtype, else fp32)."""
+    if isinstance(grads, torch.Tensor):
+        return grads
+    return FlatPlan.for_tree(grads).ravel(grads)
+
+
+def _participation(n, mask, weights, device):
+    """The normalized delivery weights: the read-out of the rules without
+    a per-row application decomposition (every arrived row enters a
+    coordinate-wise or iterative rule's statistics)."""
+    if mask is None and weights is None:
+        return torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.bool, device=device)
+    _, w, _, tot = _masked_prelude(mask, weights)
+    return w / tot
+
+
+def _bulyan_theta_select(d2, n, f, theta):
+    """Bulyan's Krum-based selection stage on the distances ``d2``: the
+    (n,) bool mask of its theta picks (the dense law's own, shared with
+    :func:`repro_torch.core.filters.dense.bulyan`)."""
+    rows = torch.arange(n, device=d2.device)
+    sel = torch.zeros((n,), dtype=torch.bool, device=d2.device)
+    for i in D.iterated_krum_picks(d2, f, theta):
+        sel = sel | (rows == i)
+    return sel
+
+
+def _selection_weights(spec, d, stack, mask, weights, state):
+    name = spec.name
+    n = stack.shape[0]
+    if d.is_wrapper:
+        # the row transform of the wrapper's flat law, then the inner
+        # rule's selection
+        inner_state = _inner_state(spec, state)
+        if name == "clipped":
+            xf = stack.float()
+            scale = _clip_scale(torch.sum(torch.square(xf), dim=1),
+                                spec.hp("tau", 1.0))
+            return spec.inner.selection_weights(
+                (xf * scale[:, None]).to(stack.dtype), mask, weights,
+                inner_state)
+        if name == "staleness_discounted":
+            return spec.inner.selection_weights(
+                stack, mask, _staleness_w(spec, weights, n, stack.device),
+                inner_state)
+        if name == "server_momentum":
+            # the momentum mixes the output; the rows enter as they are
+            return spec.inner.selection_weights(stack, mask, weights,
+                                                inner_state)
+        # bucketed: rows enter through their group means
+        return _participation(n, mask, weights, stack.device)
+    if name == "zeno_pp":
+        return zeno_pp_weights(spec, stack.float(), mask, weights, state)
+    if name == "centered_clip":
+        # the clip weights of the final iterate, normalized: a row the
+        # carried center distrusts reports a smaller share
+        lam = cclip_weights(spec, stack, mask, weights, state)
+        tot = torch.sum(lam)
+        return torch.where(tot > 0, lam / torch.clamp_min(tot, 1e-30), lam)
+    # bulyan reports its theta picks (its krum base only: a generic base
+    # reports participation)
+    law = d.weights_fn
+    if name == "bulyan":
+        law = _w_bulyan if spec.hp("base", "krum") == "krum" else None
+    if law is None:
+        return _participation(n, mask, weights, stack.device)
+    if mask is None and weights is None:
+        if spec.impl == "kernel":
+            from repro_torch.kernels import kernel_selection_weights
+            return kernel_selection_weights(name, stack, spec.f,
+                                            dict(spec.hyper))
+        return law(spec, stack, state)
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.bool, device=stack.device)
+    m, w, _, tot = _masked_prelude(mask, weights)
+    if name == "mean":
+        # exact: the masked mean applies w / tot directly
+        return w / tot
+    # the masked law: the rule's weights over the mean-imputed stack (the
+    # aggregate also scales by tot / cnt, a global factor)
+    if spec.impl == "kernel":
+        from repro_torch.kernels import kernel_selection_weights
+        return kernel_selection_weights(name, stack, spec.f,
+                                        dict(spec.hyper), mask=m.float(),
+                                        wn=w / tot)
+    from repro_torch.kernels import ref
+    return law(spec, ref.masked_impute_ref(stack, m, w / tot), state)
+
+
+# the dense weight laws: (spec, (n, P) stack, state) -> (n,) fp32, each
+# the selection of its rule's dense law in :mod:`.filters.dense`
+
+
+def _picked(n, idx, value, device):
+    """(n,) fp32: ``value`` on the rows ``idx``, 0 elsewhere."""
+    return torch.zeros((n,), dtype=torch.float32,
+                       device=device).index_fill(0, idx.reshape(-1), value)
+
+
+def _w_mean(spec, g, state):
+    n = g.shape[0]
+    return torch.full((n,), 1.0 / n, dtype=torch.float32, device=g.device)
+
+
+def _w_cge(spec, g, state):
+    n, f = g.shape[0], spec.f
+    keep = D._ascending(torch.linalg.vector_norm(g.float(), dim=-1), n - f)
+    return _picked(n, keep, 1.0 / (n - f) if spec.hp("normalize", True)
+                   else 1.0, g.device)
+
+
+def _w_cgc(spec, g, state):
+    n, f = g.shape[0], spec.f
+    norms = torch.linalg.vector_norm(g.float(), dim=-1)
+    tau = torch.sort(norms).values[n - f - 1]
+    w = torch.clamp_max(tau / torch.clamp_min(norms, 1e-30), 1.0)
+    return w / n if spec.hp("normalize", True) else w
+
+
+def _w_zeno(spec, g, state):
+    n, f = g.shape[0], spec.f
+    gf = g.float()
+    v = _server_grad(state, g.shape[1])
+    score = (spec.hp("lr", 1.0) * (gf @ v)
+             - spec.hp("rho", 1e-3) * torch.sum(torch.square(gf), dim=-1))
+    return _picked(n, D._top_k_order(score, n - f), 1.0 / (n - f),
+                   g.device)
+
+
+def _w_krum(spec, g, state):
+    s = D.krum_scores(D.pairwise_sq_dists(g.float()), spec.f)
+    return _picked(g.shape[0], torch.argmin(s), 1.0, g.device)
+
+
+def _w_multi_krum(spec, g, state):
+    m = spec.hp("m", 2)
+    s = D.krum_scores(D.pairwise_sq_dists(g.float()), spec.f)
+    return _picked(g.shape[0], D._ascending(s, m), 1.0 / m, g.device)
+
+
+def _w_m_krum(spec, g, state):
+    m = spec.hp("m", 2)
+    picks = D.iterated_krum_picks(D.pairwise_sq_dists(g.float()), spec.f, m)
+    return _picked(g.shape[0], torch.stack(picks), 1.0 / m, g.device)
+
+
+def _w_mda(spec, g, state):
+    n, f = g.shape[0], spec.f
+    best = D.mda_subset(D.pairwise_sq_dists(g.float()), f)
+    return _picked(n, best, 1.0 / (n - f), g.device)
+
+
+def _w_bulyan(spec, g, state):
+    """1/theta on Bulyan's theta picks (its krum base; telemetry only:
+    the coordinate stage makes the aggregate no weighted sum)."""
+    n, f = g.shape[0], spec.f
+    theta = n - 2 * f
+    sel = _bulyan_theta_select(D.pairwise_sq_dists(g.float()), n, f, theta)
+    return sel.float() / theta
+
+
 _FUSED_MSG = ("impl='fused' (the leaf-wise, sharding-aware impl) is not "
               "ported yet: ROADMAP.md slice 11")
 
@@ -878,28 +1117,30 @@ def _mean_masked(stack, wn):
 
 register_aggregator(
     "mean",
-    caps=AggregatorCaps(),
-    dense_fn=D.mean, masked_fn=_mean_masked)
+    caps=AggregatorCaps(weight_decomposable=True),
+    dense_fn=D.mean, weights_fn=_w_mean, masked_fn=_mean_masked)
 register_aggregator(
     "krum",
-    caps=AggregatorCaps(pairwise=True),
-    dense_fn=D.krum)
+    caps=AggregatorCaps(weight_decomposable=True, pairwise=True),
+    dense_fn=D.krum, weights_fn=_w_krum)
 register_aggregator(
     "multi_krum",
-    caps=AggregatorCaps(pairwise=True),
-    hyper=("m",), gather=("m",), dense_fn=D.multi_krum)
+    caps=AggregatorCaps(weight_decomposable=True, pairwise=True),
+    hyper=("m",), gather=("m",), dense_fn=D.multi_krum,
+    weights_fn=_w_multi_krum)
 register_aggregator(
     "m_krum",
-    caps=AggregatorCaps(pairwise=True),
-    hyper=("m",), gather=("m",), dense_fn=D.m_krum)
+    caps=AggregatorCaps(weight_decomposable=True, pairwise=True),
+    hyper=("m",), gather=("m",), dense_fn=D.m_krum, weights_fn=_w_m_krum)
 register_aggregator(
     "mda",
-    caps=AggregatorCaps(pairwise=True),
-    dense_fn=D.mda)
+    caps=AggregatorCaps(weight_decomposable=True, pairwise=True),
+    dense_fn=D.mda, weights_fn=_w_mda)
 register_aggregator(
     "cge",
-    caps=AggregatorCaps(pairwise=True),
-    hyper=("normalize",), gather=("normalize",), dense_fn=D.cge)
+    caps=AggregatorCaps(weight_decomposable=True, pairwise=True),
+    hyper=("normalize",), gather=("normalize",), dense_fn=D.cge,
+    weights_fn=_w_cge)
 register_aggregator(
     "bulyan",
     caps=AggregatorCaps(pairwise=True),
@@ -928,8 +1169,9 @@ register_aggregator(
     impl_keys=("native_dtype",), dense_fn=D.mean_around_median)
 register_aggregator(
     "cgc",
-    caps=AggregatorCaps(),
-    hyper=("normalize",), gather=("normalize",), dense_fn=D.cgc)
+    caps=AggregatorCaps(weight_decomposable=True),
+    hyper=("normalize",), gather=("normalize",), dense_fn=D.cgc,
+    weights_fn=_w_cgc)
 register_aggregator(
     "geometric_median",
     caps=AggregatorCaps(),
@@ -1138,6 +1380,24 @@ def cclip_iterates(spec, stack, mask=None, weights=None, state=None,
         yield v
 
 
+def cclip_weights(spec, stack, mask=None, weights=None, state=None):
+    """(n,) fp32 clip weights lam of centered_clip's FINAL iterate (the
+    telemetry read-out): the whole flat law re-run (K22 under
+    ``impl="kernel"``), then one more clip-radius stage at its result."""
+    n = stack.shape[0]
+    v = _server_grad(state, stack.shape[1])
+    for v in cclip_iterates(spec, stack, mask, weights, state):
+        pass
+    m = (torch.ones((n,), dtype=torch.bool, device=stack.device)
+         if mask is None else mask)
+    m, w, _, tot = _masked_prelude(m, weights)
+    tau = torch.tensor(float(spec.hp("tau", 1.0)), dtype=torch.float32,
+                       device=stack.device)
+    lam, _ = _cclip_lam(stack.float(), None if mask is None else m, w / tot,
+                        v, tau)
+    return lam
+
+
 def _cclip_flat(spec, stack, mask, weights, state, qscale=None):
     """centered_clip on the (n, P) arena: its own masked law (no mean
     imputation: an imputed row would drag v toward the attacker-
@@ -1253,9 +1513,11 @@ def _zeno_pp_flat(spec, stack, mask, weights, state, qscale=None):
 
 register_aggregator(
     "zeno_pp",
-    caps=AggregatorCaps(stateful=True),
+    caps=AggregatorCaps(weight_decomposable=True, stateful=True),
     hyper=("xi", "ema", "eps", "c_norm"), state_keys=("server_grad",),
     flat_fn=_zeno_pp_flat,
+    weights_fn=lambda spec, g, state: zeno_pp_weights(spec, g.float(),
+                                                      state=state),
     init_state=lambda spec, proto: _server_grad_zeros(proto),
     update_state=lambda spec, state, agg: _server_grad_ema(
         state, agg, spec.hp("ema", 0.2)))
@@ -1280,9 +1542,9 @@ def _zeno_init_state(spec, proto):
 
 register_aggregator(
     "zeno",
-    caps=AggregatorCaps(stateful=True),
+    caps=AggregatorCaps(weight_decomposable=True, stateful=True),
     hyper=("rho", "lr", "ema"), gather=("rho", "lr"),
-    state_keys=("server_grad",), dense_fn=D.zeno,
+    state_keys=("server_grad",), dense_fn=D.zeno, weights_fn=_w_zeno,
     gather_state=lambda spec, state, p: {
         "server_grad": _server_grad(state, p)},
     init_state=_zeno_init_state,

@@ -31,9 +31,21 @@ def get_attack(name: str, **hyper):
     return functools.partial(fn, **hyper) if hyper else fn
 
 
-def make_byzantine_mask(n: int, f: int, device=None):
-    """The first f agents are Byzantine (the fixed-identity mask)."""
-    return torch.arange(n, device=device) < f
+def make_byzantine_mask(n: int, f: int, fixed: bool = True,
+                        generator=None, device=None, perm=None):
+    """The first f agents are Byzantine (``fixed``, the default); or a
+    random f-subset (the mobile mask: the survey notes most algorithms
+    tolerate a changing Byzantine identity), the first f entries of
+    ``perm`` (an (n,) permutation, e.g. one drawn elsewhere and handed
+    over by value) or of ``torch.randperm(n, generator=)``.  Without a
+    generator or a permutation the mask stays fixed, as in JAX."""
+    rows = torch.arange(n, device=device)
+    if fixed or (generator is None and perm is None):
+        return rows < f
+    if perm is None:
+        perm = torch.randperm(n, generator=generator,
+                              device=generator.device).to(rows.device)
+    return torch.isin(rows, torch.as_tensor(perm, device=rows.device)[:f])
 
 
 def honest_moments(g, byz_mask):
@@ -121,3 +133,11 @@ def saddle_push(gen, g, byz_mask, saddle_dir=None, scale: float = 1.0):
     if saddle_dir is not None:
         cancel = cancel + scale * saddle_dir
     return _replace(g, byz_mask, cancel[None, :])
+
+
+def apply_attack(attack, gen, g, byz_mask):
+    """The uniform entry point: ``attack`` (a registered name or an attack
+    function) applied to the (n, d) fp32 ``g``."""
+    if isinstance(attack, str):
+        attack = get_attack(attack)
+    return attack(gen, g, byz_mask)

@@ -129,6 +129,34 @@ def argmin_tiebreak(primary, secondary):
                                     torch.full_like(secondary, math.inf)))
 
 
+def iterated_krum_picks(d2, f, count):
+    """The ``count`` shrinking-k iterative Krum picks on the distances
+    ``d2`` (m-Krum, Bulyan's selection stage), in pick order: 0-dim index
+    tensors.  The neighbour count shrinks with the remaining candidates,
+    so every pick is a genuine Krum selection."""
+    n = d2.shape[0]
+    mask = torch.ones((n,), dtype=torch.bool, device=d2.device)
+    rows = torch.arange(n, device=d2.device)
+    picks = []
+    for it in range(count):
+        s = krum_scores(d2, f, mask=mask, k=max(n - it - f - 2, 1))
+        i = argmin_tiebreak(s, masked_row_sums(d2, mask))
+        mask = mask & (rows != i)
+        picks.append(i)
+    return picks
+
+
+def mda_subset(d2, f):
+    """MDA's chosen (n - f,) rows: the subset of least diameter, equal
+    diameters broken by the subset perimeter, then enumeration order."""
+    from repro_torch.core.aggregators import mda_combos   # lazy: no cycle
+    combos = torch.as_tensor(mda_combos(d2.shape[0], f), device=d2.device)
+    sub = d2[combos[:, :, None], combos[:, None, :]]      # (C, n-f, n-f)
+    diam = torch.amax(sub, dim=(1, 2))
+    return _take_row(combos, argmin_tiebreak(diam, torch.sum(sub,
+                                                             dim=(1, 2))))
+
+
 def nan_sign(x):
     """``jnp.sign``'s law: -1, 0 or +1, and NaN for a NaN (``torch.sign``
     gives 0 for a NaN, which would let a NaN row vote 0 instead of
@@ -186,15 +214,8 @@ def multi_krum(g, f, m: int = 2):
 def m_krum(g, f, m: int = 2):
     """Iterative Krum: scores recomputed after each removal, the
     neighbour count shrinking with the remaining candidate set."""
-    n = g.shape[0]
-    d2 = pairwise_sq_dists(g)
-    mask = torch.ones((n,), dtype=torch.bool, device=g.device)
-    rows = torch.arange(n, device=g.device)
     acc = torch.zeros_like(g[0])
-    for it in range(m):
-        s = krum_scores(d2, f, mask=mask, k=max(n - it - f - 2, 1))
-        i = argmin_tiebreak(s, masked_row_sums(d2, mask))
-        mask = mask & (rows != i)
+    for i in iterated_krum_picks(pairwise_sq_dists(g), f, m):
         acc = acc + _take_row(g, i)
     return acc / m
 
@@ -203,15 +224,7 @@ def m_krum(g, f, m: int = 2):
 def mda(g, f):
     """Minimum-diameter averaging: the mean of the (n-f)-subset with the
     smallest diameter, equal diameters broken by the subset perimeter."""
-    from repro_torch.core.aggregators import mda_combos   # lazy: no cycle
-    n = g.shape[0]
-    combos = torch.as_tensor(mda_combos(n, f), device=g.device)
-    d2 = pairwise_sq_dists(g)
-    sub = d2[combos[:, :, None], combos[:, None, :]]      # (C, n-f, n-f)
-    diam = torch.amax(sub, dim=(1, 2))
-    best = _take_row(combos, argmin_tiebreak(diam, torch.sum(sub,
-                                                             dim=(1, 2))))
-    return torch.mean(g[best], dim=0)
+    return torch.mean(g[mda_subset(pairwise_sq_dists(g), f)], dim=0)
 
 
 @register("cge")
@@ -234,24 +247,23 @@ def bulyan(g, f, base: str = "krum"):
     if theta < 1:
         raise ValueError("Bulyan needs n > 2f (and n >= 4f+3 for its "
                          "guarantees)")
-    base_fn = FILTERS[base]
-    d2 = pairwise_sq_dists(g) if base == "krum" else None
     rows = torch.arange(n, device=g.device)
     mask = torch.ones((n,), dtype=torch.bool, device=g.device)
-    for it in range(theta):
-        if base == "krum":
-            s = krum_scores(d2, f, mask=mask, k=max(n - it - f - 2, 1))
-            i = argmin_tiebreak(s, masked_row_sums(d2, mask))
-        else:
+    if base == "krum":
+        for i in iterated_krum_picks(pairwise_sq_dists(g), f, theta):
+            mask = mask & (rows != i)
+    else:
+        for _ in range(theta):
             # the generic base runs on the available rows, the removed
             # ones replaced by the available rows' mean
             avail_mean = (torch.sum(torch.where(mask[:, None], g, 0.0),
                                     dim=0)
                           / torch.clamp_min(torch.sum(mask), 1))
-            out = base_fn(torch.where(mask[:, None], g, avail_mean[None]), f)
+            out = FILTERS[base](torch.where(mask[:, None], g,
+                                            avail_mean[None]), f)
             d = torch.sum(torch.square(g - out[None]), dim=-1)
             i = torch.argmin(d.masked_fill(~mask, math.inf))
-        mask = mask & (rows != i)
+            mask = mask & (rows != i)
     sel = ~mask
     beta = max(theta - 2 * f, 1)
     med = _masked_median(g, sel)

@@ -24,6 +24,7 @@ from repro_torch.kernels.ops import (kernel_bulyan, kernel_bulyan_masked,
                                      kernel_cge, kernel_cge_masked,
                                      kernel_coordinate_median, kernel_krum,
                                      kernel_krum_masked, kernel_m_krum,
+                                     kernel_selection_weights,
                                      kernel_m_krum_masked, kernel_mda,
                                      kernel_mda_masked, kernel_multi_krum,
                                      kernel_multi_krum_masked,
@@ -82,7 +83,8 @@ __all__ = [*WRAPPERS, "imputed_mean", "kernel_krum", "kernel_krum_masked",
            "kernel_m_krum_masked", "kernel_mda", "kernel_mda_masked",
            "kernel_bulyan", "kernel_bulyan_masked",
            "kernel_coordinate_median", "kernel_trimmed_mean",
-           "kernel_pairwise_sq_dists", "KERNEL_RULES",
+           "kernel_pairwise_sq_dists", "kernel_selection_weights",
+           "KERNEL_RULES",
            "KERNEL_MASKED_RULES", "KERNEL_SCALED_RULES",
            "KERNEL_SCALED_MASKED_RULES", "kernel_aggregate",
            "kernel_masked_aggregate", "kernel_masked_supported",

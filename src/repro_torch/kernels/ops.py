@@ -3,7 +3,8 @@
 sum, and the selection family (CGE, multi-Krum, m-Krum, MDA, Bulyan) off
 the same Gram, each plain and masked (over the mean-imputed stack, which
 is never built: the mean is computed once and every stage imputes in its
-own load); and the legacy sort paths, the median and trimmed mean read
+own load); the selection telemetry of those rules off the same kernels
+(:func:`kernel_selection_weights`); and the legacy sort paths, the median and trimmed mean read
 off K23's sorted stack and the pairwise distances off K2's Gram (no
 aggregation path calls them).  The JAX package pads d to its TPU tile
 (``_pad_d``); the CUDA kernels mask their own ragged edge, so nothing is
@@ -20,7 +21,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.coord_stats import coord_sort
 from repro_torch.kernels.pairwise import gram, imputed_mean, masked_gram
-from repro_torch.kernels.select import (bulyan_coord, gram_d2,
+from repro_torch.kernels.select import (bulyan_coord, cge_select, gram_d2,
                                         iterative_order, krum_select,
                                         masked_bulyan_coord, multi_krum_order)
 from repro_torch.kernels.wsum import (cge_weighted_sum,
@@ -191,3 +192,40 @@ def kernel_bulyan_masked(g, mask, wn, f: int):
     mean, gr = _imputed_gram(g, mask, wn)
     sel = (iterative_order(gr, f, theta) < theta).float()
     return masked_bulyan_coord(g, mask, mean, sel, theta, f)
+
+
+# the pairwise rules whose selection telemetry reads their kernels
+SELECTION_RULES = ("krum", "cge", "multi_krum", "m_krum", "mda", "bulyan")
+
+
+def kernel_selection_weights(name, g, f: int, hyper: dict, mask=None,
+                             wn=None):
+    """(n,) fp32 selection weights of the pairwise rule ``name``, read off
+    the selection kernels its aggregate launches, so they name the rows
+    the aggregate used: K2's Gram (masked: K4's imputed mean, then K6),
+    then Krum's one-hot row (K3), CGE's keep-mask (K8) divided by n - f
+    when normalized, or 1/k on the first k picks of K9 (multi_krum), K10
+    (m_krum, Bulyan's theta picks) or MDA's subset.  ``mask`` (n,) {0,1}
+    fp32 and ``wn`` the normalized weights, as for the masked aggregate."""
+    n = g.shape[0]
+    gr = gram(g) if mask is None else _imputed_gram(g, mask, wn)[1]
+    if name == "krum":
+        return krum_select(gr, f)
+    if name == "cge":
+        keep = cge_select(gr, n - f)
+        return keep / (n - f) if hyper.get("normalize", True) else keep
+    if name == "multi_krum":
+        k = hyper.get("m", 2)
+        order = multi_krum_order(gr, f, k)
+    elif name == "m_krum":
+        k = hyper.get("m", 2)
+        order = iterative_order(gr, f, k)
+    elif name == "bulyan":
+        k = _bulyan_theta(n, f)
+        order = iterative_order(gr, f, k)
+    elif name == "mda":
+        k = n - f
+        order = mda_order(gram_d2(gr), n, f)
+    else:
+        raise KeyError(f"{name}: no selection kernels")
+    return (order < k).float() / k

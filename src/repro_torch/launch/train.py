@@ -1,5 +1,4 @@
-"""Training launcher (counterpart of ``repro.launch.train``, without its
-checkpoint and recorder flags, which come with later slices).
+"""Training launcher (counterpart of ``repro.launch.train``).
 
 On the card (the default device):
   python -m repro_torch.launch.train --arch paper-100m --steps 20 \
@@ -15,10 +14,15 @@ each round and makes the spec elastic (``--elastic-buckets`` buckets).
 ``--draco-r r`` aggregates with the repetition code (Draco, groups of r
 agents computing the same shard), which forces ``--regime parallel``.
 ``--filter`` takes any registered rule that needs no inner spec.
+``--record trace.jsonl`` attaches the flight recorder (render it with
+``python -m repro_torch.launch.report trace.jsonl``), ``--perfetto`` also
+exports its Chrome trace, ``--ckpt-dir`` saves checkpoints halfway and at
+the end, ``--history-out`` writes the history as JSON.
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 
 def main(argv=None):
@@ -57,6 +61,15 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--per-agent-batch", type=int, default=4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--history-out", default=None)
+    ap.add_argument("--record", default=None, metavar="TRACE_JSONL",
+                    help="write a flight-recorder trace (repro_torch.obs) "
+                    "here; render it with "
+                    "`python -m repro_torch.launch.report`")
+    ap.add_argument("--perfetto", default=None, metavar="TRACE_JSON",
+                    help="with --record: also export a Chrome-trace/"
+                    "Perfetto JSON of the run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without CUDA) or cpu")
@@ -95,9 +108,26 @@ def main(argv=None):
                          attack=args.attack, attack_hyper=ah,
                          momentum_alpha=args.momentum_alpha,
                          draco_r=args.draco_r)
+    recorder = None
+    if args.record:
+        from repro_torch.obs import Recorder
+        recorder = Recorder(args.record, meta={"cli": "launch.train",
+                                               "arch": args.arch})
     _, history = train_loop(cfg, bz, opt, ds, steps=args.steps,
                             seed=args.seed, device=args.device,
-                            poison_labels=args.poison_labels, sim=sim)
+                            ckpt_dir=args.ckpt_dir,
+                            ckpt_every=max(args.steps // 2, 1),
+                            poison_labels=args.poison_labels, sim=sim,
+                            recorder=recorder)
+    if recorder is not None:
+        recorder.close()
+        print(f"trace written to {args.record}")
+        if args.perfetto:
+            print(f"perfetto trace written to "
+                  f"{recorder.dump_chrome_trace(args.perfetto)}")
+    if args.history_out:
+        with open(args.history_out, "w") as fh:
+            json.dump(history, fh, indent=1)
     print(f"final loss {history[-1]['loss']:.4f}")
     return history
 

@@ -19,6 +19,16 @@ def diminishing(eta0: float, decay: float = 1.0):
         np.float32(1.0) + np.float32(decay) * np.float32(step))
 
 
+def inverse_sqrt(eta0: float, warmup: int = 100):
+    """Linear warm-up to eta0 over ``warmup`` steps, then eta0 *
+    sqrt(warmup / t) (steps below 1 count as 1)."""
+    def fn(step):
+        s = np.maximum(np.float32(step), np.float32(1.0))
+        return np.float32(eta0) * np.minimum(
+            s / np.float32(warmup), np.sqrt(np.float32(warmup) / s))
+    return fn
+
+
 def cosine_warmup(base: float, warmup: int, total: int, floor: float = 0.0):
     def fn(step):
         s = np.float32(step)

@@ -71,6 +71,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import save
 from repro_torch.core.aggregators import staleness_discount_table
 from repro_torch.core.attacks import (get_attack, is_adaptive_attack,
                                       make_adaptive_attack,
@@ -181,13 +182,23 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
                   ``device`` when ``bucket`` is set: the live slots padded
                   by repeating a live slot, and which slots are real.
 
+    ``telemetry`` (a Python flag): the metrics also carry the telemetry
+    row ``{"sel_w", "mask", "contrib_w"}``, (n,) each: the rule's selection
+    weights over the delivered rows (computed after the aggregate from the
+    same rows, the fp32 rows a quantized exchange quantizes, against the
+    pre-step state; never fed to the aggregate), scattered to the full
+    roster from an elastic bucket, or uniform shares of the delivered rows
+    where the coded decode aggregated; the delivery mask; the staleness
+    discounts.
+
     ``params`` and ``opt_state`` are updated in place, as in the
     synchronous step.  ``device`` defaults to ``cuda`` and raises when
     CUDA is missing."""
     from repro_torch.training.step import (attack_arena, exchange_dtype,
+                                           participation, scatter_roster,
                                            unsupported)
     dev = resolve_device(device)
-    why = unsupported(bz, telemetry)
+    why = unsupported(bz)
     if why:
         raise NotImplementedError(why)
     quant, xdt = exchange_dtype(bz)
@@ -287,6 +298,8 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
                         else None)
                 sent, atk_state = adaptive(gen, buffer, byz_mask,
                                            atk_state, dvec)
+            # the fp32 rows a quantized exchange quantizes, for telemetry
+            raw = sent if telemetry and quant and not r_code else None
             # the exchange: per-row codes and scales, or a cast; the
             # coded paths (and the rule beside a coded fallback) take the
             # fake-quantized fp32 rows
@@ -315,7 +328,21 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
                 vec = spec.aggregate_flat(
                     rows, mask=rmask, weights=rw, scale=rqs,
                     state=agg_state if stateful else None)
-            del rows, sent, qs, rqs
+            if telemetry:
+                # against the pre-step state, before it advances
+                if bz.draco_r or use_coded:
+                    sel = participation(cw > 0)
+                else:
+                    if raw is not None:
+                        rows = raw if bucket is None else raw[roster_idx]
+                    sel = spec.selection_weights(
+                        rows, mask=rmask, weights=rw,
+                        state=agg_state if stateful else None)
+                    if bucket is not None:
+                        sel = scatter_roster(sel, n, roster_idx,
+                                             roster_valid)
+                telem = {"sel_w": sel, "mask": cw > 0, "contrib_w": cw}
+            del rows, sent, qs, rqs, raw
             agg = plan.as_dtype(agg_dtype).unravel(vec)
             # the state advances from the aggregate as unraveled (with
             # its exchange-dtype rounding), as in JAX
@@ -335,6 +362,8 @@ def make_async_step(cfg, bz, optimizer, device=None, fallback_r: int = 0,
                 "loss_all": torch.mean(losses),
                 "grad_norm": gnorm,
             }
+            if telemetry:
+                metrics["telemetry"] = telem
         return params, opt_state, momentum, buffer, agg_state, metrics
 
     return async_step
@@ -359,8 +388,8 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
                      sim: Optional[SimConfig] = None, seed: int = 0,
                      device=None, params=None, log_fn=print,
                      log_every: int = 10, poison_labels: bool = False,
-                     ckpt_dir: str | None = None, recorder=None,
-                     telemetry: Optional[bool] = None):
+                     ckpt_dir: str | None = None, ckpt_every: int = 0,
+                     recorder=None, telemetry: Optional[bool] = None):
     """Returns (params, history list of metric dicts).
 
     ``sim=None`` (or any schedule whose trace stays synchronous) is the
@@ -368,14 +397,20 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
     ``torch.Generator`` (seeded from ``seed``, on the device) draws the
     initial parameters, each step's batch and any attack noise.
     ``device`` defaults to ``cuda`` and raises when CUDA
-    is missing; pass ``device="cpu"`` to run on the CPU."""
+    is missing; pass ``device="cpu"`` to run on the CPU.
+
+    ``recorder`` (a :class:`repro_torch.obs.recorder.Recorder`): the loop
+    feeds it a ``run`` event with the dispatch record, then per step the
+    span, the metrics (read back to the host: the span ends after that
+    read), the telemetry row, the roster and its deltas, a
+    ``quorum_miss`` fault, and the step builds.  All of it happens on the
+    host between steps, so the trained parameters are bit for bit those
+    of a run without it.  ``telemetry`` turns the steps' selection
+    telemetry on or off (default: on exactly when a recorder is given).
+    ``ckpt_dir``: ``{"params", "opt"}`` saved every ``ckpt_every`` steps
+    (0: never during the run) and after the last
+    (:mod:`repro_torch.checkpoint`)."""
     from repro_torch.training.step import make_train_step
-    if ckpt_dir:
-        raise NotImplementedError("checkpoints come with ROADMAP.md slice 9")
-    if recorder is not None or telemetry:
-        raise NotImplementedError(
-            "the flight recorder and selection telemetry come with "
-            "ROADMAP.md slice 7")
     dev = resolve_device(device)
     sim = sim if sim is not None else SimConfig()
     n = bz.n_agents
@@ -421,6 +456,15 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
                      "atk": make_adaptive_attack(
                          bz.attack, spec, **bz.attack_hyper).init_state(dev)}
 
+    telemetry = (recorder is not None) if telemetry is None else telemetry
+    if recorder is not None:
+        from repro_torch.obs.telemetry import dispatch_record
+        recorder.emit("run", steps=steps, n_agents=n,
+                      dispatch=dispatch_record(spec),
+                      quorum=sim.quorum, max_staleness=sim.max_staleness,
+                      attack=bz.attack, f=bz.f, seed=seed,
+                      faults=[repr(f) for f in sim.faults])
+
     # step functions, built on first use: the synchronous step, the
     # async step, and one async step per elastic bucket
     built: dict = {}
@@ -428,12 +472,14 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
     def step_fn(key):
         if key not in built:
             if key == "sync":
-                built[key] = make_train_step(cfg, bz, optimizer, device=dev)
+                built[key] = make_train_step(cfg, bz, optimizer, device=dev,
+                                             telemetry=telemetry)
             else:
                 built[key] = make_async_step(
                     cfg, bz, optimizer, device=dev,
                     fallback_r=sim.coded_fallback_r,
-                    bucket=None if key == "async" else key)
+                    bucket=None if key == "async" else key,
+                    telemetry=telemetry)
         return built[key]
 
     byz_mask = make_byzantine_mask(n, bz.f, device=dev)
@@ -471,6 +517,7 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
         if poison_labels:
             batch = label_flip(batch, byz_mask, cfg.vocab_size)
         arrived = int(atrace.contrib[step].sum())
+        st0 = recorder.now() if recorder is not None else None
         if pure[step]:
             params, opt_state, momentum, metrics = step_fn("sync")(
                 params, opt_state, momentum, batch, gen)
@@ -503,6 +550,9 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
                  metrics) = step_fn("async")(
                     params, opt_state, momentum, buffer, agg_state, batch,
                     gen, refresh, cw, use_coded)
+        telem = metrics.pop("telemetry", None) if metrics else None
+        if recorder is not None:
+            _record_step(recorder, step, st0, metrics, telem, atrace)
         if step % log_every == 0 or step == steps - 1:
             if metrics is None:
                 m = {"loss": float("nan"), "loss_all": float("nan"),
@@ -522,4 +572,33 @@ def async_train_loop(cfg, bz, optimizer, dataset, steps: int,
                      f"  arr {arrived:2d}  stal {m['staleness_mean']:.2f}")
             log_fn(f"step {step:5d}  loss {m['loss']:.4f}  "
                    f"gnorm {m['grad_norm']:.3f}{extra}")
+        if ckpt_dir and ckpt_every and step and step % ckpt_every == 0:
+            save(ckpt_dir, step, {"params": params, "opt": opt_state})
+    if ckpt_dir:
+        save(ckpt_dir, steps, {"params": params, "opt": opt_state})
     return params, history
+
+
+def _record_step(recorder, step, t0, metrics, telem, atrace):
+    """One step's recorder events: the metrics read back to the host (the
+    host sync of a recorded run, so the span ``t0 .. t1`` covers the
+    card's work), the trace row's arrivals, staleness and quorum, a
+    ``quorum_miss`` fault, and the step with its telemetry row and
+    roster."""
+    mrec = ({k: float(v) for k, v in metrics.items()}
+            if metrics is not None else {})
+    contrib = atrace.contrib[step]
+    arrived = int(contrib.sum())
+    mrec["arrived"] = arrived
+    mrec["n_live"] = atrace.n_live(step)
+    mrec["staleness_mean"] = (float(atrace.staleness[step][contrib].mean())
+                              if arrived else 0.0)
+    mrec["staleness_max"] = (int(atrace.staleness[step][contrib].max())
+                             if arrived else 0)
+    mrec["quorum_ok"] = bool(atrace.quorum_met[step])
+    if not atrace.quorum_met[step]:
+        recorder.fault(step, "quorum_miss", arrived=arrived)
+    recorder.step(step, t0=t0, t1=recorder.now(), metrics=mrec,
+                  telemetry=telem,
+                  roster=(atrace.roster[step] if atrace.roster is not None
+                          else None))

@@ -39,6 +39,15 @@ where r does not divide the bucket; a quantized exchange hands the coded
 path the fake-quantized stack (codes and scales have no coded kernel), in
 the parameters' dtype, as the JAX step does.
 
+``telemetry`` (a Python flag): the metrics also carry the step's
+telemetry row ``{"sel_w", "mask", "contrib_w"}``, (n,) each: the rule's
+selection weights (``spec.selection_weights``, computed after the
+aggregate from the same arena and never fed to it; the pre-quantization
+fp32 arena of a quantized exchange), scattered to the full roster from
+an elastic bucket, or uniform participation over the live roster for the
+coded decode.  Off, the step is the same program: the same launches and
+no new host sync.
+
 Restricted to ``group_size=1`` and ``reshard=False`` (each raises
 ``NotImplementedError`` naming the ROADMAP.md slice that brings it).
 Stateful specs and the defense-aware attacks raise as in the JAX step:
@@ -97,15 +106,35 @@ class ByzantineConfig:
         return spec
 
 
-def unsupported(bz: ByzantineConfig, telemetry=False):
+def unsupported(bz: ByzantineConfig):
     """Why ``bz`` cannot run on the port yet (naming the ROADMAP.md slice),
     or None."""
     if bz.group_size > 1 or bz.reshard:
         return ("group_size / reshard come with ROADMAP.md slice 11 "
                 "(distribution)")
-    if telemetry:
-        return "selection telemetry comes with ROADMAP.md slice 7"
     return None
+
+
+def roster_members(n: int, roster_idx, roster_valid):
+    """(n,) bool: the agents of the live roster packed in ``roster_idx``
+    (the pad slots repeat a live one)."""
+    hits = torch.zeros((n,), dtype=torch.float32, device=roster_idx.device)
+    return hits.index_add(0, roster_idx, roster_valid.float()) > 0
+
+
+def scatter_roster(sel_b, n: int, roster_idx, roster_valid):
+    """(bucket,) weights of the packed live rows -> (n,) on the full
+    roster (0 for the agents outside it; a pad slot adds 0)."""
+    return torch.zeros((n,), dtype=torch.float32,
+                       device=sel_b.device).index_add(
+        0, roster_idx, torch.where(roster_valid, sel_b.float(), 0.0))
+
+
+def participation(mask):
+    """Uniform shares over the (n,) bool ``mask``: the coded decode's
+    per-agent attribution (its vote is per group)."""
+    mf = mask.float()
+    return mf / torch.clamp_min(torch.sum(mf), 1.0)
 
 
 def exchange_dtype(bz: ByzantineConfig):
@@ -151,7 +180,7 @@ def make_train_step(cfg, bz: ByzantineConfig, optimizer, device=None,
     ``bucket`` is set.  ``device`` defaults to ``cuda`` and raises when
     CUDA is missing."""
     dev = resolve_device(device)
-    why = unsupported(bz, telemetry)
+    why = unsupported(bz)
     if why:
         raise NotImplementedError(why)
     if is_adaptive_attack(bz.attack):
@@ -228,6 +257,10 @@ def make_train_step(cfg, bz: ByzantineConfig, optimizer, device=None,
             # leaves of that dtype.  The coded path takes the fake-
             # quantized stack in the parameters' dtype
             qs = None
+            # the stack the telemetry reads: the arena as exchanged, or
+            # the fp32 arena a quantized exchange quantizes
+            tel_stack = (arena if telemetry and quant and not bz.draco_r
+                         else None)
             if quant and bz.draco_r:
                 arena = fake_quantize(arena, xdt).to(arena.dtype)
             elif quant:
@@ -246,7 +279,11 @@ def make_train_step(cfg, bz: ByzantineConfig, optimizer, device=None,
                     scale=None if qs is None else qs[roster_idx])
             else:
                 vec = spec.aggregate_flat(arena, scale=qs)
-            del arena, qs
+            if telemetry:
+                telem = _step_telemetry(
+                    spec, n, arena if tel_stack is None else tel_stack,
+                    bool(bz.draco_r), roster_idx, roster_valid)
+            del arena, qs, tel_stack
             agg = plan.unravel(vec)
 
             # (5) server-side optimizer
@@ -260,6 +297,25 @@ def make_train_step(cfg, bz: ByzantineConfig, optimizer, device=None,
                 "loss_all": torch.mean(losses),
                 "grad_norm": gnorm,
             }
+            if telemetry:
+                metrics["telemetry"] = telem
         return params, opt_state, momentum, metrics
 
     return train_step
+
+
+def _step_telemetry(spec, n, stack, coded, roster_idx=None,
+                    roster_valid=None):
+    """The synchronous step's telemetry row from the (n, P) ``stack``."""
+    member = (torch.ones((n,), dtype=torch.bool, device=stack.device)
+              if roster_idx is None
+              else roster_members(n, roster_idx, roster_valid))
+    if coded:
+        sel = participation(member)
+    elif roster_idx is None:
+        sel = spec.selection_weights(stack)
+    else:
+        sel = scatter_roster(
+            spec.selection_weights(stack[roster_idx], mask=roster_valid),
+            n, roster_idx, roster_valid)
+    return {"sel_w": sel, "mask": member, "contrib_w": member.float()}

@@ -12,6 +12,7 @@ and the attack on a copy of the in-flight buffer.
 * a Byzantine agent that does not refresh keeps its honest gradient in
   the buffer: the attack rewrites a copy.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -195,9 +196,12 @@ def test_the_attack_rewrites_a_copy_of_the_buffer():
 def test_unported_loop_options_raise_and_name_the_roadmap():
     cfg, ds, bz = setup()
     opt = adamw(constant(1e-3))
-    for kw in ({"ckpt_dir": "x"}, {"telemetry": True}):
+    # checkpoints and the recorder run (tests/test_torch_obs.py,
+    # tests/test_torch_checkpoint.py); the distribution knobs still raise
+    for kw in ({"group_size": 2}, {"reshard": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            async_train_loop(cfg, bz, opt, ds, 1, device="cpu", **kw)
+            async_train_loop(cfg, dataclasses.replace(bz, **kw), opt, ds, 1,
+                             device="cpu")
     # the coded fallback is ported: the step builds, and a code that does
     # not divide the roster fails before any step runs
     TS.make_async_step(cfg, bz, opt, device="cpu", fallback_r=2)

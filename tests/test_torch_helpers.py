@@ -265,7 +265,7 @@ def in_flight_np(seed, n=N):
 def run_async(rule, alpha, trace="stragglers", steps=4,
               attack="sign_flip", n=N, quorum=6, resync=False, agg_dtype="",
               record=None, specs=None, attack_hyper=({}, {}), f=F,
-              draco_r=0, fallback_r=0, sims=None):
+              draco_r=0, fallback_r=0, sims=None, telemetry=None):
     """Per step (jax loss, torch loss, jax agg, torch agg, jax params,
     torch params, jax buffer, torch buffer, jax server_grad, torch
     server_grad) as flat numpy (the last two None for a stateless rule),
@@ -284,7 +284,9 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
     (jax, torch) attack hyper.  ``f``: the Byzantine budget; ``draco_r``
     / ``fallback_r``: the coded step / the coded fallback (a row that
     missed its quorum takes the code), on the parallel regime's batches;
-    ``sims``: a (jax, torch) SimConfig pair in place of the trace's."""
+    ``sims``: a (jax, torch) SimConfig pair in place of the trace's.
+    ``telemetry``: a list; both steps are built with ``telemetry=True``
+    and each step appends the (jax, torch) telemetry rows, as numpy."""
     cfg, jcfg = configs()
     jp = jax.tree.map(jnp.asarray, jax_params_numpy())
     tp = params_from_numpy(jax_params_numpy())
@@ -347,9 +349,11 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
                        torch.as_tensor(valid))
         if b not in jsteps:
             jsteps[b] = jax.jit(JS.make_async_step(
-                jcfg, jbz, jo, fallback_r=fallback_r, bucket=b))
+                jcfg, jbz, jo, fallback_r=fallback_r, bucket=b,
+                telemetry=telemetry is not None))
             tsteps[b] = TS.make_async_step(cfg, tbz, to, device="cpu",
-                                           fallback_r=fallback_r, bucket=b)
+                                           fallback_r=fallback_r, bucket=b,
+                                           telemetry=telemetry is not None)
         tb, jb = batch_np(300 + k, n, parallel=bool(draco_r or fallback_r))
         refresh = jtr.refresh[r]
         use_coded = bool(fallback_r) and not ttr.quorum_met[r]
@@ -361,6 +365,10 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
             tp, ts, tm, tbuf, tst, tb, None, refresh,
             torch.from_numpy(tw[r]), use_coded, *extra_t)
         jax.effects_barrier()
+        if telemetry is not None:
+            telemetry.append(
+                ({k: np.asarray(v) for k, v in jmet["telemetry"].items()},
+                 {k: v.numpy() for k, v in tmet["telemetry"].items()}))
         out.append((float(jmet["loss"]), float(tmet["loss"]),
                     flat_np(js["agg"]), flat_np(params_to_numpy(ts["agg"])),
                     flat_np(jp), flat_np(params_to_numpy(tp)),
@@ -406,12 +414,17 @@ def server_grads(jst, tst):
             tst["server_grad"].numpy().copy())
 
 
-def check_async(rule, alpha, trace="stragglers", n=N, quorum=6):
+def check_async(rule, alpha, trace="stragglers", n=N, quorum=6,
+                telemetry=False):
     """Losses, aggregates, post-step parameters and the in-flight buffer
     within the slice-1 bars (loss 1e-5, the rest 1e-4) after each of 4
-    steps."""
+    steps.  ``telemetry``: both steps also emit their telemetry rows, and
+    each step's are held to each other (the selected support and the
+    delivery mask and weights exactly, sel_w within 3e-6)."""
+    rows = [] if telemetry else None
     for step, (jl, tl, ja, ta, jpar, tpar, jbuf, tbuf, *_) in enumerate(
-            run_async(rule, alpha, trace, n=n, quorum=quorum)):
+            run_async(rule, alpha, trace, n=n, quorum=quorum,
+                      telemetry=rows)):
         msg = f"{rule} alpha={alpha} n={n} {trace} step {step}"
         np.testing.assert_allclose(tl, jl, rtol=LOGIT_TOL, atol=LOGIT_TOL,
                                    err_msg=msg)
@@ -422,6 +435,15 @@ def check_async(rule, alpha, trace="stragglers", n=N, quorum=6):
                                    err_msg=msg)
         np.testing.assert_allclose(tbuf, jbuf, rtol=GRAD_TOL, atol=GRAD_TOL,
                                    err_msg=msg)
+    for step, (jt, tt) in enumerate(rows or ()):
+        msg = f"{rule} {trace} telemetry step {step}"
+        np.testing.assert_array_equal(tt["mask"], jt["mask"], err_msg=msg)
+        np.testing.assert_array_equal(tt["contrib_w"], jt["contrib_w"],
+                                      err_msg=msg)
+        np.testing.assert_array_equal(tt["sel_w"] > 0, jt["sel_w"] > 0,
+                                      err_msg=msg)
+        np.testing.assert_allclose(tt["sel_w"], jt["sel_w"], rtol=3e-6,
+                                   atol=3e-6, err_msg=msg)
 
 
 def check_async_resynced(rule, n=N, quorum=6, share=1e-5, agg_dtype=""):

@@ -17,7 +17,9 @@ import pytest
 import torch
 
 from repro.core.aggregators import make_spec as jax_make_spec
+from repro.core.attacks import apply_attack as jax_apply_attack
 from repro.core.attacks import get_attack as jax_get_attack
+from repro.core.attacks import make_byzantine_mask as jax_byzantine_mask
 from repro.core.momentum import worker_momentum as jax_worker_momentum
 from repro.kernels.coord_stats import coord_stat as jax_coord_stat
 from repro.kernels.ops import _drop_unselected, _pad_d
@@ -26,7 +28,8 @@ from repro.kernels.select import krum_select as jax_krum_select
 from repro.kernels.wsum import weighted_sum as jax_weighted_sum
 from repro_torch import kernels
 from repro_torch.core.aggregators import make_spec
-from repro_torch.core.attacks import get_attack, make_byzantine_mask
+from repro_torch.core.attacks import (apply_attack, get_attack,
+                                      make_byzantine_mask)
 from repro_torch.core.momentum import worker_momentum
 from repro_torch.kernels.coord_stats import coord_stat_plain
 from repro_torch.kernels.select import krum_select_plain
@@ -312,6 +315,29 @@ def test_static_attacks_match_jax(attack):
     ours = get_attack(attack, **hyper)(
         None, torch.from_numpy(g), make_byzantine_mask(n, F))
     np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-6, atol=1e-6)
+
+
+def test_apply_attack_and_the_mobile_mask_match_jax():
+    """``apply_attack`` by name or function equals the attack itself; the
+    mobile Byzantine mask from JAX's permutation (handed over by value)
+    is JAX's mask, and one drawn by a torch generator holds f agents."""
+    n, d, key = 8, 33, jax.random.PRNGKey(7)
+    g = stack(n, d, seed=9)
+    jmask = jax_byzantine_mask(n, 3, fixed=False, key=key)
+    perm = np.array(jax.random.permutation(key, n))
+    ours = make_byzantine_mask(n, 3, fixed=False, perm=torch.from_numpy(perm))
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(jmask))
+    gen = torch.Generator().manual_seed(0)
+    drawn = make_byzantine_mask(n, 3, fixed=False, generator=gen)
+    assert int(drawn.sum()) == 3 and not torch.equal(
+        drawn, make_byzantine_mask(n, 3))
+    assert torch.equal(make_byzantine_mask(n, 3, fixed=False),
+                       make_byzantine_mask(n, 3))
+    ref = np.asarray(jax_apply_attack("sign_flip", key, jnp.asarray(g),
+                                      jmask))
+    for attack in ("sign_flip", get_attack("sign_flip")):
+        out = apply_attack(attack, None, torch.from_numpy(g), ours)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
 
 
 def test_worker_momentum_matches_jax():

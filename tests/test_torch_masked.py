@@ -20,6 +20,7 @@ trimmed window clamps), all; staleness weights cycle through {1, 1/2,
 the ranks JAX's network spreads it to), NaN and +-inf in an absent row
 (never show), +-inf in arrived rows, ties.
 """
+import functools
 import warnings
 
 import jax
@@ -320,15 +321,23 @@ def _pairs(rule):
                                      else [("kernel", "pallas")])
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_engine_fn(rule, impl, n, weighted):
+    """The jitted JAX engine call, built once per (rule, impl, n, weighted)
+    so that the cases of one shape share its compile."""
+    spec = jax_make_spec(rule, f=2, impl=impl, n=n)
+    if weighted:
+        return jax.jit(lambda g, m, w: spec.aggregate(g, mask=m, weights=w))
+    return jax.jit(lambda g, m: spec.aggregate(g, mask=m))
+
+
 def _jax_engine(rule, impl, n, grads, mask, w):
     """The JAX engine, jitted as the JAX training steps run it (the
     compiler fuses the weighted means into fused multiply-add chains)."""
-    spec = jax_make_spec(rule, f=2, impl=impl, n=n)
+    fn = _jax_engine_fn(rule, impl, n, w is not None)
     if w is None:
-        return jax.jit(lambda g, m: spec.aggregate(g, mask=m))(
-            grads, jnp.asarray(mask))
-    return jax.jit(lambda g, m, w: spec.aggregate(g, mask=m, weights=w))(
-        grads, jnp.asarray(mask), jnp.asarray(w))
+        return fn(grads, jnp.asarray(mask))
+    return fn(grads, jnp.asarray(mask), jnp.asarray(w))
 
 
 def _assert_engine(ours, ref, rule, dtype, msg):

@@ -12,6 +12,7 @@ gather path.  Bars: median, sign and krum exact; trimmed means within
 rtol = atol = 3e-6 in fp32 leaves and 2e-2 in bf16 leaves (a bf16 value
 rounded after a reassociated sum).
 """
+import functools
 import warnings
 
 import jax
@@ -71,15 +72,23 @@ def leaves(tree):
     return [tree["a"], tree["b"]["c"], tree["b"]["e"]]
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_gather_fn(rule, weighted):
+    """The jitted JAX gather call, built once per (rule, weighted) so that
+    the cases of one tree share its compile."""
+    spec = jax_make_spec(rule, f=F, impl="gather", n=N)
+    if weighted:
+        return jax.jit(lambda g, m, w: spec.aggregate(g, mask=m, weights=w))
+    return jax.jit(lambda g, m: spec.aggregate(g, mask=m))
+
+
 def jax_gather(rule, tree, mask, w):
     """The JAX gather tree path, jitted as the JAX steps run it."""
-    spec = jax_make_spec(rule, f=F, impl="gather", n=N)
+    fn = _jax_gather_fn(rule, w is not None)
     jt = jax.tree.map(jnp.asarray, tree)
     if w is None:
-        return jax.jit(lambda g, m: spec.aggregate(g, mask=m))(
-            jt, jnp.asarray(mask))
-    return jax.jit(lambda g, m, w: spec.aggregate(g, mask=m, weights=w))(
-        jt, jnp.asarray(mask), jnp.asarray(w))
+        return fn(jt, jnp.asarray(mask))
+    return fn(jt, jnp.asarray(mask), jnp.asarray(w))
 
 
 def check_leaves(rule, ours, ref, msg):

@@ -195,6 +195,7 @@ def test_bf16_weights_cross_bit_for_bit():
 
 @pytest.mark.parametrize("name,args", [
     ("constant", (3e-4,)), ("diminishing", (0.1, 0.5)),
+    ("inverse_sqrt", (1e-3, 10)),
     ("cosine_warmup", (1e-3, 10, 100, 1e-5))])
 def test_schedules_match_jax(name, args):
     """rtol 1e-6 (fp32 scalars; cosine is taken in fp64 before rounding)."""

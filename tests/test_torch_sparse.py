@@ -19,6 +19,8 @@ all-zero column (an exact 0), a dead row of NaN, and under K21 an inf row,
 whose scale is inf, so its 0 codes decode to 0 * inf = NaN: sent, and
 every column where the row is live is NaN.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -91,16 +93,24 @@ def t(a):
     return tensor_from_numpy(a)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_flat_fn(impl, masked):
+    """The jitted JAX sparse_mean call, built once per (impl, masked) so
+    that the cases of one shape share its compile."""
+    spec = jax_make_spec("sparse_mean", f=2, impl=impl)
+    if masked:
+        return jax.jit(lambda s, m, w, q: spec.aggregate_flat(
+            s, mask=m, weights=w, scale=q))
+    return jax.jit(lambda s, q: spec.aggregate_flat(s, scale=q))
+
+
 def jax_flat(stack, mask, w, qs=None, impl="gather"):
     """The JAX engine's sparse_mean on the arena (jitted, as the JAX steps
     run it); ``stack`` numpy (fp32, ml_dtypes bf16 / int8 / fp8)."""
-    spec = jax_make_spec("sparse_mean", f=2, impl=impl)
     scale = None if qs is None else jnp.asarray(qs)
+    fn = _jax_flat_fn(impl, mask is not None)
     if mask is None:
-        fn = jax.jit(lambda s, q: spec.aggregate_flat(s, scale=q))
         return np.asarray(fn(jnp.asarray(stack), scale))
-    fn = jax.jit(lambda s, m, w, q: spec.aggregate_flat(s, mask=m, weights=w,
-                                                        scale=q))
     return np.asarray(fn(jnp.asarray(stack), jnp.asarray(mask),
                          jnp.asarray(w), scale))
 
