@@ -336,8 +336,9 @@ coding (ROADMAP.md items 15 and 17) add:
                arena: ``aggregate_flat`` synchronous on the bf16 arena and
                masked on its fp32 copy (6 of 8), timed, with the peak
                device memory of the call;
-3r. the same specs through ``train_loop``, 1 warm-up and 2 timed steps
-               each (zeno under the phase-3b stragglers;
+3r. the same specs through ``train_loop``, 1 warm-up and 1 timed step
+               each (2 until phase 3p took their time; zeno under the
+               phase-3b stragglers;
                staleness_discounted through ``make_train_step``, since the
                loops refuse a ``staleness_aware`` spec); the launch
                counts must show K1 (clipped), K2 K3 K4 on the bucket means
@@ -406,6 +407,41 @@ items 19 and 19a) add:
                main phases' depth was cut to pay for it: phases 3 / 3b /
                3s from 3 / 4 timed steps to 2, phases 3c / 3d and the
                compressed 3x / 3s from 2 to 1.
+
+Peer-to-peer DGD and the resilience estimators (ROADMAP.md item 21) add:
+
+3p. p2p and resilience — (a) full-width decentralized DGD: n = 8 agents,
+               f = 2, d = 124,668,672 fp32 estimates, quadratic costs
+               Q_i(x) = 1/2 ||x - target_i||^2 (targets 0.2 N(0, 1) from a
+               seeded card generator), x0 = 2, agents 0 and 1
+               broadcasting 50.0, the complete graph; for each of plain,
+               lf, ce and the trimmed_mean, krum and sign_sgd spec
+               combines, 1 untimed warm-up round and 2 timed rounds
+               through ``p2p_dgd_run``, a line each with ms a round, peak
+               GB, the launches a round (exactly 8 K5 for trimmed_mean, 8
+               each of K4, K6, K3 and K7 for krum, 8 K16 for sign_sgd,
+               none for plain / lf / ce: plain torch) and the honest
+               agents' largest distance to the honest mean target
+               (smaller under every robust combine than under plain);
+               then the two spec combines on the same
+               broadcast states with impl="kernel" and impl="gather",
+               timed: krum exact, trimmed_mean within 3e-6; (b) the
+               trimmed_mean combine on ring(8, 2) for 3 rounds under a
+               partition over round 0, agent 7 crashed from round 1 and
+               every broadcast of agent 3 dropped: the crashed rows
+               bitwise unchanged, the trajectory finite, 8 K5 a round;
+               (c) ``estimate_alpha_f`` (sign_flip) for krum,
+               coordinate_median, bulyan and geometric_median and
+               ``estimate_delta_c`` (four attacks) for coordinate_median
+               and mean at n = 10, f = 2, d = 32, 24 trials, each on impl
+               auto and gather from seed 0: the per-trial values within
+               3e-6 of each other, the sync chains launched once a trial
+               on auto (K2 K3 K4; K1; K2 K10 K13) and nothing on gather,
+               ok on the four resilient rules; then krum and
+               coordinate_median through ``estimate_alpha_f`` at d =
+               124,668,672 with 2 trials.  The phase's seconds go on a
+               line of their own.  To pay for it phase 3r went from 2
+               timed steps a spec to 1.
 
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
@@ -4944,10 +4980,15 @@ def rules15_aggregations(x):
     return rows
 
 
+# timed steps a spec of phase 3r (2 until phase 3p took their time)
+RULES15_STEPS = 1
+
+
 def phase_rules15_train(cfg):
-    """Per spec of :func:`rules15_specs`: 1 warm-up and 2 timed steps of
-    the phase-3 configuration (zeno: under the phase-3b stragglers); the
-    launch counts must show the spec's kernels a step and no other."""
+    """Per spec of :func:`rules15_specs`: 1 warm-up and ``RULES15_STEPS``
+    timed steps of the phase-3 configuration (zeno: under the phase-3b
+    stragglers); the launch counts must show the spec's kernels a step
+    and no other."""
     from repro_torch.training import ByzantineConfig
     totals = {k: 0 for k in SOURCES}
     step_ms_by = {}
@@ -4956,15 +4997,16 @@ def phase_rules15_train(cfg):
                              attack="sign_flip", remat=True)
         sim = straggler_sim() if loop == "async" else None
         if spec.staleness_aware:
-            hist, counts, built, step_ms, peak = run_direct(cfg, bz, 2)
+            hist, counts, built, step_ms, peak = run_direct(
+                cfg, bz, RULES15_STEPS)
         else:
-            hist, counts, built, step_ms, peak = run_counted(cfg, bz, 2,
-                                                             sim)
+            hist, counts, built, step_ms, peak = run_counted(
+                cfg, bz, RULES15_STEPS, sim)
         losses = [h["loss"] for h in hist]
-        want = {k: 2 * per_step.get(k, 0) for k in SOURCES}
+        want = {k: RULES15_STEPS * per_step.get(k, 0) for k in SOURCES}
         step_ms_by[label] = statistics.median(step_ms)
         emit("rules15_train", spec=spec.describe(), impl=spec.impl, loop=loop,
-             steps=2, losses=losses, step_ms=step_ms,
+             steps=RULES15_STEPS, losses=losses, step_ms=step_ms,
              median_step_ms=step_ms_by[label], peak_mem_gb=peak,
              launches=counts, steps_built=built)
         if not all(math.isfinite(v) for v in losses):
@@ -5221,6 +5263,306 @@ def phase_telemetry(cfg):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# peer-to-peer DGD and the resilience estimators (ROADMAP.md item 21)
+
+P2P_ROUNDS = 2
+P2P_BIG = 50.0              # what the Byzantine agents 0 and 1 broadcast
+# combine -> the kernels of one round: one masked aggregate a receiver
+P2P_COMBINES = {
+    "plain": (), "lf": (), "ce": (),
+    "trimmed_mean": ("masked_coord_stat",),
+    "krum": ("weighted_sum", "masked_gram", "krum_select",
+             "masked_weighted_sum"),
+    "sign_sgd": ("masked_sign_vote",)}
+# the resilience estimators: rule -> the kernels of one trial (impl auto)
+RESIL_N = 10
+RESIL_ALPHA = {"krum": ("gram", "krum_select", "weighted_sum"),
+               "coordinate_median": ("coord_stat",),
+               "bulyan": ("gram", "iterative_order", "bulyan_coord"),
+               "geometric_median": ()}
+RESIL_DELTA = {"coordinate_median": ("coord_stat",), "mean": ()}
+RESIL_ATTACKS = ("sign_flip", "alie", "ipm", "large_value")
+RESIL_TRIALS, RESIL_WIDE_TRIALS = 24, 2
+
+
+def p2p_combine(rule, impl="auto"):
+    from repro_torch.core.aggregators import make_spec
+    return rule if rule in ("plain", "lf", "ce") else make_spec(
+        rule, f=F, n=N, impl=impl)
+
+
+def p2p_timed(run):
+    """One untimed warm-up round of ``run(steps)``, then ``P2P_ROUNDS``
+    timed rounds with the launch counts reset just before and read just
+    after: (trajectory, ms a round, peak GB, launches)."""
+    from repro_torch import kernels
+    run(1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    traj = run(P2P_ROUNDS)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / P2P_ROUNDS
+    return (traj, ms, torch.cuda.max_memory_allocated() / 1e9,
+            kernels.launch_counts())
+
+
+def p2p_spec_impls(sent):
+    """The two spec combines on the same broadcast states with
+    impl="kernel" and impl="gather": the mixed states exact for krum
+    (it selects) and within 3e-6 for the trimmed mean; each combine
+    timed once (host clock, synchronized)."""
+    from repro_torch.core.p2p import complete_graph, metropolis_weights
+    from repro_torch.core.p2p.dgd import make_combine_spec
+    adj = complete_graph(N)
+    W = metropolis_weights(adj)
+    for rule in ("trimmed_mean", "krum"):
+        out, ms = {}, {}
+        for impl in ("kernel", "gather"):
+            comb = make_combine_spec(p2p_combine(rule, impl))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[impl] = comb(adj, W, sent, F)
+            torch.cuda.synchronize()
+            ms[impl] = 1e3 * (time.perf_counter() - t0)
+        err = max_abs_err(out["kernel"], out["gather"])
+        ok = (err == 0.0 if rule == "krum" else bool(torch.allclose(
+            out["kernel"], out["gather"], rtol=TOL, atol=TOL)))
+        ok = ok and bool(torch.isfinite(out["kernel"]).all())
+        emit("p2p_vs_gather", combine=rule, n=N, d=sent.shape[1], ok=ok,
+             max_abs_diff=err, combine_ms_kernel=ms["kernel"],
+             combine_ms_gather=ms["gather"])
+        del out
+        torch.cuda.empty_cache()
+        if not ok:
+            fail(f"p2p {rule}: kernel combine differs from gather by {err}")
+
+
+def p2p_schedule_run(x0, grad, byz, byz_fn):
+    """The trimmed_mean combine on ring(8, 2) for 3 rounds under a
+    partition over round 0, agent 7 crashed from round 1 and every
+    broadcast of agent 3 dropped: each agent out of a round keeps its row
+    bit for bit; the trajectory finite."""
+    from repro_torch import kernels
+    from repro_torch.core.p2p import p2p_dgd_run, ring_graph
+    from repro_torch.simulator import (MessageDrop, Partition,
+                                       PermanentCrash, compile_schedule)
+    rounds = 3
+    specs = (Partition(groups=((0, 1, 2, 3), (4, 5, 6, 7)), start=0, end=1),
+             PermanentCrash(agents=(7,), at=1),
+             MessageDrop(p=1.0, agents=(3,)))
+    trace = compile_schedule(specs, N, rounds + 1, seed=0)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = p2p_dgd_run(ring_graph(N, 2), grad, x0, rounds, f=F,
+                       combine=p2p_combine("trimmed_mean"), byz_mask=byz,
+                       byz_fn=byz_fn, fault_schedule=trace, device=DEVICE)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / rounds
+    counts = kernels.launch_counts()
+    frozen = [(t, i) for t in range(rounds) for i in range(N)
+              if not trace.alive[t, i]]
+    kept = all(torch.equal(traj[t + 1, i], traj[t, i]) for t, i in frozen)
+    finite = bool(torch.isfinite(traj).all())
+    want = {k: (N * rounds if k == "masked_coord_stat" else 0)
+            for k in SOURCES}
+    ok = kept and finite and len(frozen) == 2 and counts == want
+    emit("p2p_schedule", combine="trimmed_mean", graph="ring(8, 2)",
+         rounds=rounds, ok=ok, frozen=frozen, frozen_rows_bitwise=kept,
+         finite=finite, ms_per_round=ms,
+         launches={k: v for k, v in counts.items() if v})
+    del traj
+    torch.cuda.empty_cache()
+    if not ok:
+        fail(f"p2p under the fault schedule: frozen {frozen} bitwise {kept},"
+             f" finite {finite}, launches {counts}")
+    return counts
+
+
+def phase_p2p(P):
+    """Phase 3p (a, b): full-width DGD (n = 8, f = 2, d = P, fp32) on the
+    complete graph for each combine of ``P2P_COMBINES``: 1 warm-up round,
+    then ``P2P_ROUNDS`` timed rounds; the launches a round must be one
+    masked aggregate's kernels per receiver (none for plain / lf / ce);
+    the honest agents' largest distance to the honest mean target is
+    printed, and must be smaller under every robust combine than under
+    plain.  Then the spec combines kernel against gather, and the faulted
+    ring.  Returns the launches."""
+    from repro_torch.core.p2p import complete_graph, p2p_dgd_run
+    totals = {k: 0 for k in SOURCES}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    targets = 0.2 * torch.randn((N, P), generator=gen, device=DEVICE)
+    hm = torch.mean(targets[F:], dim=0)
+    x0 = torch.full((N, P), 2.0, device=DEVICE)
+    byz = np.arange(N) < F
+
+    def grad(i, x):
+        return x - targets[i]
+
+    def byz_fn(g, t, s):
+        return torch.full_like(s, P2P_BIG)
+
+    dist = {}
+    for rule, names in P2P_COMBINES.items():
+        def run(steps):
+            return p2p_dgd_run(complete_graph(N), grad, x0, steps, f=F,
+                               combine=p2p_combine(rule), byz_mask=byz,
+                               byz_fn=byz_fn, device=DEVICE)
+        traj, ms, peak, counts = p2p_timed(run)
+        dist[rule] = float(torch.linalg.vector_norm(
+            traj[-1, F:] - hm, dim=1).max())
+        finite = bool(torch.isfinite(traj[-1]).all())
+        want = {k: (N * P2P_ROUNDS if k in names else 0) for k in SOURCES}
+        ok = finite and counts == want and (rule == "plain"
+                                            or dist[rule] < dist["plain"])
+        emit("p2p", combine=rule, n=N, f=F, d=P, rounds=P2P_ROUNDS, ok=ok,
+             ms_per_round=ms, peak_gb=peak,
+             launches_per_round={k: v / P2P_ROUNDS for k, v in
+                                 counts.items() if v},
+             honest_max_dist=dist[rule], finite=finite)
+        if not ok:
+            fail(f"p2p {rule}: finite {finite}, launches {counts} against "
+                 f"{want}, distance {dist}")
+        for k, v in counts.items():
+            totals[k] += v
+        if rule == "krum":
+            sent = traj[-2].clone()
+            sent[:F] = P2P_BIG
+        del traj
+        torch.cuda.empty_cache()
+    p2p_spec_impls(sent)
+    del sent
+    for k, v in p2p_schedule_run(x0, grad, byz, byz_fn).items():
+        totals[k] += v
+    del targets, x0, hm
+    torch.cuda.empty_cache()
+    return totals
+
+
+def resil_alpha_values(rule, impl, d, trials):
+    """The per-trial <V, g> that ``estimate_alpha_f(rule, ...)`` reduces
+    (the same generator stream, seed 0, sign_flip)."""
+    from repro_torch.core import resilience as R
+    from repro_torch.core.attacks import get_attack, make_byzantine_mask
+    from repro_torch.core.aggregators import make_spec
+    from repro_torch.device import make_generator
+    gen = make_generator(0, DEVICE)
+    g = torch.ones((d,), device=DEVICE) / torch.sqrt(
+        torch.tensor(float(d), device=DEVICE))
+    return R._alpha_trials(make_spec(rule, f=F, impl=impl),
+                           get_attack("sign_flip"),
+                           R._noise(gen, trials, RESIL_N, d),
+                           make_byzantine_mask(RESIL_N, F, device=DEVICE), g,
+                           0.2, gen)
+
+
+def resil_delta_values(rule, impl):
+    """The per-trial errors of each attack that ``estimate_delta_c``
+    reduces (one generator, seed 0, running on across the attacks)."""
+    from repro_torch.core import resilience as R
+    from repro_torch.core.attacks import get_attack, make_byzantine_mask
+    from repro_torch.core.aggregators import make_spec
+    from repro_torch.device import make_generator
+    gen = make_generator(0, DEVICE)
+    spec = make_spec(rule, f=F, impl=impl)
+    mask = make_byzantine_mask(RESIL_N, F, device=DEVICE)
+    return np.concatenate([R._delta_trials(
+        spec, get_attack(a), R._noise(gen, RESIL_TRIALS, RESIL_N, 32), mask,
+        32, F, 1.0, gen) for a in RESIL_ATTACKS])
+
+
+def resil_case(what, rule, d, trials, names, estimate, values):
+    """One estimator on both impls (auto, then gather) from seed 0: the
+    public estimator's result and its launches (auto: ``names`` once a
+    trial and attack; gather: none), and its per-trial values within the
+    fp32 bar of each other; at d = 32, ``ok`` of every alpha_f.  (At full
+    width the honest noise, 0.2 sqrt(d) in norm against ||g|| = 1, is
+    beyond what (alpha, f)-resilience covers: ``ok`` is printed only.)"""
+    from repro_torch import kernels
+    res, vals, counts = {}, {}, {}
+    t0 = time.perf_counter()
+    for impl in ("auto", "gather"):
+        kernels.reset_launch_counts()
+        res[impl] = estimate(impl)
+        counts[impl] = kernels.launch_counts()
+        vals[impl] = values(impl)
+    seconds = time.perf_counter() - t0
+    reps = trials * (len(RESIL_ATTACKS) if what == "delta_c" else 1)
+    want = {k: (reps if k in names else 0) for k in SOURCES}
+    err = float(np.max(np.abs(vals["auto"] - vals["gather"])))
+    close = bool(np.allclose(vals["auto"], vals["gather"], rtol=TOL,
+                             atol=TOL))
+    ok = (close and counts["auto"] == want
+          and not any(counts["gather"].values())
+          and (what == "delta_c" or d != 32 or res["auto"][1]))
+    emit("resilience", estimator=what, rule=rule, n=RESIL_N, f=F, d=d,
+         trials=trials, ok=ok, result_auto=res["auto"],
+         result_gather=res["gather"], per_trial_max_abs_diff=err,
+         launches_auto={k: v for k, v in counts["auto"].items() if v},
+         seconds=seconds)
+    if not ok:
+        fail(f"resilience {what} {rule} d={d}: values within bar {close} "
+             f"({err}), launches {counts}, result {res}")
+    return counts["auto"]
+
+
+def phase_resilience(P):
+    """Phase 3p (c): ``estimate_alpha_f`` (sign_flip) for krum,
+    coordinate_median, bulyan and geometric_median and ``estimate_delta_c``
+    (four attacks) for coordinate_median and mean at n = 10, f = 2, d = 32,
+    24 trials (JAX's tests' settings), each on impl auto and gather
+    (:func:`resil_case`); then krum and coordinate_median through
+    ``estimate_alpha_f`` at d = P with 2 trials.  Returns the launches."""
+    from repro_torch.core.resilience import estimate_alpha_f, estimate_delta_c
+    totals = {k: 0 for k in SOURCES}
+    cases = [("alpha_f", r, 32, RESIL_TRIALS, names)
+             for r, names in RESIL_ALPHA.items()]
+    cases += [("delta_c", r, 32, RESIL_TRIALS, names)
+              for r, names in RESIL_DELTA.items()]
+    cases += [("alpha_f", r, P, RESIL_WIDE_TRIALS, RESIL_ALPHA[r])
+              for r in ("krum", "coordinate_median")]
+    for what, rule, d, trials, names in cases:
+        if what == "alpha_f":
+            def estimate(impl):
+                return estimate_alpha_f(rule, n=RESIL_N, f=F, d=d,
+                                        trials=trials, device=DEVICE,
+                                        impl=impl)
+
+            def values(impl):
+                return resil_alpha_values(rule, impl, d, trials)
+        else:
+            def estimate(impl):
+                return estimate_delta_c(rule, n=RESIL_N, f=F, d=d,
+                                        trials=trials, device=DEVICE,
+                                        impl=impl)
+
+            def values(impl):
+                return resil_delta_values(rule, impl)
+        counts = resil_case(what, rule, d, trials, names, estimate, values)
+        for k, v in counts.items():
+            totals[k] += v
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_p2p_resilience(num_params):
+    """Phase 3p: :func:`phase_p2p`, then :func:`phase_resilience`, with
+    the phase's seconds on a line of its own."""
+    t0 = time.perf_counter()
+    totals = phase_p2p(num_params)
+    t1 = time.perf_counter()
+    for k, v in phase_resilience(num_params).items():
+        totals[k] += v
+    emit("p2p_resilience_phase", p2p_s=t1 - t0,
+         resilience_s=time.perf_counter() - t1,
+         seconds=time.perf_counter() - t0)
+    return totals
+
+
 def main():
     # deterministic cuBLAS for the kernel-vs-gather phase: set before the
     # first CUDA call
@@ -5296,6 +5638,7 @@ def main():
     coded_totals = [coded_totals, phase_coded_async(cfg),
                     phase_coded_elastic(cfg)]
     tel_totals = phase_telemetry(cfg)
+    p2p_totals = phase_p2p_resilience(num_params(cfg))
     # m_krum and mda run no kernel that multi_krum's and bulyan's traced
     # steps leave out (K2, K10, K11), so they are not traced
     phase_profile(cfg, {"trimmed_mean": (N, {}, ()), "krum": (N, {}, ()),
@@ -5328,7 +5671,8 @@ def main():
                                   + memory_totals[name]
                                   + rules15_totals[name]
                                   + sum(t[name] for t in coded_totals)
-                                  + tel_totals[name]),
+                                  + tel_totals[name]
+                                  + p2p_totals[name]),
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": s["bound_by"],

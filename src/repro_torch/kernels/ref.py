@@ -48,16 +48,44 @@ def fma_weighted_sum(w, g):
     return acc
 
 
+# the low 29 bits of an fp64 that lies halfway between two normal fp32
+# values (53 - 24 spare bits: the first set, the rest clear)
+_F32_SPARE = (1 << 29) - 1
+_F32_HALF = 1 << 28
+_F32_NORMAL = 2.0 ** -125
+
+
 def fma_f32(a, x, acc=None):
     """fp32 ``fma(a, x, acc)`` with one rounding, elementwise (``acc=None``
     means the plain rounded product).  The product of two fp32 values is
-    exact in fp64; the fp64 sum is rounded to ODD (Knuth's TwoSum gives
-    its exact error, and an inexact sum with an even last bit moves one
-    ulp toward the exact value), and a round-to-odd value with 29 spare
-    bits rounds to fp32 exactly as the exact sum would."""
+    exact in fp64, so the fp64 sum s is one rounding of the exact sum.
+    Rounding s to fp32 gives the exact sum's fp32 rounding unless s sits
+    exactly halfway between two fp32 values (the fp32 rounding boundaries
+    are fp64 values, so an inexact s can land on one, and its tie then
+    rounds to even whatever side the exact sum lies on).  Those elements,
+    and every nonzero s below 2^-125 (where fp32's spacing, and so its
+    halfway pattern, changes), take :func:`_fma_f32_exact`; the result is
+    bit for bit the correctly rounded fma either way."""
     p = x.double() * a.double()
     if acc is None:
         return p.float()
+    s = p + acc.double()
+    out = s.float()
+    hazard = (((s.view(torch.int64) & _F32_SPARE) == _F32_HALF)
+              | ((torch.abs(s) < _F32_NORMAL) & (s != 0)))
+    if bool(hazard.any()):
+        a, x, acc = torch.broadcast_tensors(a, x, acc)
+        out[hazard] = _fma_f32_exact(a[hazard], x[hazard], acc[hazard])
+    return out
+
+
+def _fma_f32_exact(a, x, acc):
+    """:func:`fma_f32` on every element: the fp64 sum is rounded to ODD
+    (Knuth's TwoSum gives its exact error, and an inexact sum with an even
+    last bit moves one ulp toward the exact value), and a round-to-odd
+    value with 29 spare bits rounds to fp32 exactly as the exact sum
+    would."""
+    p = x.double() * a.double()
     c = acc.double()
     s = p + c
     bp = s - c

@@ -253,13 +253,18 @@ def churn_sim(mod):
                          seed=0)
 
 
+@functools.lru_cache(maxsize=None)
 def in_flight_np(seed, n=N):
     """A nonzero (n, ...) fp32 tree shaped like the parameters: the
-    buffer (and momentum) both steps start from."""
+    buffer (and momentum) both steps start from.  Drawn once a (seed, n)
+    and read-only: the callers copy it into each side."""
     rng = np.random.default_rng(seed)
-    return jax.tree.map(
-        lambda p: (rng.normal(size=(n,) + p.shape) * 1e-2).astype(
-            np.float32), jax_params_numpy())
+
+    def leaf(p):
+        a = (rng.normal(size=(n,) + p.shape) * 1e-2).astype(np.float32)
+        a.flags.writeable = False
+        return a
+    return jax.tree.map(leaf, jax_params_numpy())
 
 
 def run_async(rule, alpha, trace="stragglers", steps=4,

@@ -5,8 +5,9 @@
 * the entry points (``train_loop`` with and without ``sim=``,
   ``async_train_loop``, ``make_train_step``, ``make_async_step``,
   ``python -m repro_torch.launch.train`` with and without the simulator
-  flags) raise on a host without CUDA unless the caller asks for the CPU
-  — and with ``device="cpu"`` they run.
+  flags, ``p2p_dgd_run``, ``estimate_alpha_f``, ``estimate_delta_c``)
+  raise on a host without CUDA unless the caller asks for the CPU — and
+  with ``device="cpu"`` they run.
 """
 import ast
 import math
@@ -213,3 +214,46 @@ def test_cli_runs_memory_defenses_on_cpu_when_asked(flags, capsys):
                               "16", "--per-agent-batch", "1"] + flags)
     assert math.isfinite(hist[-1]["loss"])
     assert "final loss" in capsys.readouterr().out
+
+
+def _p2p_entry_points():
+    """(name, call(**device kw)) of the p2p and resilience entry points at
+    a small size."""
+    import numpy as np
+    from repro_torch.core.p2p import complete_graph, p2p_dgd_run
+    from repro_torch.core.resilience import (estimate_alpha_f,
+                                             estimate_delta_c)
+    x0 = np.full((4, 3), 2.0, np.float32)
+    grad = lambda i, x: x - float(i)
+    return {
+        "p2p_dgd_run": lambda **kw: p2p_dgd_run(
+            complete_graph(4), grad, x0, 2, f=1, combine=make_spec(
+                "trimmed_mean", f=1, n=4), **kw),
+        "estimate_alpha_f": lambda **kw: estimate_alpha_f(
+            "krum", n=5, f=1, trials=2, **kw),
+        "estimate_delta_c": lambda **kw: estimate_delta_c(
+            "coordinate_median", n=5, f=1, trials=2, **kw)}
+
+
+@pytest.mark.parametrize("name", ["p2p_dgd_run", "estimate_alpha_f",
+                                  "estimate_delta_c"])
+def test_p2p_and_resilience_raise_without_cuda(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = _p2p_entry_points()[name]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call(device="cuda")
+
+
+@pytest.mark.parametrize("name", ["p2p_dgd_run", "estimate_alpha_f",
+                                  "estimate_delta_c"])
+def test_p2p_and_resilience_run_on_cpu_when_asked(name):
+    out = _p2p_entry_points()[name](device="cpu")
+    if name == "p2p_dgd_run":
+        assert out.shape == (3, 4, 3) and out.device.type == "cpu"
+        assert bool(torch.isfinite(out).all())
+    elif name == "estimate_alpha_f":
+        assert math.isfinite(out[0]) and isinstance(out[1], bool)
+    else:
+        assert math.isfinite(out) and out >= 0.0

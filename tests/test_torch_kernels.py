@@ -10,6 +10,8 @@ exact for median values, Krum's one-hot and a one-hot weighted sum; rtol
 The CUDA kernels themselves are held to these plain versions on the card
 by tests/test_torch_cuda.py.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -226,6 +228,54 @@ def test_weighted_sum_plain_matches_jax():
     assert torch.equal(weighted_sum_plain(torch.zeros(8),
                                           torch.from_numpy(g)),
                        torch.zeros(771))
+
+
+def fma_inputs(kind):
+    """(a, x, acc) for :func:`test_fma_f32_is_its_exact_path`."""
+    g = torch.Generator().manual_seed(7)
+    if kind in ("normal", "bfloat16"):
+        x = torch.randn(65536, generator=g)
+        return (torch.tensor(0.37), x.bfloat16() if kind == "bfloat16"
+                else x, torch.randn(65536, generator=g))
+    if kind == "midpoints":
+        # small integers times powers of two: many fp64 sums land exactly
+        # halfway between two fp32 values
+        def scaled(lo, hi):
+            return (torch.randint(lo, hi, (65536,), generator=g).float()
+                    * 2.0 ** torch.randint(-30, 30, (65536,), generator=g)
+                    .float())
+        return torch.tensor(0.25), scaled(-64, 64), scaled(-2 ** 24, 2 ** 24)
+    specials = torch.tensor([0.0, -0.0, 1e-45, -1e-45, 1e-40, 2.0 ** -126,
+                             2.0 ** -127, 1.17e-38, 3e38, -3e38, 1.0, -0.5,
+                             math.inf, -math.inf, math.nan])
+    return (torch.tensor(-1.5), specials.repeat_interleave(len(specials)),
+            specials.repeat(len(specials)))
+
+
+@pytest.mark.parametrize("kind", ["normal", "bfloat16", "midpoints",
+                                  "specials"])
+def test_fma_f32_is_its_exact_path(kind):
+    """``ref.fma_f32`` rounds the fp64 sum to fp32 and sends only the sums
+    on an fp32 rounding boundary, or below the normal range, through the
+    exact round-to-odd path: bit for bit that path on every element (the
+    midpoint inputs do take it), 0-dim operands included."""
+    from repro_torch.kernels import ref
+    a0, x, acc = fma_inputs(kind)
+    for a in (a0, torch.tensor(2.0 ** -20), torch.tensor(1.0000001)):
+        ours = ref.fma_f32(a, x, acc)
+        assert torch.equal(ours.view(torch.int32),
+                           ref._fma_f32_exact(a, x, acc).view(torch.int32))
+        assert torch.equal(ref.fma_f32(a, x).view(torch.int32),
+                           (x.double() * a.double()).float().view(
+                               torch.int32))
+    if kind == "midpoints":
+        s = x.double() * a0.double() + acc.double()
+        assert int(((s.view(torch.int64) & ref._F32_SPARE)
+                    == ref._F32_HALF).sum()) > 100
+    for i in range(0, x.numel(), max(1, x.numel() // 64)):
+        assert torch.equal(ref.fma_f32(a, x[i], acc[i]).view(torch.int32),
+                           ref._fma_f32_exact(a, x[i], acc[i]).view(
+                               torch.int32))
 
 
 # ---------------------------------------------------------------------------
