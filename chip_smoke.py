@@ -16,12 +16,13 @@ failure exits non-zero without a result line):
                library yardstick, and the bound;
 3. train     — the main path: the synchronous Byzantine-robust step on the
                full-width paper-100m (bf16, n = 8, f = 2, sign_flip,
-               seq 256, 2 sequences per agent, remat on), 2 steps each of
+               seq 256, 2 sequences per agent, remat on), 1 step each of
                trimmed_mean, coordinate_median and krum through
                ``train_loop`` with impl="auto", after one untimed warm-up
                step per rule; the launch counts must show that every
                step went through its kernels.  A traced step per rule
-               then splits the device time by device event;
+               (after a warm-up and an untraced step) then splits the
+               device time by device event;
 4. kernel vs gather — one full-width step with impl="kernel" against
                impl="gather" from the same state and batch: the same
                arena and loss, median and krum aggregates exact, trimmed
@@ -42,7 +43,7 @@ The async path (ROADMAP.md slice 2) adds:
 3b. async    — the full-width configuration of phase 3 under stragglers
                (lognormal 0.8, quorum 6, max staleness 3: 6 deliveries and
                staleness up to 2 every step, no step pure) through
-               ``train_loop(sim=...)``: 1 warm-up step, then 2 timed steps
+               ``train_loop(sim=...)``: 1 warm-up step, then 1 timed step
                per rule; the launch counts must show one K5 per step
                (median, trimmed) or one each of K4 (the imputed mean), K6,
                K3 and K7 (krum).  Then the elastic trimmed_mean
@@ -175,8 +176,8 @@ sparse_mean (ROADMAP.md slice 4b) and the legacy ``ops`` sort paths add:
                counts (K23 twice, K2 once), against the gather laws; times
                against ``torch.sort(dim=0)`` and the bound;
 3s. sparse train — sparse_mean (f = 2, sign_flip: the rule ignores f)
-               through ``train_loop``: 1 warm-up and 2 timed synchronous
-               steps, 1 + 2 async steps under the phase-3b stragglers,
+               through ``train_loop``: 1 warm-up and 1 timed synchronous
+               step, 1 + 1 async steps under the phase-3b stragglers,
                and 1 + 1 steps each of int8 and fp8 sync and int8 async;
                the launch counts must show one K17 (compressed: one K21)
                a step and no other kernel; a traced sync and async step;
@@ -199,8 +200,8 @@ The defenses with memory and the defense-aware attacks (ROADMAP.md slice
                4099 and the prime 65537 at a small width; times against
                ``torch.addmv`` and the bound;
 3m. memory train — the phase-3b configuration through
-               ``train_loop(sim=...)``, 1 warm-up step and 2 timed steps
-               (int8: 1): centered_clip impl="kernel" under sign_flip on
+               ``train_loop(sim=...)``, 1 warm-up step and 1 timed step:
+               centered_clip impl="kernel" under sign_flip on
                the synchronous trace and under stragglers, centered_clip
                impl="auto", zeno_pp, server_momentum(trimmed_mean),
                spec_alie and min_max against kernel centered_clip,
@@ -391,8 +392,8 @@ items 19 and 19a) add:
 
 3t. telemetry — sync krum, multi_krum (m = 3), cge and trimmed_mean, async
                krum under the phase-3b stragglers and the elastic
-               trimmed_mean under churn (n = 8, f = 2, sign_flip), each 2
-               steps through ``train_loop`` from seed 0 without and with a
+               trimmed_mean under churn (n = 8, f = 2, sign_flip), each 1
+               step through ``train_loop`` from seed 0 without and with a
                Recorder (telemetry on), deterministic algorithms on for
                both: the parameters and losses bitwise equal, every
                step's sel_w summing to 1 within 1e-6, the launches a step
@@ -443,10 +444,37 @@ Peer-to-peer DGD and the resilience estimators (ROADMAP.md item 21) add:
                line of their own.  To pay for it phase 3r went from 2
                timed steps a spec to 1.
 
+The text families (ROADMAP.md item 22a) add:
+
+3f. families — (a) mamba2-130m at full width: bf16 with the SSM's fp32
+               A_log / dt_bias / D_skip, so an fp32 (8, P) arena of P =
+               128,983,488 (num_params' 128,940,480 leaves out the conv
+               biases, ROADMAP.md R3); n = 8, f = 2, sign_flip, seq 512
+               (two SSD chunks of 256), one sequence an agent, remat on:
+               trimmed_mean, coordinate_median and krum through
+               ``train_loop`` (1 warm-up and 1 timed step, exactly one K1
+               or one each of K2 K3 K4 a step), one async trimmed_mean
+               step under the phase-3b stragglers (one K5), a traced
+               trimmed_mean step (device busy, idle share) with the device
+               time of one agent's pass split between the SSD scan, the
+               block's projections, the rest of the block and the rest of
+               the model, and the aggregation; each rule's warm-up step's
+               arena aggregated again by the gather impl: median and krum
+               exact, trimmed within 3e-6; (b) the -smoke
+               reductions of mixtral-8x22b, llama4-scout-17b-a16e,
+               zamba2-7b and h2o-danube-3-4b in their own dtypes at seq 80:
+               one trimmed_mean and one krum step each on the kernel impl
+               (finite loss, the rule's kernels once), against the gather
+               impl on its arena, the MoE lines with their drops and R2
+               flags.  The phase's seconds go on a line of their own.  To
+               pay for it, phases 3 / 3b / 3s and 3m went from 2 timed
+               steps to 1 and phase 3t from 2 steps a run to 1.
+
 The lines before the last give the kernels' summary and the card; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero when CUDA is
 not available.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -466,12 +494,12 @@ MEM_BPS = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 N, F = 8, 2
 TOL = 3e-6                  # the fp32 kernel bar (trimmed mean, Gram, wsum)
-SEQ, PER_AGENT, STEPS = 256, 2, 2
+SEQ, PER_AGENT, STEPS = 256, 2, 1
 RULES = ("trimmed_mean", "coordinate_median", "krum")
 RULE_KERNELS = {"trimmed_mean": ("coord_stat",),
                 "coordinate_median": ("coord_stat",),
                 "krum": ("gram", "krum_select", "weighted_sum")}
-ASYNC_STEPS = 2
+ASYNC_STEPS = 1
 # the async rules: rule -> (n, quorum, hyper, the kernels of one masked
 # step); the selection family's table is ASYNC_SEL_RULES below
 ASYNC_RULES = {
@@ -3464,14 +3492,19 @@ def want_dequant(rule, agg_dtype, steps):
     return steps if agg_dtype in QUANT and rule in DEQUANT_RULES else 0
 
 
-def phase_train(cfg, table, steps, agg_dtype=""):
+def phase_train(cfg, table, steps, agg_dtype="", seq=SEQ,
+                per_agent=PER_AGENT, phase="train", vs_gather=None):
     """Per rule of ``table`` (rule -> (n, hyper, kernels of one step)):
     one untimed warm-up step, then ``steps`` timed steps through
-    ``train_loop`` (with exchange dtype ``agg_dtype``); the launch counts,
-    reset just before the timed run and read just after, must show each
-    of the rule's kernels once per step and no other, and a quantized
-    exchange one engine-level dequantization per step for krum and none
-    for the rules with a scaled kernel."""
+    ``train_loop`` (with exchange dtype ``agg_dtype``, ``per_agent``
+    sequences of ``seq`` tokens an agent); the launch counts, reset just
+    before the timed run and read just after, must show each of the
+    rule's kernels once per step and no other, and a quantized exchange
+    one engine-level dequantization per step for krum and none for the
+    rules with a scaled kernel.  Each rule prints a ``phase`` line.
+    ``vs_gather``: the name of a line on which the warm-up step's arena,
+    aggregated again with impl="gather", is held to the kernel's
+    aggregate (:func:`against_gather`)."""
     from repro_torch import kernels
     from repro_torch.core.aggregators import make_spec
     from repro_torch.data import SyntheticLM
@@ -3480,14 +3513,26 @@ def phase_train(cfg, table, steps, agg_dtype=""):
 
     totals = {k: 0 for k in SOURCES}
     for rule, (n, hyper, names) in table.items():
-        ds = SyntheticLM(cfg.vocab_size, SEQ, n, PER_AGENT)
+        ds = SyntheticLM(cfg.vocab_size, seq, n, per_agent)
         bz = ByzantineConfig(n_agents=n, f=F,
                              aggregator=make_spec(rule, f=F, n=n, **hyper),
                              attack="sign_flip", remat=True,
                              agg_dtype=agg_dtype)
+        store = {}
+        warm = bz if vs_gather is None else dataclasses.replace(
+            bz, aggregator=recorded(bz.aggregator, store))
         # one untimed warm-up step, so that every timed step is warm
-        train_loop(cfg, bz, adamw(constant(1e-4)), ds, steps=1, seed=0,
+        train_loop(cfg, warm, adamw(constant(1e-4)), ds, steps=1, seed=0,
                    device=DEVICE, log_fn=lambda s: None)
+        if vs_gather is not None:
+            stack, _, _, out, _ = store.pop("kernel")
+            err, close = against_gather(rule, stack, out)
+            emit(vs_gather, arch=cfg.name, rule=rule, seq=seq,
+                 step="warm-up", ok=close, arena_dtype=str(stack.dtype),
+                 max_abs_diff=err)
+            if not close:
+                fail(f"{cfg.name} {rule}: kernel against gather {err}")
+            del stack, out
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
@@ -3502,7 +3547,7 @@ def phase_train(cfg, table, steps, agg_dtype=""):
         step_ms = [1e3 * (b - a) for a, b in zip([0.0] + wall[:-1], wall)]
         losses = [h["loss"] for h in hist]
         want = {k: (steps if k in names else 0) for k in SOURCES}
-        emit("train", rule=rule, n=n, hyper=hyper, impl=bz.aggregator.impl,
+        emit(phase, rule=rule, n=n, hyper=hyper, impl=bz.aggregator.impl,
              agg_dtype=agg_dtype or None, steps=steps, losses=losses,
              step_ms=step_ms, median_step_ms=statistics.median(step_ms),
              peak_mem_gb=peak / 1e9, launches=counts,
@@ -3592,14 +3637,16 @@ def check_straggler_traces():
                  f"{tr.staleness.max(1)}")
 
 
-def phase_async(cfg, table, steps, agg_dtype=""):
+def phase_async(cfg, table, steps, agg_dtype="", seq=SEQ,
+                per_agent=PER_AGENT, phase="async"):
     """Per rule of ``table`` (rule -> (n, quorum, hyper, the kernels of
     one step)): the straggler profile through ``train_loop(sim=...)``
-    (with exchange dtype ``agg_dtype``), 1 warm-up step, then ``steps``
-    timed steps.  The launch counts, reset just before the timed run and
-    read just after, must show each of the rule's kernels once a step and
-    no other, one async step built, and the engine-level dequantizations
-    as in :func:`phase_train`."""
+    (with exchange dtype ``agg_dtype``, ``per_agent`` sequences of ``seq``
+    tokens an agent), 1 warm-up step, then ``steps`` timed steps.  The
+    launch counts, reset just before the timed run and read just after,
+    must show each of the rule's kernels once a step and no other, one
+    async step built, and the engine-level dequantizations as in
+    :func:`phase_train`.  Each rule prints a ``phase`` line."""
     from repro_torch import kernels
     from repro_torch.core.aggregators import make_spec
     from repro_torch.data import SyntheticLM
@@ -3611,7 +3658,7 @@ def phase_async(cfg, table, steps, agg_dtype=""):
     step_ms_by_rule = {}
     for rule, (n, quorum, hyper, names) in table.items():
         sim = straggler_sim(quorum)
-        ds = SyntheticLM(cfg.vocab_size, SEQ, n, PER_AGENT)
+        ds = SyntheticLM(cfg.vocab_size, seq, n, per_agent)
         bz = ByzantineConfig(n_agents=n, f=F,
                              aggregator=make_spec(rule, f=F, n=n, **hyper),
                              attack="sign_flip", remat=True,
@@ -3635,7 +3682,7 @@ def phase_async(cfg, table, steps, agg_dtype=""):
         losses = [h["loss"] for h in hist]
         want = {k: (steps if k in names else 0) for k in SOURCES}
         step_ms_by_rule[rule] = statistics.median(step_ms)
-        emit("async", rule=rule, n=n, quorum=quorum, hyper=hyper,
+        emit(phase, rule=rule, n=n, quorum=quorum, hyper=hyper,
              impl=bz.aggregator.impl, agg_dtype=agg_dtype or None,
              steps=steps, engine_dequant=dq.n,
              arrived=[h["arrived"] for h in hist],
@@ -4160,6 +4207,9 @@ def phase_sparse_vs_gather(cfg):
 CCLIP_ITERS = 5             # centered_clip's default iters: K22 a step
 
 
+MEMORY_STEPS = 1            # timed steps a case
+
+
 def memory_cases():
     """(label, spec, attack, trace, agg_dtype, timed steps, the kernels of
     one step) of phase 3m: the phase-3b configuration through
@@ -4169,21 +4219,23 @@ def memory_cases():
     smt = server_momentum(make_spec("trimmed_mean", f=F, n=N))
     k22 = {K22: CCLIP_ITERS}
     k5 = {"masked_coord_stat": 1}
+    steps = MEMORY_STEPS
     return [
-        ("centered_clip kernel", cck, "sign_flip", "sync", "", 2, k22),
-        ("centered_clip kernel", cck, "sign_flip", "stragglers", "", 2, k22),
+        ("centered_clip kernel", cck, "sign_flip", "sync", "", steps, k22),
+        ("centered_clip kernel", cck, "sign_flip", "stragglers", "", steps,
+         k22),
         ("centered_clip auto", make_spec("centered_clip", f=F, n=N),
-         "sign_flip", "stragglers", "", 2, {}),
+         "sign_flip", "stragglers", "", steps, {}),
         ("zeno_pp", make_spec("zeno_pp", f=F, n=N), "sign_flip",
-         "stragglers", "", 2, {}),
+         "stragglers", "", steps, {}),
         ("server_momentum(trimmed_mean)", smt, "sign_flip", "stragglers",
-         "", 2, k5),
+         "", steps, k5),
         ("spec_alie vs centered_clip kernel", cck, "spec_alie",
-         "stragglers", "", 2, k22),
+         "stragglers", "", steps, k22),
         ("min_max vs centered_clip kernel", cck, "min_max", "stragglers",
-         "", 2, k22),
+         "", steps, k22),
         ("slow_drift vs server_momentum(trimmed_mean)", smt, "slow_drift",
-         "stragglers", "", 2, k5),
+         "stragglers", "", steps, k5),
         ("centered_clip kernel int8", cck, "sign_flip", "stragglers",
          "int8", 1, k22),
     ]
@@ -4479,6 +4531,19 @@ OUR_KERNELS = ("order_stat_kernel", "coord_stat_kernel", "gram_mma_kernel",
                "clipped_wsum_kernel")
 
 
+def device_events(prof):
+    """(name, start us, end us) of a trace's device-side events (kernels,
+    copies, sets; not the spans a profiler range draws on the device),
+    read from the profiler's raw results: building its event tree
+    (``prof.events()``) takes seconds on a step's trace."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.start_ns() / 1e3,
+             (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_hidden_event() and not e.is_user_annotation()]
+
+
 def device_busy(prof):
     """Device-side events of a trace only (kernels, copies, sets): the
     union of their intervals in ms, the span from the first start to the
@@ -4486,9 +4551,8 @@ def device_busy(prof):
     device activity only: CPU operator rows would carry the device time
     of the kernels they launched, which the kernels' own rows hold
     already, so they are not recorded."""
-    from torch.autograd import DeviceType
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    evs = device_events(prof)
+    spans = sorted((s, e) for _, s, e in evs)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -4500,9 +4564,8 @@ def device_busy(prof):
     if cur_e is not None:
         busy += cur_e - cur_s
     by_name = {}
-    for e in evs:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3
+    for name, s, e in evs:
+        by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e3
     span = (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
     return busy / 1e3, span, by_name
 
@@ -5025,7 +5088,7 @@ def phase_rules15_train(cfg):
 # selection telemetry, the flight recorder and checkpoints (ROADMAP.md items
 # 19 and 19a)
 
-TELEMETRY_STEPS = 2
+TELEMETRY_STEPS = 1
 # label -> (rule, hyper, trace, the selection chain the telemetry adds a
 # step: the kernels that name the rows the aggregate used)
 TELEMETRY_RUNS = {
@@ -5563,6 +5626,340 @@ def phase_p2p_resilience(num_params):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# the text families (ROADMAP.md item 22a): no kernel of their own; their
+# models feed the existing kernels a new arena
+
+FAM_ARCH = "mamba2-130m"
+FAM_SEQ, FAM_PER_AGENT = 512, 1     # two SSD chunks of 256, one sequence
+FAM_STEPS = 1
+FAM_SMOKE_ARCHS = ("mixtral-8x22b", "llama4-scout-17b-a16e", "zamba2-7b",
+                   "h2o-danube-3-4b")
+FAM_SMOKE_SEQ = 80                  # past the reduced window of 64
+FAM_SMOKE_RULES = ("trimmed_mean", "krum")
+# the ranges of a traced mamba2 step: the module functions the smoke wraps
+# in a profiler range while it traces (module, attribute, range name)
+FAM_RANGES = (("repro_torch.models.ssm", "ssd_chunked", "ssd"),
+              ("repro_torch.models.ssm", "mamba_block", "mamba_block"))
+MATMUL_OPS = ("aten::matmul", "aten::mm", "aten::bmm", "aten::addmm",
+              "aten::linear", "aten::einsum")
+BACKWARD = "autograd::engine::evaluate_function"
+
+
+def family_arena_size(cfg):
+    """(the arena's P from the port's own tree, num_params): JAX's closed
+    form leaves out the SSM's conv biases (ROADMAP.md R3)."""
+    from repro_torch.configs import num_params
+    from repro_torch.core.flat import FlatPlan
+    from repro_torch.device import make_generator
+    from repro_torch.models import init_params
+    params = init_params(cfg, make_generator(0, DEVICE))
+    P = FlatPlan.for_proto(params).total
+    del params
+    torch.cuda.empty_cache()
+    return P, num_params(cfg)
+
+
+def op_category(e, seq_cat):
+    """The category of a traced op ``e`` from its ancestors: the SSD scan
+    (``ssd``), the Mamba2 block's matmuls outside it (``projections``) and
+    its other ops (``block_rest``: conv, gates, norm), ``aggregate``; an
+    op inside a backward node takes the category of the forward op the
+    node differentiates (``seq_cat``, by forward thread and sequence
+    number); None for the rest."""
+    mm = False
+    while e is not None:
+        mm = mm or e.name in MATMUL_OPS
+        if e.name in ("ssd", "aggregate"):
+            return e.name
+        if e.name == "mamba_block":
+            return "projections" if mm else "block_rest"
+        if e.name.startswith(BACKWARD):
+            return seq_cat.get((e.fwd_thread, e.sequence_nr))
+        e = e.cpu_parent
+    return None
+
+
+def split_device_ms(prof):
+    """Device ms of a CPU + CUDA trace by :func:`op_category` of the CPU
+    op each kernel is linked to (the profiler links a kernel to the one
+    op that launched it, so none counts twice), and the port's own
+    kernels, which no torch op launches, to ``aggregate``; ``other``
+    holds the rest (embedding, head and loss, the residual norms)."""
+    from torch.autograd import DeviceType
+    evs = [e for e in prof.events()
+           if e.device_type == DeviceType.CPU and not e.is_async]
+    seq_cat = {}
+    for e in evs:
+        if e.sequence_nr >= 0 and not e.name.startswith(BACKWARD):
+            cat = op_category(e, {})
+            if cat is not None:
+                seq_cat.setdefault((e.thread, e.sequence_nr), cat)
+    out = dict.fromkeys(("ssd", "projections", "block_rest", "aggregate",
+                         "other"), 0.0)
+    for e in evs:
+        own = sum(k.duration for k in e.kernels)
+        if own:
+            out[op_category(e, seq_cat) or "other"] += own / 1e3
+    out["aggregate"] += sum((e - s) / 1e3 for name, s, e in device_events(prof)
+                            if any(k in name for k in OUR_KERNELS))
+    return out
+
+
+@contextlib.contextmanager
+def ranged(spec_cls):
+    """While entered: each module function of ``FAM_RANGES`` runs inside a
+    profiler range of its name, and ``spec_cls.aggregate_flat`` inside
+    ``aggregate``."""
+    import importlib
+
+    from torch.profiler import record_function
+
+    def wrap(fn, name):
+        def inner(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return inner
+
+    targets = [(importlib.import_module(mod), attr, name)
+               for mod, attr, name in FAM_RANGES]
+    targets.append((spec_cls, "aggregate_flat", "aggregate"))
+    saved = [(owner, attr, getattr(owner, attr))
+             for owner, attr, _ in targets]
+    for (owner, attr, name), (_, _, fn) in zip(targets, saved):
+        setattr(owner, attr, wrap(fn, name))
+    try:
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def family_profile(cfg, rule="trimmed_mean"):
+    """A traced full-width step of ``rule`` on ``cfg`` (seed 2, after a
+    warm-up step and an untraced step on the host clock; device activity
+    only): device busy and idle share.  Then, to split that time by part
+    without reading a whole step's CPU trace (~10^5 events), a CPU + CUDA
+    trace of one agent's loss and gradient (remat on) and of the step's
+    aggregation on an (n, P) fp32 arena: the device ms of the SSD scan,
+    the block's projections, the rest of the block, the rest of the
+    model (:func:`split_device_ms`) and the aggregation; the model parts
+    times n estimate the step's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.aggregators import make_spec
+    from repro_torch.core.flat import FlatPlan
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import adamw, constant
+    from repro_torch.training import ByzantineConfig, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    gen = make_generator(2, DEVICE)
+    params = init_params(cfg, gen)
+    ds = SyntheticLM(cfg.vocab_size, FAM_SEQ, N, FAM_PER_AGENT)
+    opt = adamw(constant(1e-4))
+    spec = make_spec(rule, f=F, n=N)
+    bz = ByzantineConfig(n_agents=N, f=F, aggregator=spec,
+                         attack="sign_flip", remat=True)
+    step = make_train_step(cfg, bz, opt, device=DEVICE)
+    state = opt.init(params)
+    batch = ds.batch(ds.draw_starts(gen))
+    step(params, state, None, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, state, None, batch)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, None, batch)
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    busy, span, by_name = device_busy(prof)
+    ours = sum(t for k, t in by_name.items()
+               if any(name in k for name in OUR_KERNELS))
+    top = sorted(by_name.items(), key=lambda r: -r[1])[:8]
+    del prof, state
+
+    leaves = [leaf.requires_grad_(True) for leaf in tree_leaves(params)]
+    arena = torch.randn((N, FlatPlan.for_proto(params).total),
+                        generator=gen, device=DEVICE)
+    agent = {k: v[0] for k, v in batch.items()}
+    t0 = time.perf_counter()
+    with ranged(type(spec)), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
+        loss = loss_fn(cfg, params, agent, remat=True)
+        torch.autograd.grad(loss, leaves)
+        spec.aggregate_flat(arena)
+        torch.cuda.synchronize()
+    split = split_device_ms(prof)
+    split_busy, _, _ = device_busy(prof)
+    seen = busy > 0
+    model = {k: split[k] for k in ("ssd", "projections", "block_rest",
+                                   "other")}
+    emit("families_profile", arch=cfg.name, rule=rule, step_ms=wall_ms,
+         traced_step_ms=traced_ms,
+         device_busy_ms=busy if seen else "not measured",
+         device_span_ms=span if seen else "not measured",
+         device_idle_share=(1 - busy / wall_ms) if seen else "not measured",
+         aggregation_kernels_ms=ours if seen else "not measured",
+         peak_mem_gb=peak / 1e9,
+         top_device_events_ms=[[k[:60], t] for k, t in top],
+         agent_pass_device_ms=model if seen else "not measured",
+         aggregate_device_ms=split["aggregate"] if seen else "not measured",
+         split_trace_busy_ms=split_busy if seen else "not measured",
+         step_estimate_device_ms=({k: N * v for k, v in model.items()}
+                                  if seen else "not measured"),
+         split_trace_s=time.perf_counter() - t0)
+    del params, arena, prof
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def routing_log(on):
+    """While entered and ``on``: each MoE dispatch (``moe.route``) appends
+    its (keep, r2) to the yielded list."""
+    from repro_torch.models import moe
+    log, real = [], moe.route
+
+    def recording(*a, **kw):
+        out = real(*a, **kw)
+        log.append((out[3].detach(), out[4].detach()))
+        return out
+
+    if on:
+        moe.route = recording
+    try:
+        yield log
+    finally:
+        moe.route = real
+
+
+def against_gather(rule, stack, out):
+    """(max |out - gather|, whether it passes): ``rule``'s kernel
+    aggregate ``out`` of the arena ``stack`` against impl="gather" on the
+    same arena: median and krum exact, trimmed mean within 3e-6."""
+    from repro_torch.core.aggregators import make_spec
+    ref = make_spec(rule, f=F, impl="gather",
+                    n=stack.shape[0]).aggregate_flat(stack)
+    err = max_abs_err(out, ref)
+    close = err == 0.0 if rule in EXACT_RULES else bool(torch.allclose(
+        out, ref, rtol=TOL, atol=TOL))
+    return err, close
+
+
+def family_pairs(cfg, rules, seq, seed, routing=False):
+    """Per rule: one synchronous step with impl="kernel" from seed
+    ``seed``'s parameters and batch (n = 8, f = 2, sign_flip, remat on,
+    one sequence of ``seq`` tokens an agent), its launches held to the
+    rule's kernels and its loss finite; then the rule with impl="gather"
+    on that step's arena (:func:`against_gather`).  With ``routing`` the
+    line adds the MoE calls' drops and R2 flags (every forward runs twice
+    under remat: the pass, then its recomputation in the backward).  The
+    step is the configuration's drive of the main path: returns its
+    launches."""
+    from repro_torch import kernels
+    from repro_torch.core.aggregators import make_spec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, constant
+    from repro_torch.training import ByzantineConfig, make_train_step
+
+    gen = make_generator(seed, DEVICE)
+    base = init_params(cfg, gen)
+    ds = SyntheticLM(cfg.vocab_size, seq, N, 1)
+    batch = ds.batch(ds.draw_starts(gen))
+    totals = {k: 0 for k in SOURCES}
+    for rule in rules:
+        store = {}
+        spec = recorded(make_spec(rule, f=F, impl="kernel", n=N), store)
+        bz = ByzantineConfig(n_agents=N, f=F, aggregator=spec,
+                             attack="sign_flip", remat=True)
+        opt = adamw(constant(1e-4))
+        step = make_train_step(cfg, bz, opt, device=DEVICE)
+        params = _clone(base)
+        kernels.reset_launch_counts()
+        with routing_log(routing) as log:
+            _, _, _, met = step(params, opt.init(params), None, batch)
+            counts = kernels.launch_counts()
+        stack, _, _, out, _ = store.pop("kernel")
+        err, close = against_gather(rule, stack, out)
+        want = {k: (1 if k in RULE_KERNELS[rule] else 0) for k in SOURCES}
+        loss = float(met["loss"])
+        extra = {}
+        if log:
+            drops = [int(torch.sum(~keep)) for keep, _ in log]
+            extra = dict(moe_calls=len(log), dropped_total=sum(drops),
+                         dropped_max=max(drops),
+                         calls_with_drops=sum(d > 0 for d in drops),
+                         r2_calls=sum(bool(r2) for _, r2 in log))
+        ok = close and counts == want and math.isfinite(loss)
+        emit("families_vs_gather", arch=cfg.name, rule=rule, seq=seq, ok=ok,
+             loss=loss, arena_dtype=str(stack.dtype), max_abs_diff=err,
+             launches={k: v for k, v in counts.items() if v}, **extra)
+        if not ok:
+            fail(f"{cfg.name} {rule}: loss {loss}, launches {counts} "
+                 f"against {want}, kernel against gather {err}")
+        for k, v in counts.items():
+            totals[k] += v
+        del params, stack, out
+    del base
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_families():
+    """Phase 3f (ROADMAP.md item 22a).  (a) mamba2-130m at full width (bf16
+    with its fp32 SSM leaves, so an fp32 (8, P) arena; n = 8, f = 2,
+    sign_flip, seq 512, one sequence an agent, remat on): trimmed_mean,
+    coordinate_median and krum through ``train_loop`` (1 warm-up step
+    whose arena the gather impl aggregates again, 1 timed step, one K1 or
+    one each of K2 K3 K4 a step), one async trimmed_mean step under the
+    phase-3b stragglers (one K5) and a traced trimmed_mean step split by
+    part (:func:`family_profile`).  (b) the -smoke reductions of
+    mixtral-8x22b, llama4-scout-17b-a16e, zamba2-7b and h2o-danube-3-4b
+    in their own dtypes at seq 80: one trimmed_mean and one krum step
+    each, on the kernel impl against the gather impl
+    (:func:`family_pairs`), the MoE lines with their drops and R2.  The
+    phase's seconds on a line of its own.  Returns the launches of the
+    main-path runs: the timed steps of (a) and the steps of (b), which
+    are those configurations' only drive (warm-up steps count nowhere in
+    the smoke)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    cfg = get_config(FAM_ARCH)
+    P, closed = family_arena_size(cfg)
+    emit("families_config", arch=cfg.name, arena_P=P, num_params=closed,
+         conv_bias_values=P - closed, dtype=cfg.dtype, seq=FAM_SEQ,
+         per_agent=FAM_PER_AGENT, ssm_chunk=cfg.ssm_chunk)
+    totals = phase_train(cfg, {r: (N, {}, RULE_KERNELS[r]) for r in RULES},
+                         FAM_STEPS, seq=FAM_SEQ, per_agent=FAM_PER_AGENT,
+                         phase="families_train",
+                         vs_gather="families_vs_gather")
+    a_totals, _ = phase_async(
+        cfg, {"trimmed_mean": ASYNC_RULES["trimmed_mean"]}, FAM_STEPS,
+        seq=FAM_SEQ, per_agent=FAM_PER_AGENT, phase="families_async")
+    family_profile(cfg)
+    t1 = time.perf_counter()
+    for arch in FAM_SMOKE_ARCHS:
+        scfg = get_config(arch + "-smoke")
+        counts = family_pairs(scfg, FAM_SMOKE_RULES, FAM_SMOKE_SEQ, 7,
+                              routing=scfg.family == "moe")
+        for k, v in counts.items():
+            a_totals[k] += v
+    for k, v in a_totals.items():
+        totals[k] += v
+    emit("families_phase", mamba2_s=t1 - t0,
+         smoke_s=time.perf_counter() - t1,
+         seconds=time.perf_counter() - t0)
+    return totals
+
+
 def main():
     # deterministic cuBLAS for the kernel-vs-gather phase: set before the
     # first CUDA call
@@ -5639,6 +6036,7 @@ def main():
                     phase_coded_elastic(cfg)]
     tel_totals = phase_telemetry(cfg)
     p2p_totals = phase_p2p_resilience(num_params(cfg))
+    fam_totals = phase_families()
     # m_krum and mda run no kernel that multi_krum's and bulyan's traced
     # steps leave out (K2, K10, K11), so they are not traced
     phase_profile(cfg, {"trimmed_mean": (N, {}, ()), "krum": (N, {}, ()),
@@ -5672,7 +6070,8 @@ def main():
                                   + rules15_totals[name]
                                   + sum(t[name] for t in coded_totals)
                                   + tel_totals[name]
-                                  + p2p_totals[name]),
+                                  + p2p_totals[name]
+                                  + fam_totals[name]),
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": s["bound_by"],

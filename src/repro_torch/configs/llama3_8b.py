@@ -1,0 +1,20 @@
+"""Llama-3-8B  [arXiv:2407.21783]
+
+32L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=128256 — GQA, 128k vocab.
+Full attention.  Same dimensions as ``repro.configs.llama3_8b``.
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="llama3-8b",
+    family="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=14336,
+    vocab_size=128256,
+    rope_theta=500000.0,
+    source="arXiv:2407.21783",
+)

@@ -6,8 +6,10 @@ JAX package:
   q:      (B, T, H, hd)
   k, v:   (B, S, K, hd)          K = kv heads, H % K == 0
 
-Scores are grouped as (B, K, H/K, T, S) and kept in fp32; the causal mask
-writes ``NEG_INF``.  Plain torch ops: the JAX package has no kernel here.
+Scores are grouped as (B, K, H/K, T, S) and kept in fp32; the causal
+(sliding-window) mask writes ``NEG_INF``.  Plain torch ops: the JAX
+package has no kernel here.  The KV ring cache of decode comes with
+serving (ROADMAP.md item 20); M-RoPE and ``qkv_bias`` with slice 10b.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ def init_attention(gen, cfg, dtype):
     hd = cfg.resolved_head_dim
     if cfg.qkv_bias:
         raise NotImplementedError("qkv_bias is not ported (ROADMAP.md "
-                                  "slice 10)")
+                                  "slice 10b)")
     return {
         "wq": dense_init(gen, (D, cfg.num_heads * hd), dtype),
         "wk": dense_init(gen, (D, cfg.num_kv_heads * hd), dtype),
@@ -53,11 +55,24 @@ def gqa_out(cfg, probs, v, params):
     return out @ params["wo"]
 
 
+def _causal_window_mask(T, S, q_offset, window: int, device=None):
+    """Mask (T, S): query i (abs pos q_offset+i) attends key j iff
+    j <= pos and pos - j < window (window=0 -> unlimited)."""
+    q_pos = q_offset + torch.arange(T, device=device)[:, None]
+    k_pos = torch.arange(S, device=device)[None, :]
+    m = k_pos <= q_pos
+    if window:
+        m &= (q_pos - k_pos) < window
+    return m
+
+
 def attention(cfg, params, x, positions=None):
-    """Causal full-sequence attention.  x: (B, T, D) -> (B, T, D)."""
-    if cfg.positional != "rope" or cfg.sliding_window:
+    """Causal (sliding-window when ``cfg.sliding_window``) full-sequence
+    attention.  x: (B, T, D) -> (B, T, D)."""
+    if cfg.positional != "rope":
         raise NotImplementedError(
-            "only full causal RoPE attention is ported (ROADMAP.md slice 10)")
+            f"positional={cfg.positional!r}: only RoPE attention is ported "
+            "(ROADMAP.md slice 10b)")
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
     q = (x @ params["wq"]).reshape(B, T, cfg.num_heads, hd)
@@ -68,7 +83,7 @@ def attention(cfg, params, x, positions=None):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     scores = gqa_scores(cfg, q, k)
-    mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+    mask = _causal_window_mask(T, T, 0, cfg.sliding_window, x.device)
     scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return gqa_out(cfg, probs, v, params)

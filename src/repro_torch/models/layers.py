@@ -1,4 +1,5 @@
-"""Shared model building blocks: norms, RoPE, the SwiGLU MLP, init laws.
+"""Shared model building blocks: norms, the activation, RoPE, the SwiGLU
+MLP, init laws.
 
 Counterpart of ``repro.models.layers``.  Parameters are plain nested dicts
 of tensors with the JAX package's layout (weights stored (in, out), used
@@ -48,8 +49,20 @@ def rms_norm(x, scale, eps: float = 1e-5):
 def apply_norm(cfg, x, scale):
     if cfg.norm != "rms":
         raise NotImplementedError(
-            f"norm={cfg.norm!r}: only rms is ported (ROADMAP.md slice 10)")
+            f"norm={cfg.norm!r}: only rms is ported (ROADMAP.md slice 10b)")
     return rms_norm(x, scale, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# activations
+
+
+def activate(cfg, gate, up):
+    """SwiGLU's gate: silu(gate) * up.  GELU comes with slice 10b."""
+    if cfg.act != "silu":
+        raise NotImplementedError(
+            f"act={cfg.act!r}: only SwiGLU is ported (ROADMAP.md slice 10b)")
+    return F.silu(gate) * up
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +102,7 @@ def init_mlp(gen, cfg, dtype):
     D, Fd = cfg.d_model, cfg.d_ff
     if cfg.act != "silu":
         raise NotImplementedError(
-            f"act={cfg.act!r}: only SwiGLU is ported (ROADMAP.md slice 10)")
+            f"act={cfg.act!r}: only SwiGLU is ported (ROADMAP.md slice 10b)")
     return {
         "w_gate": dense_init(gen, (D, Fd), dtype),
         "w_up": dense_init(gen, (D, Fd), dtype),
@@ -99,5 +112,5 @@ def init_mlp(gen, cfg, dtype):
 
 def mlp(cfg, params, x):
     """SwiGLU: silu(x W_gate) * (x W_up) W_down."""
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    h = activate(cfg, x @ params["w_gate"], x @ params["w_up"])
     return h @ params["w_down"]

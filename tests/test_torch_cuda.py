@@ -1041,3 +1041,107 @@ def test_cuda_coded_decode_matches_plain(cuda_device, n, r, masked, hazard,
     assert torch.equal(out, ref)
     assert torch.equal(flat_draco_aggregate(x, r, mask=mask, groups=groups),
                        out)
+
+
+# ---------------------------------------------------------------------------
+# the text families (ROADMAP.md item 22a) on the card: no kernel of their
+# own; their forward, the MoE dispatch's determinism and the mixed-dtype
+# step over the existing kernels
+
+FAMILY_ARCHS = ["mamba2-130m-smoke", "mixtral-8x22b-smoke",
+                "llama4-scout-17b-a16e-smoke", "zamba2-7b-smoke",
+                "h2o-danube-3-4b-smoke"]
+
+
+def family_setup(arch, seed=0):
+    """The fp32 smoke config, the port's own weights on the CPU and a
+    (2, 80) token batch (T = 80: past the reduced window of 64, three SSD
+    chunks of 32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(arch).replace(dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 80),
+                           generator=torch.Generator().manual_seed(seed + 1))
+    return cfg, params, {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_cuda_family_forward_matches_cpu(cuda_device, arch):
+    """The same fp32 weights and batch on the card and on the CPU: logits
+    within 1e-4 relative to the largest logit (fp32 reassociation of the
+    matmuls and the scans between the two backends, no TF32), the MoE
+    aux within 1e-5, the loss finite."""
+    from repro_torch.models import forward_train, loss_fn
+    from repro_torch.tree import tree_map
+    cfg, params, batch = family_setup(arch)
+    ref, ref_aux = forward_train(cfg, params, batch)
+    on = tree_map(lambda t: t.to(cuda_device), params)
+    dbatch = {k: v.to(cuda_device) for k, v in batch.items()}
+    out, aux = forward_train(cfg, on, dbatch)
+    peak = float(ref.abs().max())
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-4,
+                               atol=1e-4 * (1.0 + peak))
+    torch.testing.assert_close(aux.cpu(), ref_aux, rtol=1e-5, atol=1e-5)
+    assert torch.isfinite(loss_fn(cfg, on, dbatch, remat=True))
+
+
+@pytest.mark.cuda
+def test_cuda_moe_dispatch_is_deterministic(cuda_device):
+    """mixtral-smoke's MoE block at capacity_factor 0.5 (drops, and R2's
+    overwrite) twice on the card: the output and the input's gradient
+    bitwise equal; the dispatch of one set of router probabilities (kept
+    entries, slots, R2) equal to the CPU's."""
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+    cfg, params, _ = family_setup("mixtral-8x22b-smoke")
+    cfg = cfg.replace(capacity_factor=0.5)
+    blk = tree_map(lambda t: t[0].to(cuda_device), params["blocks"]["moe"])
+    x = torch.randn((2, 80, cfg.d_model),
+                    generator=torch.Generator().manual_seed(3))
+    runs = []
+    for _ in range(2):
+        xd = x.to(cuda_device).requires_grad_(True)
+        out, aux = moe.moe_block(cfg, blk, xd)
+        (g,) = torch.autograd.grad(out.square().sum() + aux, xd)
+        runs.append((out.detach(), g))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    probs = torch.softmax(x.reshape(160, -1) @ params["blocks"]["moe"][
+        "router"][0], -1)
+    C = moe.capacity(cfg, 160)
+    cpu = moe.route(cfg, probs, C)
+    card = moe.route(cfg, probs.to(cuda_device), C)
+    for a, b in zip(cpu[1:], card[1:]):
+        assert torch.equal(a, b.cpu())
+    assert bool(cpu[4]) and int((~cpu[3]).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule,names", [
+    ("trimmed_mean", ("coord_stat",)),
+    ("krum", ("gram", "krum_select", "weighted_sum"))])
+def test_cuda_native_mamba2_step_runs_its_kernels(cuda_device, rule, names):
+    """One synchronous step of mamba2-130m-smoke in its native dtypes
+    (bf16 leaves beside fp32 A_log / dt_bias / D_skip: an fp32 arena) on
+    the card: the rule's kernels launched once each, the loss finite, and
+    every leaf back in its own dtype."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.aggregators import make_spec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import adamw, constant
+    from repro_torch.training import ByzantineConfig, train_loop
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("mamba2-130m-smoke")
+    bz = ByzantineConfig(n_agents=8, f=F, aggregator=make_spec(
+        rule, f=F, n=8), attack="sign_flip")
+    ds = SyntheticLM(cfg.vocab_size, 80, 8, 1)
+    kernels.reset_launch_counts()
+    params, hist = train_loop(cfg, bz, adamw(constant(1e-3)), ds, steps=1,
+                              device=cuda_device)
+    counts = kernels.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {k: 1 for k in names}
+    assert math.isfinite(hist[-1]["loss"])
+    dtypes = {str(t.dtype) for t in tree_leaves(params)}
+    assert dtypes == {"torch.bfloat16", "torch.float32"}

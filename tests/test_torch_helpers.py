@@ -37,6 +37,27 @@ from repro_torch.training import ByzantineConfig, make_train_step
 # xdist runs several test processes at once: keep each one's torch small
 torch.set_num_threads(2)
 
+
+def _keep_freed_blocks():
+    """Have glibc's malloc serve and keep the (n, P) temporaries of the
+    CPU laws (tens of MB each) from its heap: by default a block over
+    32 MB is mapped fresh for each allocation and unmapped on free, so
+    every temporary faults its pages in again (most of the heavy files'
+    system time).  Nothing changes where there is no glibc."""
+    import ctypes
+    import ctypes.util
+    try:
+        libc = ctypes.CDLL(ctypes.util.find_library("c"))
+        mallopt = libc.mallopt
+    except (OSError, AttributeError, TypeError):
+        return
+    m_trim_threshold, m_mmap_threshold = -1, -3
+    mallopt(m_mmap_threshold, 256 << 20)
+    mallopt(m_trim_threshold, 256 << 20)
+
+
+_keep_freed_blocks()
+
 ARCH = "paper-100m-smoke"
 N, F = 8, 2
 SEQ, BATCH = 32, 2
@@ -59,6 +80,37 @@ def jax_params_numpy(seed=0):
                         jax_init_params(jcfg, jax.random.PRNGKey(seed)))
 
 
+# the text families (ROADMAP.md item 22a) at their smoke reductions: T = 80
+# is past the reduced window of 64 and spans three reduced SSD chunks of
+# 32, the last one padded
+FAMILY_SEQ = 80
+
+
+def family_configs(arch, dtype="float32"):
+    """(torch cfg, jax cfg) of ``arch`` in ``dtype`` (None: its native
+    dtype, bf16 with the fp32 SSM / router leaves)."""
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    if dtype is None:
+        return cfg, jcfg
+    return cfg.replace(dtype=dtype), jcfg.replace(dtype=dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def family_params_numpy(arch, dtype="float32", seed=0):
+    """JAX's ``init_params`` of ``arch`` as numpy, drawn once a (arch,
+    dtype, seed) and shared read-only by the callers."""
+    _, jcfg = family_configs(arch, dtype)
+    return jax.tree.map(np.asarray,
+                        jax_init_params(jcfg, jax.random.PRNGKey(seed)))
+
+
+def family_model(arch, dtype="float32", seq=FAMILY_SEQ):
+    """(torch cfg, jax cfg, the JAX weights as numpy, sequence length) of
+    ``arch`` in ``dtype``."""
+    return (*family_configs(arch, dtype), family_params_numpy(arch, dtype),
+            seq)
+
+
 def leaves_np(tree):
     """Leaves of a numpy/jax tree in jax.tree.flatten order."""
     return [np.asarray(x) for x in jax.tree.leaves(tree)]
@@ -68,17 +120,18 @@ def flat_np(tree):
     return np.concatenate([x.ravel() for x in leaves_np(tree)])
 
 
-def batch_np(seed, n=N, parallel=False):
+def batch_np(seed, n=N, parallel=False, seq=SEQ):
     """(n, b) starts drawn on the JAX side -> the torch batch and the
-    matching JAX batch.  ``parallel``: every agent gets agent 0's batch
-    (the gradient-coding regime: the agents of a group compute the same
-    shard)."""
+    matching JAX batch of ``seq`` tokens.  ``parallel``: every agent gets
+    agent 0's batch (the gradient-coding regime: the agents of a group
+    compute the same shard).  Every smoke config has paper-100m-smoke's
+    vocabulary of 512."""
     cfg, _ = configs()
     starts = np.asarray(jax.random.randint(jax.random.PRNGKey(seed),
                                            (n, BATCH), 0, cfg.vocab_size))
     if parallel:
         starts = np.repeat(starts[:1], n, axis=0)
-    tb = SyntheticLM(cfg.vocab_size, SEQ, n, BATCH).batch(starts)
+    tb = SyntheticLM(cfg.vocab_size, seq, n, BATCH).batch(starts)
     jb = {k: jnp.asarray(v.numpy().astype(np.int32)) for k, v in tb.items()}
     return tb, jb
 
@@ -155,6 +208,23 @@ def recording_specs(jspec, tspec, record):
                         for f in dataclasses.fields(tspec)}))
 
 
+# jitted JAX steps, built once a configuration in a test process: a trace's
+# rows are the step's inputs, so the tests of one configuration under two
+# traces share one compile.  A recording spec's callback writes into its
+# own test's record, so those steps are not kept.
+_JAX_STEPS: dict = {}
+
+
+def jax_step(key, build, keep=True):
+    """``jax.jit(build())``, kept under ``key`` (reprs of the configuration)
+    when ``keep`` and no repr in it is abridged."""
+    if not keep or any("..." in str(k) for k in key):
+        return jax.jit(build())
+    if key not in _JAX_STEPS:
+        _JAX_STEPS[key] = jax.jit(build())
+    return _JAX_STEPS[key]
+
+
 def resync_state(jp, js):
     """The torch parameters and AdamW state of the JAX side's."""
     return (params_from_numpy(jax.tree.map(np.asarray, jp)),
@@ -164,7 +234,8 @@ def resync_state(jp, js):
 
 
 def run_slice(rule, alpha, steps=3, attack="sign_flip", n=N, agg_dtype="",
-              resync=False, record=None, specs=None, f=F, draco_r=0):
+              resync=False, record=None, specs=None, f=F, draco_r=0,
+              model=None):
     """Run the JAX step (impl="pallas") and the torch step (impl="auto")
     side by side from the same weights and batches, with ``n`` agents
     and exchange dtype ``agg_dtype``; returns per step (jax loss, torch
@@ -175,10 +246,13 @@ def run_slice(rule, alpha, steps=3, attack="sign_flip", n=N, agg_dtype="",
     ``aggregate_flat`` calls (:func:`recording_specs`).  ``specs``: a
     (jax spec, torch spec) pair in place of the rule's kernel specs,
     built for ``f``; ``draco_r``: the coded step, on the parallel
-    regime's batches."""
-    cfg, jcfg = configs()
-    jp = jax.tree.map(jnp.asarray, jax_params_numpy())
-    tp = params_from_numpy(jax_params_numpy())
+    regime's batches.  ``model``: ``(arch, dtype)``, the family's smoke
+    model (weights and batches of :func:`family_model`) in place of
+    paper-100m-smoke."""
+    fam = model and family_model(*model)
+    cfg, jcfg, pnp, seq = fam or (*configs(), jax_params_numpy(), SEQ)
+    jp = jax.tree.map(jnp.asarray, pnp)
+    tp = params_from_numpy(pnp)
     jo = _jax_recording(jopt.adamw(jopt.constant(LR), eps=EPS))
     to = _torch_recording(topt.adamw(topt.constant(LR), eps=EPS))
     if specs is None:
@@ -189,9 +263,11 @@ def run_slice(rule, alpha, steps=3, attack="sign_flip", n=N, agg_dtype="",
         jspec, spec = specs
     if record is not None:
         jspec, spec = recording_specs(jspec, spec, record)
-    jstep = jax.jit(jax_make_train_step(jcfg, JaxBz(
-        n_agents=n, f=f, aggregator=jspec, attack=attack,
-        momentum_alpha=alpha, agg_dtype=agg_dtype, draco_r=draco_r), jo))
+    jbz = JaxBz(n_agents=n, f=f, aggregator=jspec, attack=attack,
+                momentum_alpha=alpha, agg_dtype=agg_dtype, draco_r=draco_r)
+    jstep = jax_step(("sync", repr(jcfg), repr(jbz)),
+                     lambda: jax_make_train_step(jcfg, jbz, jo),
+                     keep=record is None)
     tstep = make_train_step(cfg, ByzantineConfig(
         n_agents=n, f=f, aggregator=spec, attack=attack,
         momentum_alpha=alpha, agg_dtype=agg_dtype, draco_r=draco_r), to,
@@ -201,10 +277,10 @@ def run_slice(rule, alpha, steps=3, attack="sign_flip", n=N, agg_dtype="",
     if alpha:
         jm = jax.tree.map(lambda p: jnp.zeros((n,) + p.shape, jnp.float32),
                           jp)
-        tm = init_momentum(n, int(flat_np(jax_params_numpy()).size), "cpu")
+        tm = init_momentum(n, int(flat_np(pnp).size), "cpu")
     out = []
     for step in range(steps):
-        tb, jb = batch_np(100 + step, n, parallel=bool(draco_r))
+        tb, jb = batch_np(100 + step, n, parallel=bool(draco_r), seq=seq)
         jp, js, jm, jmet = jstep(jp, js, jm, jb, jax.random.PRNGKey(7))
         tp, ts, tm, tmet = tstep(tp, ts, tm, tb)
         jax.effects_barrier()
@@ -254,9 +330,10 @@ def churn_sim(mod):
 
 
 @functools.lru_cache(maxsize=None)
-def in_flight_np(seed, n=N):
-    """A nonzero (n, ...) fp32 tree shaped like the parameters: the
-    buffer (and momentum) both steps start from.  Drawn once a (seed, n)
+def in_flight_np(seed, n=N, arch=None, dtype="float32"):
+    """A nonzero (n, ...) fp32 tree shaped like the parameters (of
+    ``arch`` in ``dtype``, else paper-100m-smoke's): the buffer (and
+    momentum) both steps start from.  Drawn once a (seed, n, arch, dtype)
     and read-only: the callers copy it into each side."""
     rng = np.random.default_rng(seed)
 
@@ -264,13 +341,15 @@ def in_flight_np(seed, n=N):
         a = (rng.normal(size=(n,) + p.shape) * 1e-2).astype(np.float32)
         a.flags.writeable = False
         return a
-    return jax.tree.map(leaf, jax_params_numpy())
+    return jax.tree.map(leaf, jax_params_numpy() if arch is None
+                        else family_params_numpy(arch, dtype))
 
 
 def run_async(rule, alpha, trace="stragglers", steps=4,
               attack="sign_flip", n=N, quorum=6, resync=False, agg_dtype="",
               record=None, specs=None, attack_hyper=({}, {}), f=F,
-              draco_r=0, fallback_r=0, sims=None, telemetry=None):
+              draco_r=0, fallback_r=0, sims=None, telemetry=None,
+              model=None):
     """Per step (jax loss, torch loss, jax agg, torch agg, jax params,
     torch params, jax buffer, torch buffer, jax server_grad, torch
     server_grad) as flat numpy (the last two None for a stateless rule),
@@ -291,10 +370,13 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
     missed its quorum takes the code), on the parallel regime's batches;
     ``sims``: a (jax, torch) SimConfig pair in place of the trace's.
     ``telemetry``: a list; both steps are built with ``telemetry=True``
-    and each step appends the (jax, torch) telemetry rows, as numpy."""
-    cfg, jcfg = configs()
-    jp = jax.tree.map(jnp.asarray, jax_params_numpy())
-    tp = params_from_numpy(jax_params_numpy())
+    and each step appends the (jax, torch) telemetry rows, as numpy.
+    ``model``: ``(arch, dtype)``, the family's smoke model (weights and
+    batches of :func:`family_model`) in place of paper-100m-smoke."""
+    fam = model and family_model(*model)
+    cfg, jcfg, pnp, seq = fam or (*configs(), jax_params_numpy(), SEQ)
+    jp = jax.tree.map(jnp.asarray, pnp)
+    tp = params_from_numpy(pnp)
     jo = _jax_recording(jopt.adamw(jopt.constant(LR), eps=EPS))
     to = _torch_recording(topt.adamw(topt.constant(LR), eps=EPS))
     if trace == "churn":
@@ -333,12 +415,12 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
     np.testing.assert_array_equal(tw, jw)
     jsteps, tsteps = {}, {}
     js, ts = jo.init(jp), to.init(tp)
-    buf0 = in_flight_np(1, n)
+    buf0 = in_flight_np(1, n, *(model or ()))
     jbuf = jax.tree.map(jnp.asarray, buf0)
     tbuf = arena_from_numpy(buf0)
     jm = tm = None
     if alpha:
-        m0 = in_flight_np(2, n)
+        m0 = in_flight_np(2, n, *(model or ()))
         jm, tm = jax.tree.map(jnp.asarray, m0), arena_from_numpy(m0)
     out = []
     for k, r in enumerate(rows):
@@ -353,13 +435,18 @@ def run_async(rule, alpha, trace="stragglers", steps=4,
             extra_t = (torch.as_tensor(idx, dtype=torch.int64),
                        torch.as_tensor(valid))
         if b not in jsteps:
-            jsteps[b] = jax.jit(JS.make_async_step(
-                jcfg, jbz, jo, fallback_r=fallback_r, bucket=b,
-                telemetry=telemetry is not None))
+            jsteps[b] = jax_step(
+                ("async", repr(jcfg), repr(jbz), fallback_r, b,
+                 telemetry is not None),
+                lambda: JS.make_async_step(jcfg, jbz, jo,
+                                           fallback_r=fallback_r, bucket=b,
+                                           telemetry=telemetry is not None),
+                keep=record is None)
             tsteps[b] = TS.make_async_step(cfg, tbz, to, device="cpu",
                                            fallback_r=fallback_r, bucket=b,
                                            telemetry=telemetry is not None)
-        tb, jb = batch_np(300 + k, n, parallel=bool(draco_r or fallback_r))
+        tb, jb = batch_np(300 + k, n, parallel=bool(draco_r or fallback_r),
+                          seq=seq)
         refresh = jtr.refresh[r]
         use_coded = bool(fallback_r) and not ttr.quorum_met[r]
         jp, js, jm, jbuf, jst, jmet = jsteps[b](

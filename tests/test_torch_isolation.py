@@ -5,9 +5,10 @@
 * the entry points (``train_loop`` with and without ``sim=``,
   ``async_train_loop``, ``make_train_step``, ``make_async_step``,
   ``python -m repro_torch.launch.train`` with and without the simulator
-  flags, ``p2p_dgd_run``, ``estimate_alpha_f``, ``estimate_delta_c``)
-  raise on a host without CUDA unless the caller asks for the CPU — and
-  with ``device="cpu"`` they run.
+  flags and with the text families' ``--arch``, ``p2p_dgd_run``,
+  ``estimate_alpha_f``, ``estimate_delta_c``) raise on a host without
+  CUDA unless the caller asks for the CPU — and with ``device="cpu"``
+  they run.
 """
 import ast
 import math
@@ -71,6 +72,47 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+FAMILY_MODULES = ["repro_torch.models.ssm", "repro_torch.models.moe",
+                  "repro_torch.models.transformer",
+                  "repro_torch.configs.mamba2_130m",
+                  "repro_torch.configs.mixtral_8x22b",
+                  "repro_torch.configs.llama4_scout_17b_a16e",
+                  "repro_torch.configs.zamba2_7b",
+                  "repro_torch.configs.h2o_danube_3_4b",
+                  "repro_torch.configs.llama3_8b",
+                  "repro_torch.configs.phi4_mini_3_8b",
+                  "repro_torch.configs.internlm2_20b"]
+
+
+def test_family_modules_import_and_run_with_jax_and_repro_blocked():
+    """The text families' modules (ROADMAP.md item 22a) import with jax and
+    repro blocked, and a mamba2 / mixtral / zamba2 smoke forward runs
+    there."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[m] = None\n"
+        f"for name in {FAMILY_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models import init_params, loss_fn\n"
+        "for arch in ('mamba2-130m', 'mixtral-8x22b', 'zamba2-7b'):\n"
+        "    cfg = get_config(arch + '-smoke')\n"
+        "    p = init_params(cfg, torch.Generator().manual_seed(0))\n"
+        "    t = torch.zeros(1, 8, dtype=torch.long)\n"
+        "    assert torch.isfinite(loss_fn(cfg, p, {'tokens': t, "
+        "'labels': t}))\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def _smoke_setup(n=4, f=1, rule="coordinate_median"):
     cfg = get_config("paper-100m-smoke")
     ds = SyntheticLM(cfg.vocab_size, 16, n, 1)
@@ -103,6 +145,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for flags in SIM_FLAGS:
         with pytest.raises(RuntimeError, match="CUDA"):
             launch_train.main(["--smoke", "--steps", "1"] + flags)
+    for arch in ("mamba2-130m", "mixtral-8x22b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launch_train.main(["--arch", arch, "--smoke", "--steps", "1"])
 
 
 @pytest.mark.parametrize("rule", ["coordinate_median", "trimmed_mean",
@@ -150,6 +195,22 @@ def test_cli_runs_on_cpu_when_asked(capsys):
                               "--per-agent-batch", "1"])
     assert math.isfinite(hist[-1]["loss"])
     assert "final loss" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "mixtral-8x22b",
+                                  "zamba2-7b"])
+def test_cli_runs_the_text_families_on_cpu_when_asked(arch, capsys):
+    """``--arch <family> --smoke`` through the launcher: the SSM's mixed
+    bf16 / fp32 tree on the fp32 arena, the MoE aux in the loss, the
+    hybrid's shared block; sync, then async (quorum 3 of 4)."""
+    for extra in ([], ["--quorum", "3"]):
+        hist = launch_train.main(
+            ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+             "--n-agents", "4", "--f", "1", "--filter", "trimmed_mean",
+             "--attack", "sign_flip", "--seq-len", "16",
+             "--per-agent-batch", "1"] + extra)
+        assert math.isfinite(hist[-1]["loss"])
+        assert "final loss" in capsys.readouterr().out
 
 
 def test_cli_runs_bulyan_on_cpu_when_asked(capsys):
